@@ -1,0 +1,650 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+Run from the repository root on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+
+1. device: requires CUDA and prints the card's name and power limit;
+2. build: compiles the three CUDA kernels from ``src/repro_torch/kernels/csrc``
+   with nvcc (one process per source, all at once) and prints the time;
+3. kernels: holds each kernel against its plain PyTorch version on the card
+   at the main path's shapes plus edge cases (bf16 tolerance rtol = atol =
+   2e-2; exact zeros on dead rows and length-0 rows), and times kernel,
+   plain version and one PyTorch library call with CUDA events;
+4. serving: builds ``ServingEngine`` on qwen3-moe-30b-a3b at full width and
+   depth in bf16 with seeded random weights, serves 12 requests with the
+   launch counters zeroed just before, and checks every request, every
+   token and every kernel's launch count; it records per phase (prefill,
+   decode) the head kernel's live rows, the tail kernel's valid rows and
+   the tokens dropped, and fails if either kernel never had a row to
+   compute; a profiled window of decode steps then splits a step into
+   device time, host sieve time and idle share, and a 2-layer slice of the
+   same weights is held against the plain path on the CPU.
+
+It prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
+as its last line ``{"ok": true, "device": {...}}``.  Details go to
+``chiprun_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
+TOL = dict(rtol=2e-2, atol=2e-2)  # bf16, as tests/test_fused_swiglu.py:50
+
+SOURCES = {
+    "swiglu_gmm_capacity": ("src/repro_torch/kernels/csrc/fused_swiglu_gmm.cu",
+                            "src/repro/kernels/fused_swiglu.py:133"),
+    "swiglu_gemv": ("src/repro_torch/kernels/csrc/fused_swiglu_gemv.cu",
+                    "src/repro/kernels/fused_swiglu.py:289"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:193"),
+}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 1: device
+# ---------------------------------------------------------------------------
+
+
+def phase_device() -> str:
+    if not (SRC / "repro_torch").is_dir():
+        fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repository")
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"device: {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
+        f"cuda {torch.version.cuda} | {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    return card
+
+
+# ---------------------------------------------------------------------------
+# phase 2: build
+# ---------------------------------------------------------------------------
+
+
+def phase_build() -> dict:
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    logs = build.build(build.KERNELS)
+    for name in build.KERNELS:
+        build.load(name)
+    seconds = time.perf_counter() - t0
+    log(f"build: {len(build.KERNELS)} kernels in {seconds:.1f} s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+    return {"seconds": seconds, "ptxas": logs}
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` over ``iters`` launches, each after an
+    L2 flush, by CUDA events."""
+    import torch
+
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        total += e0.elapsed_time(e1)
+    return total / iters
+
+
+def _compare(name: str, got, want, zero_rows=None) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{name}: shape/dtype {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} {want.dtype}")
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        fail(f"{name}: non-finite kernel output")
+    err = float((g - w).abs().max())
+    if not torch.allclose(g, w, **TOL):
+        fail(f"{name}: kernel disagrees with its plain version, max |err| = {err}")
+    if zero_rows is not None and bool((g[zero_rows] != 0).any()):
+        fail(f"{name}: rows that must be exactly zero are not")
+    return err
+
+
+def _decode_routing(E: int, k: int, n_tok: int, seed: int):
+    """Per-expert counts of one decode step's routing: ``n_tok`` tokens
+    each choosing ``k`` distinct experts."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    counts = np.zeros(E, np.int64)
+    for _ in range(n_tok):
+        counts[rng.choice(E, size=k, replace=False)] += 1
+    return counts
+
+
+def phase_kernels(arch) -> dict:
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    bf = torch.bfloat16
+    E, K, Fd, N = arch.moe.n_experts, arch.d_model, arch.moe.d_expert, arch.d_model
+    a = arch.attn
+    n_slots, max_seq = 8, 1024
+
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    wg = rnd((E, K, Fd), K**-0.5)
+    wu = rnd((E, K, Fd), K**-0.5)
+    wd = rnd((E, Fd, N), Fd**-0.5)
+    counts = _decode_routing(E, arch.moe.top_k, n_slots, seed=1)
+    results = {}
+
+    # ---- kernel 1: head grouped SwiGLU ----
+    C_dec = 8  # capacity(T=8) at qwen3-30b, min_capacity floor
+    head = np.where(counts >= 2, counts, 0)
+    errs = []
+    for C, sizes in (
+        (C_dec, head),  # the decode step's head split
+        (40, np.random.default_rng(2).integers(0, 41, E)),  # prefill, T=512
+        (C_dec, np.r_[np.zeros(E // 2, np.int64), np.full(E // 2, C_dec)]),  # all-dead groups
+    ):
+        buf = rnd((E, C, K))
+        gs = torch.as_tensor(sizes, dtype=torch.int32, device=dev)
+        got = ops.swiglu_gmm_capacity(buf, wg, wu, wd, gs)
+        want = ref.fused_swiglu_gmm_ref(buf, wg, wu, wd, gs)
+        dead = torch.arange(C, device=dev)[None, :] >= gs[:, None]
+        errs.append(_compare(f"swiglu_gmm_capacity C={C}", got, want, zero_rows=dead))
+    buf = rnd((E, C_dec, K))
+    gs = torch.as_tensor(head, dtype=torch.int32, device=dev)
+    live_rows = int(head.sum())
+    n_live = int((head > 0).sum())
+
+    def library_head():
+        h = F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
+        return torch.bmm(h, wd) * (torch.arange(C_dec, device=dev)[None, :, None] < gs[:, None, None])
+
+    byts = n_live * 3 * K * Fd * 2 + live_rows * K * 2 + E * C_dec * N * 2 + E * 4
+    flops = 2 * live_rows * 3 * K * Fd
+    results["swiglu_gmm_capacity"] = dict(
+        max_abs_err=max(errs),
+        ms=time_ms(lambda: ops.swiglu_gmm_capacity(buf, wg, wu, wd, gs)),
+        plain_ms=time_ms(lambda: ref.fused_swiglu_gmm_ref(buf, wg, wu, wd, gs)),
+        library_ms=time_ms(library_head),
+        bytes=byts, flops=flops,
+        shape=f"buf ({E},{C_dec},{K}), {n_live} live groups, {live_rows} live rows",
+    )
+
+    # ---- kernel 2: tail per-row SwiGLU GEMV ----
+    S = E  # E * tau rows, tau = 1
+    eids = torch.arange(E, dtype=torch.int32, device=dev)
+    valid_np = (counts == 1).astype(np.int32)
+    errs = []
+    for v in (valid_np, np.zeros(S, np.int32), np.ones(S, np.int32)):
+        toks = rnd((S, K))
+        valid = torch.as_tensor(v, device=dev)
+        got = ops.swiglu_gemv(toks, wg, wu, wd, eids, valid)
+        want = ref.fused_swiglu_gemv_ref(toks, wg, wu, wd, eids, valid)
+        errs.append(_compare("swiglu_gemv", got, want, zero_rows=valid == 0))
+    # strided rows, as the tail path passes buf[:, :1]
+    slab = rnd((E, C_dec, K))
+    valid = torch.as_tensor(valid_np, device=dev)
+    got = ops.swiglu_gemv(slab[:, :1].reshape(E, K), wg, wu, wd, eids, valid)
+    want = ref.fused_swiglu_gemv_ref(slab[:, 0].contiguous(), wg, wu, wd, eids, valid)
+    errs.append(_compare("swiglu_gemv strided", got, want, zero_rows=valid == 0))
+    toks = rnd((S, K))
+    n_valid = int(valid_np.sum())
+
+    def library_tail():
+        h = F.silu(torch.bmm(toks[:, None], wg)) * torch.bmm(toks[:, None], wu)
+        return torch.bmm(h, wd)[:, 0] * valid[:, None]
+
+    results["swiglu_gemv"] = dict(
+        max_abs_err=max(errs),
+        ms=time_ms(lambda: ops.swiglu_gemv(toks, wg, wu, wd, eids, valid)),
+        plain_ms=time_ms(lambda: ref.fused_swiglu_gemv_ref(toks, wg, wu, wd, eids, valid)),
+        library_ms=time_ms(library_tail),
+        bytes=n_valid * (3 * K * Fd * 2 + K * 2) + S * N * 2 + S * 8,
+        flops=2 * n_valid * 3 * K * Fd,
+        shape=f"tokens ({S},{K}), {n_valid} valid rows",
+    )
+    del wg, wu, wd
+
+    # ---- kernel 3: decode attention ----
+    B, H, Kv, dh = n_slots, a.n_heads, a.n_kv_heads, a.d_head
+    rng = np.random.default_rng(3)
+    errs = []
+    for T, lens in (
+        (max_seq, rng.integers(129, 545, B)),  # the serving shape
+        (1000, np.r_[0, 1000, 999, 63, 64, 65, 1, 500]),  # ragged tail, length 0
+    ):
+        q = rnd((B, H, dh))
+        ck, cv = rnd((B, T, Kv, dh)), rnd((B, T, Kv, dh))
+        L = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+        got = ops.decode_attention(q, ck, cv, L)
+        want = ref.decode_attention_ref(q, ck, cv, L)
+        errs.append(_compare(f"decode_attention T={T}", got, want, zero_rows=L == 0))
+    lens = rng.integers(129, 545, B)
+    q = rnd((B, H, dh))
+    ck, cv = rnd((B, max_seq, Kv, dh)), rnd((B, max_seq, Kv, dh))
+    L = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+    mask = (torch.arange(max_seq, device=dev)[None, :] < L[:, None])[:, None, None, :]
+    G = H // Kv
+
+    def library_attn():
+        # the G query heads of a kv head are G query rows of one SDPA head
+        return F.scaled_dot_product_attention(
+            q.view(B, Kv, G, dh), ck.transpose(1, 2), cv.transpose(1, 2), attn_mask=mask,
+        )
+
+    results["decode_attention"] = dict(
+        max_abs_err=max(errs),
+        ms=time_ms(lambda: ops.decode_attention(q, ck, cv, L)),
+        plain_ms=time_ms(lambda: ref.decode_attention_ref(q, ck, cv, L)),
+        library_ms=time_ms(library_attn),
+        bytes=int(lens.sum()) * Kv * dh * 2 * 2 + 2 * B * H * dh * 2 + B * 4,
+        flops=4 * int(lens.sum()) * H * dh,
+        shape=f"q ({B},{H},{dh}), cache ({B},{max_seq},{Kv},{dh}), lengths {lens.tolist()}",
+    )
+    for name, r in results.items():
+        r["bound_ms"] = max(r["bytes"] / PEAK_HBM_BYTES, r["flops"] / PEAK_BF16_FLOPS) * 1e3
+        r["bound_by"] = "bytes" if r["bytes"] / PEAK_HBM_BYTES >= r["flops"] / PEAK_BF16_FLOPS else "operations"
+        log(f"kernel {name}: max|err| {r['max_abs_err']:.3g}  kernel {r['ms']:.4f} ms  "
+            f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
+            f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})  [{r['shape']}]")
+    torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 4: serve the full-width model
+# ---------------------------------------------------------------------------
+
+
+class PathProbe:
+    """What the serving run's MoE path did, split by phase (0 prefill, 1
+    decode): live head rows and valid tail rows (summed on the card, no
+    sync), tokens routed and dropped, and the host time of the sieve pass.
+
+    It wraps ``moe.head_stage``/``moe.tail_stage`` and the engine's
+    ``lm.prefill``/``lm.decode_step``/``_run_sieve``; the kernels' launch
+    counters are untouched."""
+
+    def __init__(self, eng):
+        import torch
+
+        from repro_torch.models import moe
+
+        self.eng, self.moe = eng, moe
+        self.phase = 0
+        self.rows = torch.zeros(2, 2, dtype=torch.int64, device="cuda")  # [phase, head/tail]
+        self.routed, self.dropped = [0, 0], [0, 0]
+        self.sieve_s = 0.0
+        self._orig = (moe.head_stage, moe.tail_stage, eng.lm.prefill, eng.lm.decode_step,
+                      eng._run_sieve)
+
+    def install(self) -> None:
+        head, tail, prefill, decode, run_sieve = self._orig
+        rows = self.rows
+
+        def head_stage(slab, wg, wu, wd, sizes):
+            rows[self.phase, 0] += sizes.sum()
+            return head(slab, wg, wu, wd, sizes)
+
+        def tail_stage(toks, wg, wu, wd, eids, valid):
+            rows[self.phase, 1] += valid.sum()
+            return tail(toks, wg, wu, wd, eids, valid)
+
+        def counted(phase, fn):
+            def run(*args):
+                self.phase = phase
+                out = fn(*args)
+                aux = out[2]
+                self.routed[phase] += int(aux.counts.sum())
+                self.dropped[phase] += int(aux.dropped)
+                return out
+            return run
+
+        def timed_sieve(counts):
+            t = time.perf_counter()
+            run_sieve(counts)
+            self.sieve_s += time.perf_counter() - t
+
+        self.moe.head_stage, self.moe.tail_stage = head_stage, tail_stage
+        self.eng.lm.prefill, self.eng.lm.decode_step = counted(0, prefill), counted(1, decode)
+        self.eng._run_sieve = timed_sieve
+
+    def remove(self) -> None:
+        self.moe.head_stage, self.moe.tail_stage = self._orig[:2]
+        del self.eng.lm.prefill, self.eng.lm.decode_step, self.eng._run_sieve
+
+    def summary(self) -> dict:
+        rows = self.rows.tolist()
+        out = {}
+        for phase, name in enumerate(("prefill", "decode")):
+            out[name] = dict(
+                head_rows=rows[phase][0], tail_rows=rows[phase][1],
+                routed_tokens=self.routed[phase], dropped_tokens=self.dropped[phase],
+                drop_share=self.dropped[phase] / max(1, self.routed[phase]),
+            )
+        return out
+
+
+def phase_serve(arch, n_layers: int) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.serving import BatchingConfig, Request, ServingEngine
+
+    arch = dataclasses.replace(arch, n_layers=n_layers)
+    t0 = time.perf_counter()
+    lm = LM(arch, dtype=torch.bfloat16, device="cuda")
+    params = lm.init(seed=0)
+    torch.cuda.synchronize()
+    log(f"serve: {arch.name} {n_layers} layers, weights {torch.cuda.memory_allocated() / 1e9:.1f} GB, "
+        f"init {time.perf_counter() - t0:.1f} s")
+    eng = ServingEngine(lm, params, BatchingConfig(n_slots=8, max_seq=1024))
+    rng = np.random.default_rng(0)
+    reqs = []
+    for _ in range(12):
+        r = Request(
+            prompt=[int(t) for t in rng.integers(0, arch.vocab_size, int(rng.integers(128, 513)))],
+            max_new_tokens=int(rng.integers(16, 33)),
+        )
+        reqs.append(r)
+
+    probe = PathProbe(eng)
+    probe.install()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()  # counts from here on are the main path's
+    t_start = time.perf_counter()
+    for r in reqs:
+        r.arrival_time = t_start
+        eng.submit(r)
+    decode_steps = []  # steps that ran no prefill: (decode tokens, ms, host sieve ms)
+    while not eng.sched.idle:
+        p0, d0, s0 = eng.stats.prefill_tokens, eng.stats.decode_tokens, probe.sieve_s
+        ts = time.perf_counter()
+        eng.step()
+        dt = time.perf_counter() - ts
+        if eng.stats.prefill_tokens == p0:
+            decode_steps.append((eng.stats.decode_tokens - d0, 1e3 * dt, 1e3 * (probe.sieve_s - s0)))
+        if eng.stats.steps > 2000:
+            fail("serving did not finish in 2000 steps")
+    wall = time.perf_counter() - t_start
+    launches = dict(ops.LAUNCHES)
+    probe.remove()
+    path = probe.summary()
+
+    for r in reqs:
+        if len(r.generated) != r.max_new_tokens:
+            fail(f"request {r.req_id} finished with {len(r.generated)} of {r.max_new_tokens} tokens")
+        if not all(0 <= t < arch.vocab_size for t in r.generated):
+            fail(f"request {r.req_id} produced a token outside the vocabulary")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched on the main path")
+    for name, ph in path.items():
+        # every routed assignment is computed by the head or the tail, or dropped
+        if ph["head_rows"] + ph["tail_rows"] + ph["dropped_tokens"] != ph["routed_tokens"]:
+            fail(f"{name}: head + tail rows + drops do not add up to the routed tokens: {ph}")
+    if sum(path[p]["head_rows"] for p in path) == 0:
+        fail("the head kernel never had a live row on the main path")
+    if sum(path[p]["tail_rows"] for p in path) == 0:
+        fail("the tail kernel never had a valid row on the main path")
+    ttft = sorted(r.first_token_time - r.arrival_time for r in reqs)
+    tpot = sorted((r.finish_time - r.first_token_time) / (len(r.generated) - 1) for r in reqs)
+    dec_tok = sum(n for n, _, _ in decode_steps)
+    dec_ms = sum(ms for _, ms, _ in decode_steps)
+    full = [(ms, sv) for n, ms, sv in decode_steps if n == eng.cfg.n_slots]
+    out = dict(
+        n_layers=n_layers,
+        requests=len(reqs),
+        prompt_tokens=eng.stats.prefill_tokens,
+        decode_tokens=eng.stats.decode_tokens,
+        steps=eng.stats.steps,
+        wall_s=wall,
+        decode_tok_per_s=1e3 * dec_tok / dec_ms if dec_ms else 0.0,
+        decode_step_ms=dec_ms / max(1, len(decode_steps)),
+        decode_steps=decode_steps,
+        full_batch_decode_steps=len(full),
+        full_batch_step_ms=sum(ms for ms, _ in full) / max(1, len(full)),
+        full_batch_sieve_ms=sum(sv for _, sv in full) / max(1, len(full)),
+        ttft_p50_s=ttft[len(ttft) // 2], ttft_max_s=ttft[-1],
+        tpot_p50_s=tpot[len(tpot) // 2], tpot_max_s=tpot[-1],
+        dropped_tokens=eng.stats.dropped_tokens, routed_tokens=eng.stats.routed_tokens,
+        path=path,
+        sieve_refreshes=len(eng.sieve_refreshes),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=launches,
+    )
+    log(f"serve: {len(reqs)} requests, {out['prompt_tokens']} prompt + {out['decode_tokens']} "
+        f"decode tokens in {wall:.2f} s ({out['steps']} steps); decode {out['decode_tok_per_s']:.1f} tok/s "
+        f"over {len(decode_steps)} decode-only steps of {out['decode_step_ms']:.1f} ms "
+        f"({len(full)} at a full batch: {out['full_batch_step_ms']:.1f} ms, host sieve "
+        f"{out['full_batch_sieve_ms']:.1f} ms); TTFT p50 {out['ttft_p50_s'] * 1e3:.1f} ms "
+        f"max {out['ttft_max_s'] * 1e3:.1f} ms; TPOT p50 {out['tpot_p50_s'] * 1e3:.2f} ms; "
+        f"launches {launches}")
+    for name, ph in path.items():
+        log(f"serve path {name}: head rows {ph['head_rows']}, valid tail rows {ph['tail_rows']}, "
+            f"dropped {ph['dropped_tokens']} of {ph['routed_tokens']} routed ({ph['drop_share']:.3f})")
+
+    out["profile"] = phase_profile(eng, arch, rng)
+
+    # a 2-layer slice of the same weights against the plain path on the CPU
+    small = dataclasses.replace(arch, n_layers=2)
+    gp = {k: v for k, v in params.items() if k != "blocks"}
+    gp["blocks"] = params["blocks"][:2]
+    del eng, params
+    torch.cuda.empty_cache()
+    cp = _to_cpu(gp)
+    prompt = torch.as_tensor(rng.integers(0, arch.vocab_size, (1, 32)))
+    got = _prefill_decode(LM(small, torch.bfloat16, "cuda"), gp, prompt)
+    want = _prefill_decode(LM(small, torch.bfloat16, "cpu"), cp, prompt)
+    for stage, g, w in zip(("prefill", "decode"), got, want):
+        g, w = g.float().cpu()[..., : arch.vocab_size], w.float()[..., : arch.vocab_size]
+        if not torch.isfinite(g).all():
+            fail(f"{stage} logits are not finite")
+        err = float((g - w).abs().max())
+        scale = float(w.abs().max())
+        cos = float(torch.nn.functional.cosine_similarity(g.flatten(), w.flatten(), dim=0))
+        out[f"ref_{stage}_max_abs_err"] = err
+        out[f"ref_{stage}_cosine"] = cos
+        log(f"reference: 2-layer {stage} logits, card vs CPU plain path: max |err| {err:.4g} "
+            f"(max |logit| {scale:.3g}), cosine {cos:.6f}")
+        # bf16 through two full-width layers on two devices: the products
+        # round at other places, so hold the logits to 5% of their range
+        if err > 5e-2 * scale or cos < 0.999:
+            fail(f"{stage} logits of the card disagree with the CPU plain path")
+    return out
+
+
+def phase_profile(eng, arch, rng, n_steps: int = 4) -> dict:
+    """Where a full-batch decode step's time goes: 8 fresh requests are
+    prefilled, then ``n_steps`` decode steps run on the host clock (the
+    host sieve pass timed on its own), then ``n_steps`` more under
+    ``torch.profiler``.  The idle share comes from the profiled steps
+    alone: 1 - device busy time / their wall time; a busy time above the
+    wall time is a counting fault and fails the run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import Request
+
+    for _ in range(eng.cfg.n_slots):
+        eng.submit(Request(
+            prompt=[int(t) for t in rng.integers(0, arch.vocab_size, 256)],
+            max_new_tokens=2 * n_steps + 2,
+        ))
+    eng.step()  # prefills every slot and decodes once
+    run_sieve, sieve_s = eng._run_sieve, [0.0]
+
+    def timed_sieve(counts):
+        t = time.perf_counter()
+        run_sieve(counts)
+        sieve_s[0] += time.perf_counter() - t
+
+    eng._run_sieve = timed_sieve
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        eng.step()
+    torch.cuda.synchronize()
+    plain_step_ms = 1e3 * (time.perf_counter() - t0) / n_steps
+    sieve_ms = 1e3 * sieve_s[0] / n_steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            eng.step()
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / n_steps
+    del eng._run_sieve
+    rows = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    # device-side rows only (kernels, copies): an op's row repeats the time
+    # of the kernels it launched
+    on_device = [e for e in rows if str(e.device_type).endswith("CUDA")]
+    device_ms = sum(dev_us(e) for e in on_device) / 1e3 / n_steps
+    if device_ms > step_ms:
+        fail(f"profile: device busy {device_ms:.2f} ms exceeds the profiled step {step_ms:.2f} ms")
+    top_dev = sorted(on_device, key=dev_us, reverse=True)[:12]
+    top_cpu = sorted(rows, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
+    launches_per_step = sum(e.count for e in rows if e.key == "cudaLaunchKernel") // n_steps
+    out = dict(
+        plain_step_ms=plain_step_ms, host_sieve_ms=sieve_ms,
+        step_ms=step_ms, device_ms=device_ms,
+        launches_per_step=launches_per_step,
+        idle_share=1.0 - device_ms / step_ms,
+        top_device=[(e.key, e.count // n_steps, dev_us(e) / 1e3 / n_steps) for e in top_dev],
+        top_host=[(e.key, e.count // n_steps, e.self_cpu_time_total / 1e3 / n_steps) for e in top_cpu],
+    )
+    log(f"profile: full-batch decode step {plain_step_ms:.1f} ms unprofiled (host sieve "
+        f"{sieve_ms:.1f} ms); profiled {step_ms:.1f} ms with the device busy {device_ms:.1f} ms, "
+        f"idle share {out['idle_share']:.3f}, {launches_per_step} kernel launches per step")
+    for key, calls, ms in out["top_device"]:
+        log(f"  device {ms:8.3f} ms/step {calls:6d} calls  {key[:90]}")
+    for key, calls, ms in out["top_host"]:
+        log(f"  host   {ms:8.3f} ms/step {calls:6d} calls  {key[:90]} (profiled)")
+    while not eng.sched.idle:
+        eng.step()
+    return out
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+def _prefill_decode(lm, params, prompt):
+    import torch
+
+    dev = lm.device
+    logits_p, req_cache, _ = lm.prefill(params, {"tokens": prompt.to(dev)})
+    cache = lm.init_cache(1, 64)
+    P = prompt.shape[1]
+    for dst, src in zip(cache["blocks"], req_cache["blocks"]):
+        dst[:, :, :P].copy_(src)
+    tok = torch.argmax(logits_p[:, -1].float().cpu(), dim=-1).reshape(1, 1)
+    batch = {"tokens": tok.to(dev), "position": torch.tensor([P], dtype=torch.int32, device=dev)}
+    logits_d, _, _ = lm.decode_step(params, batch, cache)
+    return logits_p, logits_d
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> None:
+    card = phase_device()
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    arch = get_arch("qwen3-moe-30b-a3b")
+    build_info = phase_build()
+    kernels = phase_kernels(arch)
+    serve = phase_serve(arch, n_layers=arch.n_layers)
+
+    rows = []
+    for name, r in kernels.items():
+        source, replaces = SOURCES[name]
+        rows.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=serve["launches"][name], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+        ))
+    kind = torch.cuda.get_device_name(0)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
+        card=card, device=kind, build=build_info, kernels=kernels, serve=serve,
+    ), indent=1, default=str))
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,54 @@
+"""Weight bridge: the JAX ``LM.init`` pytree, as numpy, to the port's
+parameters, so both packages can compute from the same weights.
+
+The caller turns each JAX leaf into numpy first (``np.asarray``); this
+module imports neither JAX nor ``repro``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+# leaves the reference keeps in float32 whatever the model dtype:
+# norm scales/biases and the router (repro/models/moe.py:75)
+_FLOAT32_LEAVES = ("scale", "bias", "w_router")
+
+
+def _leaf(name: str, a, device, dtype) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(np.asarray(a).astype(np.float32)))
+    return t.to(device=device, dtype=torch.float32 if name in _FLOAT32_LEAVES else dtype)
+
+
+def _convert(tree, device, dtype, name: str = ""):
+    if isinstance(tree, dict):
+        return {k: _convert(v, device, dtype, k) for k, v in tree.items()}
+    return _leaf(name, tree, device, dtype)
+
+
+def _unstack(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _unstack(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def params_from_numpy(tree: Dict[str, Any], device,
+                      dtype: torch.dtype) -> Dict[str, Any]:
+    """Convert a JAX ``LM.init`` tree (leaves as numpy arrays) into the
+    port's parameter dict.  The scan-stacked ``tree["blocks"]`` (leading
+    layer axis, ``repro/models/model.py:134``) becomes a list of per-layer
+    dicts; the router and norm scales stay float32, other floating leaves
+    take ``dtype``.  ``device`` is resolved as every entry point resolves
+    it: ``"cuda"`` without a GPU raises."""
+    device = resolve_device(device)
+    out = {k: _convert(v, device, dtype, k) for k, v in tree.items() if k != "blocks"}
+    blocks = tree["blocks"]
+    n_layers = len(np.asarray(blocks["norm1"]["scale"]))
+    out["blocks"] = [
+        _convert(_unstack(blocks, i), device, dtype) for i in range(n_layers)
+    ]
+    return out

@@ -1,0 +1,102 @@
+"""Architecture configuration schema and registry (port's copy).
+
+Counterpart of ``repro.configs.base``, cut to what the port serves: the
+decoder-only ``moe`` family with GQA attention.  MLA, SSM, the encoder-
+decoder and multimodal fields join when those families are ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from dataclasses import dataclass, field
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class AttnConfig:
+    kind: str = "gqa"  # only "gqa" is ported
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    d_head: int = 0
+    qkv_bias: bool = False
+    rope_theta: float = 1e6
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int
+    n_shared: int = 0
+    first_k_dense: int = 0
+    capacity_factor: float = 1.25
+    # Decode batches are tiny; a capacity floor keeps serving drop-free
+    # (cap = min(T, min_capacity) lower bound).
+    min_capacity: int = 8
+    router_aux_coef: float = 0.01
+    # "dense" | "dual_path" | "dual_path_cost" — see repro.configs.base
+    expert_exec: str = "dense"
+    # tail threshold tau: experts with <= tau buffered rows stream through
+    # the tail GEMV (the paper's PIM side)
+    dual_tail_tokens: int = 1
+    # head compaction budget H (0 = no budget, H = E)
+    dual_max_head: int = 0
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str  # only "moe" (and its dense-MLP blocks) is ported
+    n_layers: int
+    d_model: int
+    d_ff: int
+    vocab_size: int
+    attn: AttnConfig = field(default_factory=AttnConfig)
+    moe: Optional[MoEConfig] = None
+    norm: str = "rmsnorm"
+    act: str = "swiglu"
+    pos: str = "rope"
+    tie_embeddings: bool = False
+    source: str = ""
+    notes: str = ""
+
+    @property
+    def is_moe(self) -> bool:
+        return self.moe is not None
+
+    def reduced(self, **overrides) -> "ArchConfig":
+        """Tiny same-family config for CPU smoke tests (same numbers as
+        ``repro.configs.base.ArchConfig.reduced``)."""
+        kw: dict = dict(
+            n_layers=min(self.n_layers, 2),
+            d_model=64,
+            d_ff=128,
+            vocab_size=256,
+            attn=dataclasses.replace(
+                self.attn,
+                n_heads=4,
+                n_kv_heads=min(max(self.attn.n_kv_heads, 1), 2),
+                d_head=16,
+            ),
+        )
+        if self.moe is not None:
+            kw["moe"] = dataclasses.replace(
+                self.moe, n_experts=8, top_k=2, d_expert=32,
+                n_shared=min(self.moe.n_shared, 1),
+                first_k_dense=min(self.moe.first_k_dense, 1),
+            )
+        kw.update(overrides)
+        return dataclasses.replace(self, **kw)
+
+
+_MODULE_OF = {
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b",
+}
+
+
+def get_arch(name: str) -> ArchConfig:
+    if name not in _MODULE_OF:
+        raise KeyError(f"unknown arch {name!r}; ported: {sorted(_MODULE_OF)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULE_OF[name]}")
+    return mod.CONFIG

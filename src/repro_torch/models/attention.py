@@ -1,0 +1,155 @@
+"""GQA attention: chunked online-softmax prefill and cached decode
+(counterpart of ``repro.models.attention``, GQA part).
+
+Prefill attention (:func:`flash_attention`) is plain PyTorch, as it is
+plain jnp in the reference.  Decode attention goes through the
+``decode_attention`` kernel wrapper, which runs the CUDA kernel on the
+card and its plain version on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import AttnConfig
+from repro_torch.kernels import ops, ref
+from .layers import apply_rope, he_init
+
+NEG_INF = -1e30
+
+
+def init_gqa(gen, cfg: AttnConfig, d_model: int, dtype, device) -> dict:
+    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    p = {
+        "wq": he_init(gen, (d_model, H * dh), dtype, device),
+        "wk": he_init(gen, (d_model, K * dh), dtype, device),
+        "wv": he_init(gen, (d_model, K * dh), dtype, device),
+        "wo": he_init(gen, (H * dh, d_model), dtype, device),
+    }
+    if cfg.qkv_bias:
+        for name, n in (("bq", H * dh), ("bk", K * dh), ("bv", K * dh)):
+            p[name] = torch.zeros((n,), dtype=dtype, device=device)
+    return p
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Sq, H, dh)
+    k: torch.Tensor,  # (B, Sk, K, dh)
+    v: torch.Tensor,  # (B, Sk, K, dh)
+    causal: bool = True,
+    q_chunk: int = 1024,
+    kv_chunk: int = 1024,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Online-softmax blockwise attention in float32; GQA via repeated kv
+    heads.  Memory is O(q_chunk * kv_chunk) per (batch, head)."""
+    B, Sq, H, dh = q.shape
+    _, Sk, K, _ = k.shape
+    dv = v.shape[-1]
+    G = H // K
+    q_chunk = min(q_chunk, Sq)
+    kv_chunk = min(kv_chunk, Sk)
+    if Sq % q_chunk or Sk % kv_chunk:
+        raise ValueError(f"chunks must divide the sequence: {(Sq, q_chunk, Sk, kv_chunk)}")
+    scale = 1.0 / float(dh) ** 0.5
+    if G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    dev = q.device
+    outs = []
+    for q0 in range(0, Sq, q_chunk):
+        q_blk = qf[:, q0:q0 + q_chunk]
+        q_pos = q_offset + torch.arange(q0, q0 + q_chunk, device=dev)
+        m = torch.full((B, H, q_chunk), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, H, q_chunk), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, H, q_chunk, dv), dtype=torch.float32, device=dev)
+        for k0 in range(0, Sk, kv_chunk):
+            k_blk, v_blk = kf[:, k0:k0 + kv_chunk], vf[:, k0:k0 + kv_chunk]
+            s = torch.einsum("bqhd,bthd->bhqt", q_blk, k_blk) * scale
+            if causal:
+                k_pos = torch.arange(k0, k0 + kv_chunk, device=dev)
+                s = torch.where(q_pos[:, None] >= k_pos[None, :], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum("bhqt,bthd->bhqd", p, v_blk)
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    out = torch.cat(outs, dim=2)  # (B, H, Sq, dv)
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def decode_attention_ref(
+    q: torch.Tensor,  # (B, 1, H, dh)
+    cache_k: torch.Tensor,  # (B, T, K, dh)
+    cache_v: torch.Tensor,
+    length: torch.Tensor,  # (B,) valid entries incl. the current token
+) -> torch.Tensor:
+    """One-token GQA attention against the cache (the dense oracle)."""
+    return ref.decode_attention_ref(q[:, 0], cache_k, cache_v, length)[:, None]
+
+
+def gqa_project_qkv(
+    params: dict,
+    x: torch.Tensor,  # (B, S, d)
+    positions: Optional[torch.Tensor],
+    cfg: AttnConfig,
+    use_rope: bool = True,
+):
+    B, S, _ = x.shape
+    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = x @ params["wq"]
+    k = x @ params["wk"]
+    v = x @ params["wv"]
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    q = q.reshape(B, S, H, dh)
+    k = k.reshape(B, S, K, dh)
+    v = v.reshape(B, S, K, dh)
+    if use_rope and positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def gqa_prefill(
+    params: dict,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    cfg: AttnConfig,
+    causal: bool = True,
+    q_chunk: int = 1024,
+    kv_chunk: int = 1024,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    q, k, v = gqa_project_qkv(params, x, positions, cfg)
+    o = flash_attention(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    B, S = x.shape[:2]
+    return o.reshape(B, S, -1) @ params["wo"], k, v
+
+
+def gqa_decode(
+    params: dict,
+    x: torch.Tensor,  # (B, 1, d)
+    position: torch.Tensor,  # (B,) current position
+    cache_k: torch.Tensor,  # (B, T, K, dh), updated in place
+    cache_v: torch.Tensor,
+    cfg: AttnConfig,
+) -> torch.Tensor:
+    """One decode step.  Writes the new (k, v) row at ``position`` into the
+    cache in place (the JAX engine gets the same effect from buffer
+    donation) and returns the attention output."""
+    q, k1, v1 = gqa_project_qkv(params, x, position[:, None], cfg)
+    B = x.shape[0]
+    rows = torch.arange(B, device=x.device)
+    idx = position.long().clamp(0, cache_k.shape[1] - 1)  # JAX clamps the slice start
+    cache_k[rows, idx] = k1[:, 0].to(cache_k.dtype)
+    cache_v[rows, idx] = v1[:, 0].to(cache_v.dtype)
+    lengths = (idx + 1).to(torch.int32)
+    o = ops.decode_attention(q[:, 0].contiguous(), cache_k, cache_v, lengths)
+    return o.reshape(B, 1, -1) @ params["wo"]

@@ -1,0 +1,81 @@
+"""Foundational layers: norms, dense MLP, embeddings, RoPE (counterpart of
+``repro.models.layers``).
+
+Plain functions on tensors.  Compute runs in the activation dtype with
+float32 islands where the JAX reference has them (norm statistics, rotary
+phases).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def he_init(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
+    """``normal * 1/sqrt(fan_in)`` (fan_in = shape[-2]), the JAX ``_he``."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return w.mul_(fan_in**-0.5).to(dtype)
+
+
+def init_norm(d: int, device) -> dict:
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+
+
+def apply_norm(params: dict, x: torch.Tensor, kind: str, eps: float = 1e-6) -> torch.Tensor:
+    if kind != "rmsnorm":
+        raise ValueError(f"norm {kind!r} is not ported (rmsnorm only)")
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+def init_mlp(gen, d_model: int, d_ff: int, dtype, device) -> dict:
+    return {
+        "w_up": he_init(gen, (d_model, d_ff), dtype, device),
+        "w_down": he_init(gen, (d_ff, d_model), dtype, device),
+        "w_gate": he_init(gen, (d_model, d_ff), dtype, device),
+    }
+
+
+def apply_mlp(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    if act != "swiglu":
+        raise ValueError(f"activation {act!r} is not ported (swiglu only)")
+    h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    return h @ params["w_down"]
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return table[tokens]
+
+
+def lm_logits(h: torch.Tensor, table: torch.Tensor,
+              w_out: Optional[torch.Tensor]) -> torch.Tensor:
+    """Project to the vocabulary.  ``w_out`` is None for tied embeddings."""
+    if w_out is not None:
+        return h @ w_out
+    return h @ table.T
+
+
+def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (
+        theta ** (torch.arange(0, d_head, 2, dtype=torch.float32, device=device) / d_head)
+    )
+
+
+def apply_rope(
+    x: torch.Tensor,  # (..., seq, heads, d_head)
+    positions: torch.Tensor,  # (..., seq)
+    theta: float,
+) -> torch.Tensor:
+    d = x.shape[-1]
+    inv = rope_freqs(d, theta, x.device)
+    ang = positions[..., None].float() * inv
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    xf1, xf2 = x[..., : d // 2].float(), x[..., d // 2:].float()
+    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1).to(x.dtype)

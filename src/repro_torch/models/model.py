@@ -1,0 +1,142 @@
+"""LM facade: init / prefill / decode for the decoder-only families with
+GQA attention (counterpart of ``repro.models.model.LM``; ``moe`` is the
+family this slice serves, ``dense`` shares its blocks).
+
+Parameters are a dict like the JAX pytree, except that the scan-stacked
+``p["blocks"]`` becomes a list of per-layer dicts and the ``lax.scan``
+over layers a Python loop.  The KV cache is updated in place.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from . import transformer as tf
+from .layers import apply_norm, embed, init_norm, lm_logits
+from .transformer import BlockAux
+
+
+class StepAux(NamedTuple):
+    """Per-step diagnostics (MoE aux loss, Sieve counts, drops)."""
+
+    moe_aux: torch.Tensor  # scalar
+    counts: torch.Tensor  # (n_layers, E) token counts per layer (Sieve input)
+    dropped: torch.Tensor  # scalar
+
+
+def _aggregate_aux(auxes: List[BlockAux]) -> StepAux:
+    return StepAux(
+        torch.stack([a.moe_aux for a in auxes]).sum(),
+        torch.stack([a.counts for a in auxes]),
+        torch.stack([a.dropped for a in auxes]).sum(),
+    )
+
+
+class LM:
+    def __init__(
+        self,
+        arch: ArchConfig,
+        dtype: torch.dtype = torch.bfloat16,
+        device="cuda",
+        q_chunk: int = 1024,
+        kv_chunk: int = 1024,
+    ):
+        if arch.family not in ("moe", "dense") or arch.attn.kind != "gqa":
+            raise NotImplementedError(
+                f"family {arch.family!r} with {arch.attn.kind!r} attention is not "
+                "ported yet (moe/dense with gqa only)"
+            )
+        if arch.moe is not None and arch.moe.first_k_dense:
+            raise NotImplementedError("dense prefix blocks (first_k_dense) are not ported yet")
+        self.arch = arch
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        self.q_chunk = q_chunk
+        self.kv_chunk = kv_chunk
+        # vocab padded to a multiple of 128; padded logits are masked
+        self.vocab_padded = -(-arch.vocab_size // 128) * 128
+
+    # ------------------------------------------------------------------
+    def init(self, seed: int) -> Dict[str, Any]:
+        """Random weights from a seeded ``torch.Generator`` on the device."""
+        arch, dtype, dev = self.arch, self.dtype, self.device
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+
+        def normal(shape, scale):
+            w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
+            return w.mul_(scale).to(dtype)
+
+        p: Dict[str, Any] = {
+            "embed": normal((self.vocab_padded, arch.d_model), 0.02),
+            "final_norm": init_norm(arch.d_model, dev),
+        }
+        if not arch.tie_embeddings:
+            p["w_out"] = normal((arch.d_model, self.vocab_padded), 0.02)
+        moe = arch.moe is not None
+        p["blocks"] = [
+            tf.init_attn_mlp_block(gen, arch, moe, dtype, dev)
+            for _ in range(arch.n_layers)
+        ]
+        return p
+
+    def init_cache(self, batch: int, max_seq: int) -> Dict[str, Any]:
+        a = self.arch.attn
+        shape = (self.arch.n_layers, batch, max_seq, a.n_kv_heads, a.d_head)
+        return {
+            "blocks": (
+                torch.zeros(shape, dtype=self.dtype, device=self.device),
+                torch.zeros(shape, dtype=self.dtype, device=self.device),
+            )
+        }
+
+    def _logits(self, p, h: torch.Tensor) -> torch.Tensor:
+        logits = lm_logits(h, p["embed"], p.get("w_out"))
+        if self.vocab_padded != self.arch.vocab_size:
+            live = torch.arange(self.vocab_padded, device=h.device) < self.arch.vocab_size
+            logits = torch.where(live, logits, -1e30)
+        return logits
+
+    # ------------------------------------------------------------------
+    def prefill(self, p, batch: Dict[str, Any]):
+        """Forward over the prompt: (last-position logits, cache of the
+        prompt's K/V as ``(n_layers, B, S, Kv, dh)`` tensors, StepAux)."""
+        arch = self.arch
+        x = embed(p["embed"], batch["tokens"])
+        B, S = x.shape[:2]
+        positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+        moe = arch.moe is not None
+        ks, vs, auxes = [], [], []
+        for blk in p["blocks"]:
+            x, (k, v), aux = tf.attn_mlp_block_seq(
+                blk, x, positions, arch, moe, q_chunk=self.q_chunk,
+                kv_chunk=self.kv_chunk, sieve=batch.get("sieve"),
+            )
+            ks.append(k)
+            vs.append(v)
+            auxes.append(aux)
+        h = apply_norm(p["final_norm"], x, arch.norm)
+        logits = self._logits(p, h[:, -1:, :])
+        return logits, {"blocks": (torch.stack(ks), torch.stack(vs))}, _aggregate_aux(auxes)
+
+    def decode_step(self, p, batch: Dict[str, Any], cache: Dict[str, Any]):
+        """One-token step.  batch: tokens (B, 1), position (B,), optional
+        sieve.  Writes the step's K/V into ``cache`` in place and returns
+        ``(logits, cache, StepAux)``."""
+        arch = self.arch
+        x = embed(p["embed"], batch["tokens"])
+        position = batch["position"]
+        moe = arch.moe is not None
+        ck, cv = cache["blocks"]
+        auxes = []
+        for i, blk in enumerate(p["blocks"]):
+            x, aux = tf.attn_mlp_block_decode(
+                blk, x, position, (ck[i], cv[i]), arch, moe, sieve=batch.get("sieve"),
+            )
+            auxes.append(aux)
+        h = apply_norm(p["final_norm"], x, arch.norm)
+        return self._logits(p, h), cache, _aggregate_aux(auxes)

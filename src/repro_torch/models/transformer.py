@@ -1,0 +1,91 @@
+"""Attention + (MoE | dense MLP) blocks (counterpart of
+``repro.models.transformer``, the ``attn_mlp`` block kind with GQA)."""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from . import attention as attn_lib
+from .layers import apply_mlp, apply_norm, init_mlp, init_norm
+from .moe import MoEOut, init_moe, moe_block
+
+
+class BlockAux(NamedTuple):
+    """Per-layer auxiliary outputs surfaced to the Sieve engine."""
+
+    moe_aux: torch.Tensor  # scalar load-balance loss (0 for dense)
+    counts: torch.Tensor  # (E,) expert token counts (zeros(1) for dense)
+    dropped: torch.Tensor  # scalar overflow-dropped tokens
+
+
+def _zero_aux(device) -> BlockAux:
+    return BlockAux(
+        torch.zeros((), dtype=torch.float32, device=device),
+        torch.zeros((1,), dtype=torch.int32, device=device),
+        torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def init_attn_mlp_block(gen, arch: ArchConfig, moe: bool, dtype, device) -> dict:
+    d = arch.d_model
+    if arch.attn.kind != "gqa":
+        raise ValueError(f"attention {arch.attn.kind!r} is not ported (gqa only)")
+    p = {
+        "norm1": init_norm(d, device),
+        "norm2": init_norm(d, device),
+        "attn": attn_lib.init_gqa(gen, arch.attn, d, dtype, device),
+    }
+    if moe:
+        p["moe"] = init_moe(gen, arch, dtype, device)
+    else:
+        p["mlp"] = init_mlp(gen, d, arch.d_ff, dtype, device)
+    return p
+
+
+def _ffn(p: dict, x: torch.Tensor, h: torch.Tensor, arch: ArchConfig, moe: bool, sieve):
+    if moe:
+        out: MoEOut = moe_block(p["moe"], h, arch, sieve=sieve)
+        return x + out.y, BlockAux(out.aux_loss, out.counts, out.n_dropped)
+    return x + apply_mlp(p["mlp"], h, arch.act), _zero_aux(x.device)
+
+
+def attn_mlp_block_seq(
+    p: dict,
+    x: torch.Tensor,  # (B, S, d)
+    positions: torch.Tensor,
+    arch: ArchConfig,
+    moe: bool,
+    q_chunk: int = 1024,
+    kv_chunk: int = 1024,
+    sieve=None,
+):
+    """Full-sequence block (prefill).  Returns (x, (k, v), aux)."""
+    h = apply_norm(p["norm1"], x, arch.norm)
+    a, k, v = attn_lib.gqa_prefill(
+        p["attn"], h, positions, arch.attn, causal=True,
+        q_chunk=q_chunk, kv_chunk=kv_chunk,
+    )
+    x = x + a
+    h = apply_norm(p["norm2"], x, arch.norm)
+    x, aux = _ffn(p, x, h, arch, moe, sieve)
+    return x, (k, v), aux
+
+
+def attn_mlp_block_decode(
+    p: dict,
+    x: torch.Tensor,  # (B, 1, d)
+    position: torch.Tensor,  # (B,)
+    cache,  # (k, v), each (B, T, Kv, dh), updated in place
+    arch: ArchConfig,
+    moe: bool,
+    sieve=None,
+):
+    """One-token block.  Returns (x, aux); the cache is written in place."""
+    h = apply_norm(p["norm1"], x, arch.norm)
+    a = attn_lib.gqa_decode(p["attn"], h, position, cache[0], cache[1], arch.attn)
+    x = x + a
+    h = apply_norm(p["norm2"], x, arch.norm)
+    return _ffn(p, x, h, arch, moe, sieve)
