@@ -8,21 +8,30 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each fatal on failure:
 
 1. device: requires CUDA and prints the card's name and power limit;
-2. build: compiles the three CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. build: compiles the seven CUDA kernels from ``src/repro_torch/kernels/csrc``
    with nvcc (one process per source, all at once) and prints the time;
 3. kernels: holds each kernel against its plain PyTorch version on the card
    at the main path's shapes plus edge cases (bf16 tolerance rtol = atol =
-   2e-2; exact zeros on dead rows and length-0 rows), and times kernel,
-   plain version and one PyTorch library call with CUDA events;
-4. serving: builds ``ServingEngine`` on qwen3-moe-30b-a3b at full width and
-   depth in bf16 with seeded random weights, serves 12 requests with the
-   launch counters zeroed just before, and checks every request, every
-   token and every kernel's launch count; it records per phase (prefill,
-   decode) the head kernel's live rows, the tail kernel's valid rows and
-   the tokens dropped, and fails if either kernel never had a row to
-   compute; a profiled window of decode steps then splits a step into
-   device time, host sieve time and idle share, and a 2-layer slice of the
-   same weights is held against the plain path on the CPU.
+   2e-2; exact zeros on dead rows and length-0 rows; empty KV splits; trash
+   table cells, an idle slot on the trash block and poisoned free blocks),
+   and times kernel, plain version and one PyTorch library call with CUDA
+   events, and each wrapper's host time per call.  The split-KV kernel has no model caller: its path is its entry
+   point, driven once per layer of a decode step with the counts zeroed;
+4. serving: builds qwen3-moe-30b-a3b at full width and depth in bf16 with
+   seeded random weights and serves the same 12 requests twice through
+   ``ServingEngine``: a dense KV cache with the fused SwiGLU kernels, then
+   a paged KV cache (page 16) with the three-call MoE path
+   (``REPRO_FUSED_SWIGLU=0``).  Each run zeroes the launch counters just
+   before and checks every request and token, that its path's kernels
+   launched and no other did, and (paged) that the pool is all free
+   again; it records per phase (prefill, decode) the head's live rows, the
+   tail's valid rows and the tokens dropped, and fails unless they add up
+   to the routed assignments and both head and tail had rows; a profiled
+   window of decode steps then splits a step into device time, host
+   sieve time and idle share.  After each run a 2-layer slice of the same
+   weights on that path is held against the plain path on the CPU, with
+   the router's discrete choices shared between the two devices.  Last,
+   full-batch decode steps of the two paths are timed in turns.
 
 It prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -31,8 +40,10 @@ as its last line ``{"ok": true, "device": {...}}``.  Details go to
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -53,7 +64,19 @@ SOURCES = {
                     "src/repro/kernels/fused_swiglu.py:289"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:193"),
+    "decode_attention_split": ("src/repro_torch/kernels/csrc/decode_attention_split.cu",
+                               "src/repro/kernels/decode_attention.py:274"),
+    "decode_attention_paged": ("src/repro_torch/kernels/csrc/decode_attention_paged.cu",
+                               "src/repro/kernels/decode_attention.py:338"),
+    "gmm_capacity": ("src/repro_torch/kernels/csrc/grouped_gemm.cu",
+                     "src/repro/kernels/grouped_gemm.py:85"),
+    "expert_gemv": ("src/repro_torch/kernels/csrc/expert_gemv.cu",
+                    "src/repro/kernels/expert_gemv.py:64"),
 }
+# the kernels each serving path must launch; every other kernel stays at 0
+DENSE_FUSED_PATH = ("swiglu_gmm_capacity", "swiglu_gemv", "decode_attention")
+PAGED_UNFUSED_PATH = ("gmm_capacity", "expert_gemv", "decode_attention_paged")
+SPLIT_KV_SPLITS = 4  # n_splits of the split-KV entry-point drive
 
 
 def fail(msg: str) -> None:
@@ -118,11 +141,14 @@ def phase_build() -> dict:
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches, each after an
-    L2 flush, by CUDA events."""
+    """Mean device time of ``fn`` over ``iters`` launches, by CUDA events.
+    Before each, zeroing a 1 GiB buffer flushes the 50 MB L2 and keeps the
+    card busy (about 0.3 ms) while the host runs ``fn``'s Python wrapper
+    (20-65 us), so the timed window holds the kernels, not the host's
+    launch latency."""
     import torch
 
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
+    flush = torch.empty(2**30, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -137,6 +163,23 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         total += e0.elapsed_time(e1)
     return total / iters
+
+
+def host_us(fn, calls: int = 50) -> float:
+    """Mean host time of one call of ``fn``: the wrapper's checks,
+    allocations and launch, not the device work (the queue of 50 launches
+    stays far below the CUDA launch queue's depth, so no call waits on
+    the card)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * seconds / calls
 
 
 def _compare(name: str, got, want, zero_rows=None) -> float:
@@ -221,6 +264,7 @@ def phase_kernels(arch) -> dict:
     results["swiglu_gmm_capacity"] = dict(
         max_abs_err=max(errs),
         ms=time_ms(lambda: ops.swiglu_gmm_capacity(buf, wg, wu, wd, gs)),
+        host_us=host_us(lambda: ops.swiglu_gmm_capacity(buf, wg, wu, wd, gs)),
         plain_ms=time_ms(lambda: ref.fused_swiglu_gmm_ref(buf, wg, wu, wd, gs)),
         library_ms=time_ms(library_head),
         bytes=byts, flops=flops,
@@ -254,11 +298,71 @@ def phase_kernels(arch) -> dict:
     results["swiglu_gemv"] = dict(
         max_abs_err=max(errs),
         ms=time_ms(lambda: ops.swiglu_gemv(toks, wg, wu, wd, eids, valid)),
+        host_us=host_us(lambda: ops.swiglu_gemv(toks, wg, wu, wd, eids, valid)),
         plain_ms=time_ms(lambda: ref.fused_swiglu_gemv_ref(toks, wg, wu, wd, eids, valid)),
         library_ms=time_ms(library_tail),
         bytes=n_valid * (3 * K * Fd * 2 + K * 2) + S * N * 2 + S * 8,
         flops=2 * n_valid * 3 * K * Fd,
         shape=f"tokens ({S},{K}), {n_valid} valid rows",
+    )
+
+    # ---- kernel 6: grouped matmul, one call of the three-call head ----
+    errs = []
+    rog = torch.as_tensor(np.random.default_rng(4).integers(0, E, E), dtype=torch.int32, device=dev)
+    for C, w, sizes, rhs_of_group in (
+        (C_dec, wg, head, None),  # decode gate/up call
+        (40, wd, np.random.default_rng(5).integers(0, 41, E), None),  # prefill down call, C % 16 != 0
+        (C_dec, wg, np.r_[np.zeros(E // 2, np.int64), np.full(E // 2, C_dec)], None),  # all-dead groups
+        (C_dec, wg, head, rog),  # groups sharing weights
+    ):
+        buf = rnd((E, C, w.shape[1]))
+        gs = torch.as_tensor(sizes, dtype=torch.int32, device=dev)
+        got = ops.gmm_capacity(buf, w, gs, rhs_of_group)
+        want = ref.gmm_ref(buf, w, gs, rhs_of_group)
+        dead = torch.arange(C, device=dev)[None, :] >= gs[:, None]
+        errs.append(_compare(f"gmm_capacity C={C}", got, want, zero_rows=dead))
+    gs = torch.as_tensor(head, dtype=torch.int32, device=dev)
+    # dispatch zero-fills the rows past each group's size, so one bmm over
+    # the slab computes the same function
+    buf = rnd((E, C_dec, K)) * (torch.arange(C_dec, device=dev)[None, :, None] < gs[:, None, None])
+    results["gmm_capacity"] = dict(
+        max_abs_err=max(errs),
+        ms=time_ms(lambda: ops.gmm_capacity(buf, wg, gs)),
+        host_us=host_us(lambda: ops.gmm_capacity(buf, wg, gs)),
+        plain_ms=time_ms(lambda: ref.gmm_ref(buf, wg, gs)),
+        library_ms=time_ms(lambda: torch.bmm(buf, wg)),
+        bytes=n_live * K * Fd * 2 + live_rows * K * 2 + E * C_dec * Fd * 2 + E * 4,
+        flops=2 * live_rows * K * Fd,
+        shape=f"gate call: buf ({E},{C_dec},{K}) x ({E},{K},{Fd}), {n_live} live groups, "
+              f"{live_rows} live rows",
+    )
+
+    # ---- kernel 7: expert GEMV, one call of the three-call tail ----
+    errs = []
+    for w, v in ((wg, valid_np), (wd, valid_np), (wg, np.zeros(S, np.int32)), (wu, np.ones(S, np.int32))):
+        toks = rnd((S, w.shape[1]))
+        valid = torch.as_tensor(v, device=dev)
+        got = ops.expert_gemv(toks, w, eids, valid)
+        want = ref.expert_gemv_ref(toks, w, eids, valid)
+        errs.append(_compare("expert_gemv", got, want, zero_rows=valid == 0))
+    valid = torch.as_tensor(valid_np, device=dev)
+    got = ops.expert_gemv(slab[:, :1].reshape(E, K), wg, eids, valid)  # strided rows
+    want = ref.expert_gemv_ref(slab[:, 0].contiguous(), wg, eids, valid)
+    errs.append(_compare("expert_gemv strided", got, want, zero_rows=valid == 0))
+    toks = rnd((S, K))
+
+    def library_gemv():
+        return torch.bmm(toks[:, None], wg[eids.long()])[:, 0] * valid[:, None]
+
+    results["expert_gemv"] = dict(
+        max_abs_err=max(errs),
+        ms=time_ms(lambda: ops.expert_gemv(toks, wg, eids, valid)),
+        host_us=host_us(lambda: ops.expert_gemv(toks, wg, eids, valid)),
+        plain_ms=time_ms(lambda: ref.expert_gemv_ref(toks, wg, eids, valid)),
+        library_ms=time_ms(library_gemv),
+        bytes=n_valid * (K * Fd * 2 + K * 2) + S * Fd * 2 + S * 8,
+        flops=2 * n_valid * K * Fd,
+        shape=f"gate call: tokens ({S},{K}) x ({E},{K},{Fd}), {n_valid} valid rows",
     )
     del wg, wu, wd
 
@@ -292,17 +396,111 @@ def phase_kernels(arch) -> dict:
     results["decode_attention"] = dict(
         max_abs_err=max(errs),
         ms=time_ms(lambda: ops.decode_attention(q, ck, cv, L)),
+        host_us=host_us(lambda: ops.decode_attention(q, ck, cv, L)),
         plain_ms=time_ms(lambda: ref.decode_attention_ref(q, ck, cv, L)),
         library_ms=time_ms(library_attn),
         bytes=int(lens.sum()) * Kv * dh * 2 * 2 + 2 * B * H * dh * 2 + B * 4,
         flops=4 * int(lens.sum()) * H * dh,
         shape=f"q ({B},{H},{dh}), cache ({B},{max_seq},{Kv},{dh}), lengths {lens.tolist()}",
     )
+    attn_bytes = results["decode_attention"]["bytes"]
+    attn_flops = results["decode_attention"]["flops"]
+
+    # ---- kernel 4: split-KV decode attention ----
+    errs = []
+    for T, lens_e, n_splits in (
+        (max_seq, lens, SPLIT_KV_SPLITS),  # the serving shape
+        (1000, np.r_[0, 1000, 999, 63, 64, 65, 1, 500], 2),  # length 0, ragged tail
+        (1000, np.r_[0, 1000, 999, 63, 64, 65, 1, 500], 3),
+        (1000, np.r_[0, 1000, 999, 63, 64, 65, 1, 500], 8),  # empty splits in most rows
+    ):
+        qe = rnd((B, H, dh))
+        cke, cve = rnd((B, T, Kv, dh)), rnd((B, T, Kv, dh))
+        Le = torch.as_tensor(lens_e, dtype=torch.int32, device=dev)
+        got = ops.decode_attention(qe, cke, cve, Le, n_splits=n_splits)
+        want = ref.decode_attention_split_ref(qe, cke, cve, Le, n_splits)
+        errs.append(_compare(f"decode_attention_split T={T} S={n_splits}", got, want, zero_rows=Le == 0))
+    results["decode_attention_split"] = dict(
+        max_abs_err=max(errs),
+        ms=time_ms(lambda: ops.decode_attention(q, ck, cv, L, n_splits=SPLIT_KV_SPLITS)),
+        host_us=host_us(lambda: ops.decode_attention(q, ck, cv, L, n_splits=SPLIT_KV_SPLITS)),
+        plain_ms=time_ms(lambda: ref.decode_attention_split_ref(q, ck, cv, L, SPLIT_KV_SPLITS)),
+        library_ms=time_ms(library_attn),
+        bytes=attn_bytes, flops=attn_flops,
+        shape=f"as decode_attention, n_splits={SPLIT_KV_SPLITS}",
+    )
+    # its path: the kernel entry point (no model caller), driven once per
+    # layer of a decode step at the serving shape, counts zeroed just before
+    ops.reset_launches()
+    for _ in range(arch.n_layers):
+        ops.decode_attention(q, ck, cv, L, n_splits=SPLIT_KV_SPLITS)
+    torch.cuda.synchronize()
+    results["decode_attention_split"]["path_launches"] = ops.LAUNCHES["decode_attention_split"]
+
+    # ---- kernel 5: paged decode attention ----
+    page = 16
+    max_blocks = max_seq // page
+    n_pool = n_slots * max_blocks + 1
+    errs = []
+    for pg, lens_e, idle in (
+        (page, lens, None),  # the serving shape
+        (page, np.r_[0, 1024, 1, 17, 300, 16, 33, 640], 2),  # length 0, idle slot 2 on the trash block
+        (8, np.r_[0, 1024, 1, 17, 300, 8, 9, 640], 2),
+    ):
+        nb = max_seq // pg
+        pool = n_slots * nb + 1
+        pk, pv = rnd((pool, pg, Kv, dh)), rnd((pool, pg, Kv, dh))
+        tab = np.zeros((n_slots, nb), np.int32)  # unused cells: the trash block 0
+        order = np.random.default_rng(6).permutation(np.arange(1, pool))
+        nxt = 0
+        for b, n in enumerate(lens_e):
+            if b != idle:
+                k = -(-int(n) // pg)
+                tab[b, :k] = order[nxt:nxt + k]
+                nxt += k
+        free = torch.as_tensor(order[nxt:], device=dev).long()
+        pk[free], pv[free] = 1e4, -1e4  # a read of a free block would show
+        qe = rnd((B, H, dh))
+        te = torch.as_tensor(tab, device=dev)
+        Le = torch.as_tensor(lens_e, dtype=torch.int32, device=dev)
+        got = ops.decode_attention_paged(qe, pk, pv, te, Le)
+        want = ref.decode_attention_paged_ref(qe, pk, pv, te, Le)
+        errs.append(_compare(f"decode_attention_paged page={pg}", got, want, zero_rows=Le == 0))
+    pk, pv = rnd((n_pool, page, Kv, dh)), rnd((n_pool, page, Kv, dh))
+    perm = torch.randperm(n_pool - 1, generator=gen, device=dev).add(1)
+    blocks = [-(-int(n) // page) for n in lens]
+    tab = torch.zeros((n_slots, max_blocks), dtype=torch.int32, device=dev)
+    nxt = 0
+    for b, k in enumerate(blocks):
+        tab[b, :k] = perm[nxt:nxt + k].to(torch.int32)
+        nxt += k
+
+    def library_paged():
+        gk = pk[tab.long()].reshape(B, max_seq, Kv, dh)
+        gv = pv[tab.long()].reshape(B, max_seq, Kv, dh)
+        return F.scaled_dot_product_attention(
+            q.view(B, Kv, G, dh), gk.transpose(1, 2), gv.transpose(1, 2), attn_mask=mask,
+        )
+
+    results["decode_attention_paged"] = dict(
+        max_abs_err=max(errs),
+        ms=time_ms(lambda: ops.decode_attention_paged(q, pk, pv, tab, L)),
+        host_us=host_us(lambda: ops.decode_attention_paged(q, pk, pv, tab, L)),
+        plain_ms=time_ms(lambda: ref.decode_attention_paged_ref(q, pk, pv, tab, L)),
+        library_ms=time_ms(library_paged),
+        bytes=attn_bytes + sum(blocks) * 4, flops=attn_flops,
+        shape=f"q ({B},{H},{dh}), pool ({n_pool},{page},{Kv},{dh}), tables ({B},{max_blocks}), "
+              f"lengths {lens.tolist()}",
+    )
+    small = rnd((B, H * dh))
+    log(f"host time of one small PyTorch op (SiLU of a ({B},{H * dh}) tensor): "
+        f"{host_us(lambda: F.silu(small)):.1f} us/call")
     for name, r in results.items():
         r["bound_ms"] = max(r["bytes"] / PEAK_HBM_BYTES, r["flops"] / PEAK_BF16_FLOPS) * 1e3
         r["bound_by"] = "bytes" if r["bytes"] / PEAK_HBM_BYTES >= r["flops"] / PEAK_BF16_FLOPS else "operations"
         log(f"kernel {name}: max|err| {r['max_abs_err']:.3g}  kernel {r['ms']:.4f} ms  "
             f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
+            f"host {r['host_us']:.1f} us/call  "
             f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})  [{r['shape']}]")
     torch.cuda.empty_cache()
     return results
@@ -382,22 +580,52 @@ class PathProbe:
         return out
 
 
-def phase_serve(arch, n_layers: int) -> dict:
-    import numpy as np
+def build_model(arch):
+    """The full-width model with seeded random weights, shared by both
+    serving runs (61 GB of the card's 80 GB cannot be held twice)."""
     import torch
 
-    from repro_torch.kernels import ops
     from repro_torch.models import LM
-    from repro_torch.serving import BatchingConfig, Request, ServingEngine
 
-    arch = dataclasses.replace(arch, n_layers=n_layers)
     t0 = time.perf_counter()
     lm = LM(arch, dtype=torch.bfloat16, device="cuda")
     params = lm.init(seed=0)
     torch.cuda.synchronize()
-    log(f"serve: {arch.name} {n_layers} layers, weights {torch.cuda.memory_allocated() / 1e9:.1f} GB, "
-        f"init {time.perf_counter() - t0:.1f} s")
-    eng = ServingEngine(lm, params, BatchingConfig(n_slots=8, max_seq=1024))
+    log(f"model: {arch.name} {arch.n_layers} layers, weights "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB, init {time.perf_counter() - t0:.1f} s")
+    return lm, params
+
+
+@contextlib.contextmanager
+def fused_swiglu(value: str):
+    """``REPRO_FUSED_SWIGLU`` set for a block (``"1"`` fused head and tail
+    kernels, ``"0"`` the three-call path), then restored."""
+    saved = os.environ.get("REPRO_FUSED_SWIGLU")
+    os.environ["REPRO_FUSED_SWIGLU"] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["REPRO_FUSED_SWIGLU"]
+        else:
+            os.environ["REPRO_FUSED_SWIGLU"] = saved
+
+
+def phase_serve(lm, params, batching, path_kernels) -> dict:
+    """Serve 12 requests through ``ServingEngine`` and check the run: every
+    request and token, the kernels of ``path_kernels`` launched (and no
+    other),
+    head + tail + drops equal to the routed assignments in each phase, and
+    a paged pool back to all blocks free; then profile decode steps."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Request, ServingEngine
+
+    arch = lm.arch
+    eng = ServingEngine(lm, params, batching)
+    run = "paged" if batching.paged else "dense"
     rng = np.random.default_rng(0)
     reqs = []
     for _ in range(12):
@@ -436,8 +664,12 @@ def phase_serve(arch, n_layers: int) -> dict:
         if not all(0 <= t < arch.vocab_size for t in r.generated):
             fail(f"request {r.req_id} produced a token outside the vocabulary")
     for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+        if name in path_kernels and n <= 0:
+            fail(f"{run} run: kernel {name} of its path was not launched")
+        if name not in path_kernels and n != 0:
+            fail(f"{run} run: kernel {name} is not on its path but was launched {n} times")
+    if eng.paged is not None and eng.paged.n_free != eng.paged.n_pool - 1:
+        fail(f"paged run: {eng.paged.n_free} of {eng.paged.n_pool - 1} pool blocks free after the run")
     for name, ph in path.items():
         # every routed assignment is computed by the head or the tail, or dropped
         if ph["head_rows"] + ph["tail_rows"] + ph["dropped_tokens"] != ph["routed_tokens"]:
@@ -452,7 +684,10 @@ def phase_serve(arch, n_layers: int) -> dict:
     dec_ms = sum(ms for _, ms, _ in decode_steps)
     full = [(ms, sv) for n, ms, sv in decode_steps if n == eng.cfg.n_slots]
     out = dict(
-        n_layers=n_layers,
+        run=run,
+        n_layers=arch.n_layers,
+        page_size=batching.page_size if batching.paged else None,
+        pool_blocks=eng.paged.n_pool if batching.paged else None,
         requests=len(reqs),
         prompt_tokens=eng.stats.prefill_tokens,
         decode_tokens=eng.stats.decode_tokens,
@@ -472,7 +707,7 @@ def phase_serve(arch, n_layers: int) -> dict:
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         launches=launches,
     )
-    log(f"serve: {len(reqs)} requests, {out['prompt_tokens']} prompt + {out['decode_tokens']} "
+    log(f"serve {run}: {len(reqs)} requests, {out['prompt_tokens']} prompt + {out['decode_tokens']} "
         f"decode tokens in {wall:.2f} s ({out['steps']} steps); decode {out['decode_tok_per_s']:.1f} tok/s "
         f"over {len(decode_steps)} decode-only steps of {out['decode_step_ms']:.1f} ms "
         f"({len(full)} at a full batch: {out['full_batch_step_ms']:.1f} ms, host sieve "
@@ -480,36 +715,157 @@ def phase_serve(arch, n_layers: int) -> dict:
         f"max {out['ttft_max_s'] * 1e3:.1f} ms; TPOT p50 {out['tpot_p50_s'] * 1e3:.2f} ms; "
         f"launches {launches}")
     for name, ph in path.items():
-        log(f"serve path {name}: head rows {ph['head_rows']}, valid tail rows {ph['tail_rows']}, "
+        log(f"serve {run} path {name}: head rows {ph['head_rows']}, valid tail rows {ph['tail_rows']}, "
             f"dropped {ph['dropped_tokens']} of {ph['routed_tokens']} routed ({ph['drop_share']:.3f})")
 
     out["profile"] = phase_profile(eng, arch, rng)
 
-    # a 2-layer slice of the same weights against the plain path on the CPU
+    del eng, probe
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ab(lm, params, n_steps: int = 4) -> dict:
+    """Full-batch decode-step time of the two serving paths in turns
+    (dense, paged, paged, dense, twice) on the same weights and prompts,
+    so that host drift over the call falls on both: each turn prefills 8
+    requests of 256 tokens, then times ``n_steps`` decode steps on the
+    host clock (each step ends in the logits' copy to the host)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving import BatchingConfig, Request, ServingEngine
+
+    paths = {
+        "dense": (BatchingConfig(n_slots=8, max_seq=1024), "1"),
+        "paged": (BatchingConfig(n_slots=8, max_seq=1024, paged=True, page_size=16), "0"),
+    }
+    engines = {name: ServingEngine(lm, params, cfg) for name, (cfg, _) in paths.items()}
+    rng = np.random.default_rng(2)
+    prompts = [[int(t) for t in rng.integers(0, lm.arch.vocab_size, 256)] for _ in range(8)]
+    steps = {name: [] for name in paths}
+    for name in ("dense", "paged", "paged", "dense") * 2:
+        eng = engines[name]
+        with fused_swiglu(paths[name][1]):
+            for prompt in prompts:
+                eng.submit(Request(prompt=list(prompt), max_new_tokens=n_steps + 2))
+            eng.step()  # prefills every slot and decodes once
+            torch.cuda.synchronize()
+            for _ in range(n_steps):
+                t0 = time.perf_counter()
+                eng.step()
+                steps[name].append(1e3 * (time.perf_counter() - t0))
+            while not eng.sched.idle:
+                eng.step()
+    out = {name: dict(step_ms=sorted(v), median_ms=float(np.median(v))) for name, v in steps.items()}
+    out["paged_over_dense"] = out["paged"]["median_ms"] / out["dense"]["median_ms"]
+    log(f"in turns: full-batch decode step median dense {out['dense']['median_ms']:.1f} ms, paged "
+        f"{out['paged']['median_ms']:.1f} ms (x{out['paged_over_dense']:.3f}) over "
+        f"{len(steps['dense'])} steps each; dense {min(steps['dense']):.1f}-{max(steps['dense']):.1f} ms, "
+        f"paged {min(steps['paged']):.1f}-{max(steps['paged']):.1f} ms")
+    del engines
+    torch.cuda.empty_cache()
+    return out
+
+
+class RoutingTape:
+    """Shares the router's discrete choices between the card and the CPU.
+
+    bf16 rounds at other places on the two devices, so a near-tie in a
+    token's top-k (or the capacity drop that follows it) can flip a choice
+    and move that token's output far more than any kernel error would.
+    The tape records the card's top-k choices, then makes the CPU run take
+    them (weights from the CPU's own router probabilities), and counts
+    apart the assignments the CPU's own routing would have moved."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.route = moe, moe.route
+        self.card, self.own = [], []  # (expert_idx, counts) per call, in call order
+
+    def record(self) -> None:
+        def route(x, w, cfg):
+            r = self.route(x, w, cfg)
+            self.card.append((r.expert_idx.cpu(), r.counts.cpu()))
+            return r
+
+        self.moe.route = route
+
+    def replay(self) -> None:
+        import torch
+
+        calls = iter(self.card)
+
+        def route(x, w, cfg):
+            r = self.route(x, w, cfg)
+            self.own.append(r.counts)
+            idx, counts = next(calls)
+            top_p = torch.softmax(x.float() @ w.float(), dim=-1).gather(1, idx.long())
+            weights = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+            return r._replace(expert_idx=idx, weights=weights.to(x.dtype), counts=counts)
+
+        self.moe.route = route
+
+    def remove(self) -> None:
+        self.moe.route = self.route
+
+    def moved_share(self) -> float:
+        """Share of the card's routed assignments that the CPU's own routing
+        sends to another expert."""
+        moved = sum(int((c - o).abs().sum()) for (_, c), o in zip(self.card, self.own)) / 2
+        return moved / max(1, sum(int(c.sum()) for _, c in self.card))
+
+
+def phase_reference(lm, params, paged: bool) -> dict:
+    """A 2-layer slice of the served weights on the card against the plain
+    path on the CPU: prefill logits, and the logits of one decode step
+    through a dense cache or, paged, through a block pool whose table maps
+    the slot's blocks out of order.  Both sides take the card's routing
+    choices (``RoutingTape``); the CPU's own routing must agree on all but
+    2% of the assignments."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import LM
+
+    arch = lm.arch
+    run = "paged" if paged else "dense"
     small = dataclasses.replace(arch, n_layers=2)
     gp = {k: v for k, v in params.items() if k != "blocks"}
     gp["blocks"] = params["blocks"][:2]
-    del eng, params
-    torch.cuda.empty_cache()
     cp = _to_cpu(gp)
+    rng = np.random.default_rng(1)
     prompt = torch.as_tensor(rng.integers(0, arch.vocab_size, (1, 32)))
-    got = _prefill_decode(LM(small, torch.bfloat16, "cuda"), gp, prompt)
-    want = _prefill_decode(LM(small, torch.bfloat16, "cpu"), cp, prompt)
+    tok = torch.as_tensor(rng.integers(0, arch.vocab_size, (1, 1)))
+    tape = RoutingTape()
+    tape.record()
+    got = _prefill_decode(LM(small, torch.bfloat16, "cuda"), gp, prompt, tok, paged)
+    tape.replay()
+    want = _prefill_decode(LM(small, torch.bfloat16, "cpu"), cp, prompt, tok, paged)
+    tape.remove()
+    out = {"ref_routing_moved_share": tape.moved_share()}
+    log(f"reference {run}: the CPU's own routing moves {out['ref_routing_moved_share']:.4f} "
+        "of the card's routed assignments")
+    # bf16 near-ties flip a few choices (up to 4 of 512 assignments between
+    # two plain-path variants on one CPU); a faulty router moves far more
+    if out["ref_routing_moved_share"] > 0.02:
+        fail(f"{run}: the card's routing disagrees with the CPU plain path's")
     for stage, g, w in zip(("prefill", "decode"), got, want):
         g, w = g.float().cpu()[..., : arch.vocab_size], w.float()[..., : arch.vocab_size]
         if not torch.isfinite(g).all():
-            fail(f"{stage} logits are not finite")
+            fail(f"{run} {stage} logits are not finite")
         err = float((g - w).abs().max())
         scale = float(w.abs().max())
         cos = float(torch.nn.functional.cosine_similarity(g.flatten(), w.flatten(), dim=0))
         out[f"ref_{stage}_max_abs_err"] = err
         out[f"ref_{stage}_cosine"] = cos
-        log(f"reference: 2-layer {stage} logits, card vs CPU plain path: max |err| {err:.4g} "
+        log(f"reference {run}: 2-layer {stage} logits, card vs CPU plain path: max |err| {err:.4g} "
             f"(max |logit| {scale:.3g}), cosine {cos:.6f}")
         # bf16 through two full-width layers on two devices: the products
         # round at other places, so hold the logits to 5% of their range
         if err > 5e-2 * scale or cos < 0.999:
-            fail(f"{stage} logits of the card disagree with the CPU plain path")
+            fail(f"{run} {stage} logits of the card disagree with the CPU plain path")
     return out
 
 
@@ -595,17 +951,38 @@ def _to_cpu(tree):
     return tree.cpu()
 
 
-def _prefill_decode(lm, params, prompt):
+def _prefill_decode(lm, params, prompt, tok, paged: bool):
+    """Prefill logits and the logits of one decode step that feeds token
+    ``tok`` (1, 1) at position P.  Paged: the prompt's K/V is
+    padded to whole pages and written over pool blocks taken in reverse
+    order (block 0 is the trash block), as the engine does."""
     import torch
 
     dev = lm.device
     logits_p, req_cache, _ = lm.prefill(params, {"tokens": prompt.to(dev)})
-    cache = lm.init_cache(1, 64)
     P = prompt.shape[1]
-    for dst, src in zip(cache["blocks"], req_cache["blocks"]):
-        dst[:, :, :P].copy_(src)
-    tok = torch.argmax(logits_p[:, -1].float().cpu(), dim=-1).reshape(1, 1)
     batch = {"tokens": tok.to(dev), "position": torch.tensor([P], dtype=torch.int32, device=dev)}
+    if not paged:
+        cache = lm.init_cache(1, 64)
+        for dst, src in zip(cache["blocks"], req_cache["blocks"]):
+            dst[:, :, :P].copy_(src)
+    else:
+        page, max_blocks = 16, 64
+        n = P // page + 1  # blocks covering positions 0..P
+        n_pool = n + 2  # block 0 trash, block 1 never used
+        ids = torch.arange(n_pool - 1, 1, -1)
+        cache = lm.init_paged_cache(n_pool, page)
+        nbp = -(-P // page)
+        for dst, src in zip(cache["blocks"], req_cache["blocks"]):
+            rows = torch.nn.functional.pad(src[:, 0], (0, 0, 0, 0, 0, nbp * page - P))
+            dst[:, ids[:nbp].to(dev)] = rows.reshape((rows.shape[0], nbp, page) + rows.shape[2:])
+        table = torch.zeros((1, max_blocks), dtype=torch.int32)
+        table[0, :n] = ids
+        owner = torch.full((n_pool,), -1, dtype=torch.int32)
+        owner[ids] = 0
+        pos = torch.zeros((n_pool,), dtype=torch.int32)
+        pos[ids] = torch.arange(n, dtype=torch.int32)
+        batch.update(block_tables=table.to(dev), pool_owner=owner.to(dev), pool_pos=pos.to(dev))
     logits_d, _, _ = lm.decode_step(params, batch, cache)
     return logits_p, logits_d
 
@@ -620,17 +997,35 @@ def main() -> None:
 
     from repro_torch.configs import get_arch
 
+    from repro_torch.serving import BatchingConfig
+
     arch = get_arch("qwen3-moe-30b-a3b")
     build_info = phase_build()
     kernels = phase_kernels(arch)
-    serve = phase_serve(arch, n_layers=arch.n_layers)
+    lm, params = build_model(arch)
+    serve = {}
+    with fused_swiglu("1"):
+        serve["dense"] = phase_serve(lm, params, BatchingConfig(n_slots=8, max_seq=1024),
+                                     DENSE_FUSED_PATH)
+        serve["dense"].update(phase_reference(lm, params, paged=False))
+    with fused_swiglu("0"):
+        serve["paged"] = phase_serve(
+            lm, params, BatchingConfig(n_slots=8, max_seq=1024, paged=True, page_size=16),
+            PAGED_UNFUSED_PATH,
+        )
+        serve["paged"].update(phase_reference(lm, params, paged=True))
+    serve["in_turns"] = phase_ab(lm, params)
 
+    # each kernel's launches come from the run of its own path
+    launches = {k: serve["dense"]["launches"][k] for k in DENSE_FUSED_PATH}
+    launches.update({k: serve["paged"]["launches"][k] for k in PAGED_UNFUSED_PATH})
+    launches["decode_attention_split"] = kernels["decode_attention_split"]["path_launches"]
     rows = []
     for name, r in kernels.items():
         source, replaces = SOURCES[name]
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=serve["launches"][name], max_abs_err=r["max_abs_err"],
+            launches=launches[name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))

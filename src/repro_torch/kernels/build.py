@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` into its own shared library under ``kernels/build/`` (git-
-ignored), named by a hash of its source and flags so an edited source is
-rebuilt, then loaded with ``ctypes``.  Nothing here runs at import time:
+ignored), named by a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags so an edited source is rebuilt, then
+loaded with ``ctypes``.  Nothing here runs at import time:
 the CPU tests import this module on machines without ``nvcc``.
 """
 
@@ -19,7 +20,15 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-KERNELS = ("fused_swiglu_gmm", "fused_swiglu_gemv", "decode_attention")
+KERNELS = (
+    "fused_swiglu_gmm",
+    "fused_swiglu_gemv",
+    "decode_attention",
+    "decode_attention_split",
+    "decode_attention_paged",
+    "grouped_gemm",
+    "expert_gemv",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -44,6 +53,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -1,4 +1,4 @@
-"""Wrappers of the three CUDA kernels, under the JAX wrappers' signatures
+"""Wrappers of the CUDA kernels, under the JAX wrappers' signatures
 (``repro.kernels.ops``; the TPU tile-size and ``interpret`` arguments have
 no counterpart here).
 
@@ -23,6 +23,10 @@ LAUNCHES: Dict[str, int] = {
     "swiglu_gmm_capacity": 0,
     "swiglu_gemv": 0,
     "decode_attention": 0,
+    "decode_attention_split": 0,
+    "decode_attention_paged": 0,
+    "gmm_capacity": 0,
+    "expert_gemv": 0,
 }
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -30,6 +34,11 @@ _ARGTYPES = {
     "fused_swiglu_gmm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fused_swiglu_gemv": [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "decode_attention_split": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _F, _P],
+    "decode_attention_paged": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "grouped_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "expert_gemv": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 # a block's shared-memory ceiling on Hopper (232,448 bytes)
 _MAX_SMEM = 232448
@@ -163,29 +172,137 @@ def swiglu_gemv(
     return out
 
 
+def gmm_capacity(
+    buf: torch.Tensor,  # (G, C, K) capacity-layout dispatch buffer
+    rhs: torch.Tensor,  # (E, K, N)
+    group_sizes: torch.Tensor,  # (G,) live rows per group
+    rhs_of_group: Optional[torch.Tensor] = None,  # (G,) weight row per group
+) -> torch.Tensor:
+    """Grouped matmul over the capacity slab -> (G, C, N); rows at or past
+    ``group_sizes[g]`` are zero and dead tiles read no weights."""
+    if _on_cpu(buf, rhs, group_sizes, rhs_of_group):
+        return ref.gmm_ref(buf, rhs, group_sizes, rhs_of_group)
+    G, C, K = buf.shape
+    E, _, N = rhs.shape
+    _check_bf16("buf", buf)
+    _check_bf16("rhs", rhs)
+    _require(rhs.shape[1] == K, f"rhs {tuple(rhs.shape)} does not match buf {tuple(buf.shape)}")
+    _require(K % 64 == 0 and N % 64 == 0, f"gmm_capacity needs K % 64, N % 64 == 0; got {K}, {N}")
+    _check_i32("group_sizes", group_sizes, G)
+    if rhs_of_group is not None:
+        _check_i32("rhs_of_group", rhs_of_group, G)
+    lib, fn = _kernel("grouped_gemm")
+    out = torch.empty((G, C, N), dtype=buf.dtype, device=buf.device)
+    rc = fn(_ptr(buf), _ptr(rhs), _ptr(group_sizes), _ptr(rhs_of_group), _ptr(out),
+            G, C, K, N, _stream(buf))
+    _raise_on(lib, rc, "grouped_gemm")
+    LAUNCHES["gmm_capacity"] += 1
+    return out
+
+
+def expert_gemv(
+    tokens: torch.Tensor,  # (S, K), unit stride along K
+    weights: torch.Tensor,  # (E, K, N)
+    expert_ids: torch.Tensor,  # (S,)
+    valid: Optional[torch.Tensor] = None,  # (S,) 1 = live row
+) -> torch.Tensor:
+    """``tokens[i] @ weights[expert_ids[i]]`` -> (S, N); ``valid=0`` rows
+    are zero and read no weights."""
+    S, K = tokens.shape
+    if valid is None:
+        valid = torch.ones((S,), dtype=torch.int32, device=tokens.device)
+    if _on_cpu(tokens, weights, expert_ids, valid):
+        return ref.expert_gemv_ref(tokens, weights, expert_ids, valid)
+    E, _, N = weights.shape
+    _require(tokens.dtype == torch.bfloat16 and tokens.stride(1) == 1,
+             "tokens must be bfloat16 with unit stride along K")
+    _check_bf16("weights", weights)
+    _require(weights.shape[1] == K, "weight shape does not match tokens")
+    _require(N % 64 == 0, f"expert_gemv needs N % 64 == 0; got {N}")
+    _check_i32("expert_ids", expert_ids, S)
+    _check_i32("valid", valid, S)
+    lib, fn = _kernel("expert_gemv")
+    out = torch.empty((S, N), dtype=tokens.dtype, device=tokens.device)
+    rc = fn(_ptr(tokens), tokens.stride(0), _ptr(weights), _ptr(expert_ids), _ptr(valid),
+            _ptr(out), S, K, N, _stream(tokens))
+    _raise_on(lib, rc, "expert_gemv")
+    LAUNCHES["expert_gemv"] += 1
+    return out
+
+
+def _check_attention(q, k, v, lengths, B: int, Kv: int) -> None:
+    H, dh = q.shape[1], q.shape[2]
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_bf16(name, t)
+    _require(v.shape == k.shape and k.shape[-1] == dh, "cache shapes do not match q")
+    _require(dh == 128 and H % Kv == 0 and H // Kv <= 16,
+             f"decode attention needs dh == 128 and H/Kv <= 16; got dh={dh}, H={H}, Kv={Kv}")
+    _check_i32("lengths", lengths, B)
+
+
 def decode_attention(
     q: torch.Tensor,  # (B, H, dh)
     cache_k: torch.Tensor,  # (B, T, Kv, dh)
     cache_v: torch.Tensor,
     lengths: torch.Tensor,  # (B,) valid entries per sequence
+    n_splits: int = 1,
 ) -> torch.Tensor:
     """Flash-decode over a dense per-slot cache -> (B, H, dh); positions at
-    or past ``lengths[b]`` are masked and length-0 rows are zero."""
+    or past ``lengths[b]`` are masked and length-0 rows are zero.
+
+    ``n_splits > 1`` partitions the KV axis into that many contiguous
+    ranges of whole tiles (clamped to the tile count), each giving a
+    float32 partial and its log-sum-exp, combined afterwards."""
     if _on_cpu(q, cache_k, cache_v, lengths):
+        if n_splits > 1:
+            return ref.decode_attention_split_ref(q, cache_k, cache_v, lengths, n_splits)
         return ref.decode_attention_ref(q, cache_k, cache_v, lengths)
     B, H, dh = q.shape
     _, T, Kv, _ = cache_k.shape
-    for name, t in (("q", q), ("cache_k", cache_k), ("cache_v", cache_v)):
-        _check_bf16(name, t)
-    _require(cache_v.shape == cache_k.shape and cache_k.shape[0] == B and cache_k.shape[3] == dh,
-             "cache shapes do not match q")
-    _require(dh == 128 and H % Kv == 0 and H // Kv <= 16,
-             f"decode_attention needs dh == 128 and H/Kv <= 16; got dh={dh}, H={H}, Kv={Kv}")
-    _check_i32("lengths", lengths, B)
-    lib, fn = _kernel("decode_attention")
+    _check_attention(q, cache_k, cache_v, lengths, B, Kv)
+    _require(cache_k.shape[0] == B, "cache batch does not match q")
     out = torch.empty_like(q)
+    if n_splits > 1:
+        S, span = ref.split_span(T, n_splits)
+        G = H // Kv
+        part = torch.empty((B, Kv, S, G, dh), dtype=torch.float32, device=q.device)
+        lse = torch.empty((B, Kv, S, G), dtype=torch.float32, device=q.device)
+        lib, fn = _kernel("decode_attention_split")
+        rc = fn(_ptr(q), _ptr(cache_k), _ptr(cache_v), _ptr(lengths), _ptr(part), _ptr(lse),
+                _ptr(out), B, T, Kv, G, dh, S, span, 1.0 / dh**0.5, _stream(q))
+        _raise_on(lib, rc, "decode_attention_split")
+        LAUNCHES["decode_attention_split"] += 1
+        return out
+    lib, fn = _kernel("decode_attention")
     rc = fn(_ptr(q), _ptr(cache_k), _ptr(cache_v), _ptr(lengths), _ptr(out),
             B, T, Kv, H // Kv, dh, 1.0 / dh**0.5, _stream(q))
     _raise_on(lib, rc, "decode_attention")
     LAUNCHES["decode_attention"] += 1
+    return out
+
+
+def decode_attention_paged(
+    q: torch.Tensor,  # (B, H, dh)
+    pool_k: torch.Tensor,  # (n_pool, page, Kv, dh) shared block pool
+    pool_v: torch.Tensor,
+    block_tables: torch.Tensor,  # (B, max_blocks) logical -> physical block
+    lengths: torch.Tensor,  # (B,) valid entries per sequence
+) -> torch.Tensor:
+    """Flash-decode over the paged block pool -> (B, H, dh): each slot
+    reads only the blocks below its length, through its table row."""
+    if _on_cpu(q, pool_k, pool_v, block_tables, lengths):
+        return ref.decode_attention_paged_ref(q, pool_k, pool_v, block_tables, lengths)
+    B, H, dh = q.shape
+    n_pool, page, Kv, _ = pool_k.shape
+    _check_attention(q, pool_k, pool_v, lengths, B, Kv)
+    _require(block_tables.dtype == torch.int32 and block_tables.is_contiguous()
+             and block_tables.dim() == 2 and block_tables.shape[0] == B,
+             f"block_tables must be a contiguous int32 ({B}, max_blocks)")
+    max_blocks = block_tables.shape[1]
+    lib, fn = _kernel("decode_attention_paged")
+    out = torch.empty_like(q)
+    rc = fn(_ptr(q), _ptr(pool_k), _ptr(pool_v), _ptr(block_tables), _ptr(lengths), _ptr(out),
+            B, n_pool, page, Kv, H // Kv, dh, max_blocks, 1.0 / dh**0.5, _stream(q))
+    _raise_on(lib, rc, "decode_attention_paged")
+    LAUNCHES["decode_attention_paged"] += 1
     return out

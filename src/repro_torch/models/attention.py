@@ -3,8 +3,9 @@
 
 Prefill attention (:func:`flash_attention`) is plain PyTorch, as it is
 plain jnp in the reference.  Decode attention goes through the
-``decode_attention`` kernel wrapper, which runs the CUDA kernel on the
-card and its plain version on the CPU.
+``decode_attention`` kernel wrapper (dense cache) or the
+``decode_attention_paged`` one (paged block pool), which run the CUDA
+kernels on the card and their plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -152,4 +153,91 @@ def gqa_decode(
     cache_v[rows, idx] = v1[:, 0].to(cache_v.dtype)
     lengths = (idx + 1).to(torch.int32)
     o = ops.decode_attention(q[:, 0].contiguous(), cache_k, cache_v, lengths)
+    return o.reshape(B, 1, -1) @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Paged decode (shared block pool + per-slot block tables)
+# ---------------------------------------------------------------------------
+
+
+def paged_decode_attention_ref(
+    q: torch.Tensor,  # (B, 1, H, dh)
+    pool_k: torch.Tensor,  # (n_pool, page, Kv, dh)
+    pool_v: torch.Tensor,
+    block_tables: torch.Tensor,  # (B, max_blocks) int32
+    lengths: torch.Tensor,  # (B,)
+) -> torch.Tensor:
+    """Oracle: gather each slot's blocks into a dense cache, then run the
+    dense reference."""
+    return ref.decode_attention_paged_ref(q[:, 0], pool_k, pool_v, block_tables, lengths)[:, None]
+
+
+def paged_decode_attention_xla(
+    q: torch.Tensor,  # (B, 1, H, dh)
+    pool_k: torch.Tensor,  # (n_pool, page, Kv, dh)
+    pool_v: torch.Tensor,
+    owner: torch.Tensor,  # (n_pool,) int32 slot owning each block, -1 free
+    block_pos: torch.Tensor,  # (n_pool,) int32 logical index within owner
+    lengths: torch.Tensor,  # (B,)
+) -> torch.Tensor:
+    """Pool-major twin of the paged flash-decode (the JAX package's XLA
+    twin, kept as a plain function for the tests).
+
+    Iterates physical blocks instead of (slot, max_seq) positions: each
+    pool block computes its partial (m, l, acc) against its owner's query
+    and a segment reduction combines them per slot."""
+    B, _, H, dh = q.shape
+    n_pool, page, Kv, _ = pool_v.shape
+    G = H // Kv
+    dev = q.device
+    qf = q.reshape(B, Kv, G, dh).float()
+    own = torch.clamp(owner.long(), 0, B - 1)
+    qp = qf[own]  # (n_pool, Kv, G, dh): free blocks get slot 0's q, masked
+    s = torch.einsum("pkgd,ptkd->pkgt", qp, pool_k.float()) / float(dh) ** 0.5
+    pos = block_pos.long()[:, None] * page + torch.arange(page, device=dev)[None, :]
+    valid = (owner[:, None] >= 0) & (pos < lengths.to(dev).long()[own][:, None])
+    s = torch.where(valid[:, None, None], s, NEG_INF)
+    # two-pass softmax across each owner's blocks by segment reductions;
+    # free blocks land in the B-th (discarded) segment
+    seg = torch.where(owner >= 0, owner.long(), B)
+    m_blk = s.amax(-1)  # (n_pool, Kv, G)
+    m_slot = torch.full((B + 1, Kv, G), float("-inf"), device=dev).scatter_reduce_(
+        0, seg[:, None, None].expand_as(m_blk), m_blk, "amax"
+    )[:B]
+    m_slot = torch.clamp(m_slot, min=NEG_INF)  # slots with no blocks: -inf -> finite
+    m_of_blk = torch.cat([m_slot, torch.zeros((1, Kv, G), device=dev)])[seg]
+    p = torch.where(valid[:, None, None], torch.exp(s - m_of_blk[..., None]), 0.0)
+    l_blk = p.sum(-1)
+    acc_blk = torch.einsum("pkgt,ptkd->pkgd", p, pool_v.float())
+    l_slot = torch.zeros((B + 1, Kv, G), device=dev).index_add_(0, seg, l_blk)[:B]
+    acc = torch.zeros((B + 1, Kv, G, dh), device=dev).index_add_(0, seg, acc_blk)[:B]
+    out = acc / torch.clamp(l_slot, min=1e-30)[..., None]
+    return out.reshape(B, 1, H, dh).to(q.dtype)
+
+
+def gqa_decode_paged(
+    params: dict,
+    x: torch.Tensor,  # (B, 1, d)
+    position: torch.Tensor,  # (B,) current position
+    pool_k: torch.Tensor,  # (n_pool, page, Kv, dh), updated in place
+    pool_v: torch.Tensor,
+    paged: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],  # (block_tables, owner, block_pos)
+    cfg: AttnConfig,
+) -> torch.Tensor:
+    """One paged decode step: write the new (k, v) row into the shared
+    block pool in place, through the slot's block table, then attend over
+    the slot's logical blocks only.  Idle slots resolve to the trash block
+    (physical 0, owner -1), so their write never touches live data."""
+    block_tables = paged[0]
+    q, k1, v1 = gqa_project_qkv(params, x, position[:, None], cfg)
+    B = x.shape[0]
+    page = pool_k.shape[1]
+    pos = position.long()
+    phys = torch.gather(block_tables.long(), 1, (pos // page)[:, None])[:, 0]
+    off = pos % page
+    pool_k[phys, off] = k1[:, 0].to(pool_k.dtype)
+    pool_v[phys, off] = v1[:, 0].to(pool_v.dtype)
+    lengths = (pos + 1).to(torch.int32)
+    o = ops.decode_attention_paged(q[:, 0].contiguous(), pool_k, pool_v, block_tables, lengths)
     return o.reshape(B, 1, -1) @ params["wo"]

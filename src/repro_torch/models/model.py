@@ -94,6 +94,22 @@ class LM:
             )
         }
 
+    def init_paged_cache(self, n_pool: int, page: int) -> Dict[str, Any]:
+        """Paged KV cache: per-layer shared block pools ``(n_layers, n_pool,
+        page, Kv, dh)`` in place of the dense per-slot buffers.  The block
+        table that maps (slot, logical block) to a pool block lives on the
+        host (``serving.batching.PagedKVCache``) and arrives with each
+        decode batch; physical block 0 is the trash block idle slots write
+        into."""
+        a = self.arch.attn
+        shape = (self.arch.n_layers, n_pool, page, a.n_kv_heads, a.d_head)
+        return {
+            "blocks": (
+                torch.zeros(shape, dtype=self.dtype, device=self.device),
+                torch.zeros(shape, dtype=self.dtype, device=self.device),
+            )
+        }
+
     def _logits(self, p, h: torch.Tensor) -> torch.Tensor:
         logits = lm_logits(h, p["embed"], p.get("w_out"))
         if self.vocab_padded != self.arch.vocab_size:
@@ -125,17 +141,22 @@ class LM:
 
     def decode_step(self, p, batch: Dict[str, Any], cache: Dict[str, Any]):
         """One-token step.  batch: tokens (B, 1), position (B,), optional
-        sieve.  Writes the step's K/V into ``cache`` in place and returns
-        ``(logits, cache, StepAux)``."""
+        sieve, and for a paged cache ``block_tables``/``pool_owner``/
+        ``pool_pos``.  Writes the step's K/V into ``cache`` in place and
+        returns ``(logits, cache, StepAux)``."""
         arch = self.arch
         x = embed(p["embed"], batch["tokens"])
         position = batch["position"]
         moe = arch.moe is not None
+        paged = None
+        if "block_tables" in batch:
+            paged = (batch["block_tables"], batch["pool_owner"], batch["pool_pos"])
         ck, cv = cache["blocks"]
         auxes = []
         for i, blk in enumerate(p["blocks"]):
             x, aux = tf.attn_mlp_block_decode(
                 blk, x, position, (ck[i], cv[i]), arch, moe, sieve=batch.get("sieve"),
+                paged=paged,
             )
             auxes.append(aux)
         h = apply_norm(p["final_norm"], x, arch.norm)

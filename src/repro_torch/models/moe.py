@@ -10,7 +10,9 @@ non-EP path).
   oracle); the dual modes split experts into a head (grouped SwiGLU
   kernel over the capacity slab) and a tail (per-row SwiGLU GEMV kernel)
   with the split computed on the device
-  (:mod:`repro_torch.core.scheduler_torch`).
+  (:mod:`repro_torch.core.scheduler_torch`).  ``REPRO_FUSED_SWIGLU=0``
+  runs head and tail as three calls each (gate, up, down) of the grouped
+  matmul and expert GEMV kernels instead of the fused SwiGLU kernels.
 
 Every op is on fixed shapes and data-independent control flow, so a MoE
 layer issues no host synchronisation.
@@ -19,6 +21,7 @@ layer issues no host synchronisation.
 from __future__ import annotations
 
 import functools
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -236,14 +239,36 @@ def resolve_sieve_state(cfg: MoEConfig, d_model: int, sieve: Optional[SieveState
     )
 
 
+def _fused_swiglu_default() -> bool:
+    """Head and tail run the single-pass fused SwiGLU kernels by default;
+    ``REPRO_FUSED_SWIGLU=0`` selects the three-call formulation (gate, up
+    and down as separate kernel calls), read as the JAX package reads it
+    (``repro/models/moe.py:390``)."""
+    env = os.environ.get("REPRO_FUSED_SWIGLU")
+    if env is not None:
+        return env not in ("0", "false", "False")
+    return True
+
+
 def tail_stage(toks, wg, wu, wd, eids, valid):
-    """Tail stage: per-row streaming expert SwiGLU (the PIM-GEMV proxy)."""
-    return ops.swiglu_gemv(toks, wg, wu, wd, eids, valid)
+    """Tail stage: per-row streaming expert SwiGLU (the PIM-GEMV proxy).
+    Three-call form: ``silu(gate) * up`` is rounded to the working dtype
+    between the calls, as in the JAX package."""
+    if _fused_swiglu_default():
+        return ops.swiglu_gemv(toks, wg, wu, wd, eids, valid)
+    gate = ops.expert_gemv(toks, wg, eids, valid)
+    up = ops.expert_gemv(toks, wu, eids, valid)
+    return ops.expert_gemv(F.silu(gate) * up, wd, eids, valid)
 
 
 def head_stage(slab, wg, wu, wd, sizes):
-    """Head stage: grouped SwiGLU over the capacity slab."""
-    return ops.swiglu_gmm_capacity(slab, wg, wu, wd, sizes)
+    """Head stage: grouped SwiGLU over the capacity slab (three grouped
+    matmuls in the three-call form)."""
+    if _fused_swiglu_default():
+        return ops.swiglu_gmm_capacity(slab, wg, wu, wd, sizes)
+    gate = ops.gmm_capacity(slab, wg, sizes)
+    up = ops.gmm_capacity(slab, wu, sizes)
+    return ops.gmm_capacity(F.silu(gate) * up, wd, sizes)
 
 
 def _dual_split(rows, cfg: MoEConfig, tau: int, max_head: Optional[int],

@@ -78,14 +78,18 @@ def attn_mlp_block_decode(
     p: dict,
     x: torch.Tensor,  # (B, 1, d)
     position: torch.Tensor,  # (B,)
-    cache,  # (k, v), each (B, T, Kv, dh), updated in place
+    cache,  # (k, v): each (B, T, Kv, dh), or a (n_pool, page, Kv, dh) block pool
     arch: ArchConfig,
     moe: bool,
     sieve=None,
+    paged=None,  # (block_tables, owner, block_pos): the cache is a block pool
 ):
     """One-token block.  Returns (x, aux); the cache is written in place."""
     h = apply_norm(p["norm1"], x, arch.norm)
-    a = attn_lib.gqa_decode(p["attn"], h, position, cache[0], cache[1], arch.attn)
+    if paged is not None:
+        a = attn_lib.gqa_decode_paged(p["attn"], h, position, cache[0], cache[1], paged, arch.attn)
+    else:
+        a = attn_lib.gqa_decode(p["attn"], h, position, cache[0], cache[1], arch.attn)
     x = x + a
     h = apply_norm(p["norm2"], x, arch.norm)
     return _ffn(p, x, h, arch, moe, sieve)

@@ -10,9 +10,12 @@ device-resident ``SieveState`` every ``sieve_refresh_every`` steps.
 
 Where the JAX engine relies on buffer donation and a no-recompile state
 swap, this one updates the KV cache in place and refreshes the
-``SieveState`` by ``copy_`` into the same device tensors.  The measured
-cost loop, health gating, brownout, telemetry and snapshots are not
-ported yet and raise ``NotImplementedError``.
+``SieveState`` by ``copy_`` into the same device tensors.  With
+``BatchingConfig(paged=True)`` the cache is a shared block pool indexed
+through host-side block tables (``PagedKVCache``): blocks are allocated
+at prefill and as decode grows a slot, and freed when it retires.  The
+measured cost loop, health gating, brownout, telemetry and snapshots are
+not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from repro_torch.core.scheduler import schedule
 from repro_torch.core.scheduler_torch import SieveParams, SieveState, export_cost_table
 from repro_torch.models.model import LM
 from repro_torch.sim.dram import PimGemvModel
-from .batching import BatchingConfig, SlotScheduler
+from .batching import BatchingConfig, PagedKVCache, SlotScheduler
 from .request import Request
 
 
@@ -76,8 +79,6 @@ class ServingEngine:
             )
         if telemetry is not None or health is not None:
             raise NotImplementedError("engine telemetry and health gating are not ported yet")
-        if batching.paged:
-            raise NotImplementedError("the paged KV cache is not ported yet")
         self.lm = lm
         self.params = params
         self.cfg = batching
@@ -86,8 +87,14 @@ class ServingEngine:
         self.stats = EngineStats()
         self.cost_source = cost_source
         self.device = lm.device
-        # updated in place by every prefill insert and decode step
-        self.cache = lm.init_cache(batching.n_slots, batching.max_seq)
+        # updated in place by every prefill insert and decode step; paged:
+        # slots index a shared block pool through a host-side block table
+        self.paged: Optional[PagedKVCache] = None
+        if batching.paged:
+            self.paged = PagedKVCache(batching)
+            self.cache = lm.init_paged_cache(self.paged.n_pool, self.paged.page)
+        else:
+            self.cache = lm.init_cache(batching.n_slots, batching.max_seq)
 
         arch = lm.arch
         self.is_moe = arch.moe is not None
@@ -143,10 +150,22 @@ class ServingEngine:
         self.sieve_refreshes.append(step)
 
     def _insert_prefill(self, slot: int, req_cache) -> None:
-        """Copy one request's prompt K/V into its slot of the cache."""
+        """Copy one request's prompt K/V into its slot of the cache.  Paged:
+        the rows are padded to whole pages and scattered over the slot's
+        first blocks; the padded rows lie at or past the length and are
+        never read."""
+        if self.paged is None:
+            for dst, src in zip(self.cache["blocks"], req_cache["blocks"]):
+                P = src.shape[2]
+                dst[:, slot, :P].copy_(src[:, 0])
+            return
+        page = self.paged.page
         for dst, src in zip(self.cache["blocks"], req_cache["blocks"]):
-            P = src.shape[2]
-            dst[:, slot, :P].copy_(src[:, 0])
+            L, _, P = src.shape[:3]
+            nbp = -(-P // page)
+            ids = torch.as_tensor(self.paged.block_table[slot, :nbp], device=dst.device).long()
+            rows = torch.nn.functional.pad(src[:, 0], (0, 0, 0, 0, 0, nbp * page - P))
+            dst[:, ids] = rows.reshape((L, nbp, page) + rows.shape[2:]).to(dst.dtype)
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> bool:
@@ -216,6 +235,10 @@ class ServingEngine:
                     np.asarray(req.prompt, np.int64)[None, :], device=self.device
                 )
             }
+            if self.paged is not None:
+                # the prompt's blocks up front; _insert_prefill scatters
+                # through this block-table row
+                self.paged.ensure(req.slot, len(req.prompt))
             if self.uses_cost_split:
                 batch["sieve"] = self._sieve_state
             logits, req_cache, p_aux = self.lm.prefill(self.params, batch)
@@ -246,6 +269,14 @@ class ServingEngine:
                 "tokens": torch.as_tensor(tokens, device=self.device),
                 "position": torch.as_tensor(position, device=self.device),
             }
+            if self.paged is not None:
+                # grow block lists to cover this step's KV write, then send
+                # the fixed-shape indexing state with the batch
+                for r in batch_reqs:
+                    self.paged.ensure(r.slot, int(position[r.slot]) + 1)
+                db["block_tables"] = torch.as_tensor(self.paged.block_table, device=self.device)
+                db["pool_owner"] = torch.as_tensor(self.paged.owner, device=self.device)
+                db["pool_pos"] = torch.as_tensor(self.paged.block_pos, device=self.device)
             if self.uses_cost_split:
                 db["sieve"] = self._sieve_state
             logits, self.cache, aux = self.lm.decode_step(self.params, db, self.cache)
@@ -274,7 +305,12 @@ class ServingEngine:
                 r.truncated = True
                 self.stats.truncated_requests += 1
 
-        done = expired + self.sched.retire(time.perf_counter())
+        done = self.sched.retire(time.perf_counter())
+        if self.paged is not None:
+            for r in done:
+                self.paged.free_slot(r.slot)
+        # deadline-expired queue entries never held a slot
+        done = expired + done
         self.stats.steps += 1
         self.stats.wall_time += time.perf_counter() - t0
         return done

@@ -3,7 +3,7 @@ kernels run in interpret mode (as tests/test_kernels.py runs them).
 
 On the CPU each wrapper runs its kernel's plain version, so these tests
 hold the plain versions to the TPU kernels, edge cases included.  The
-CUDA kernels themselves run only on the card (the ``cuda`` tests below,
+CUDA kernels themselves run only on the card (tests/test_torch_cuda.py
 and chip_smoke.py).
 """
 
@@ -161,71 +161,132 @@ class TestDecodeAttention:
         assert (got.numpy()[L == 0] == 0).all()  # exact zeros, not a uniform mean
 
 
+class TestGmmCapacity:
+    @pytest.mark.parametrize(
+        "sizes,rhs_of_group",
+        [
+            ([12, 0, 5, 1], None),  # ragged groups, one dead
+            ([0, 0, 0, 0], None),  # every group dead
+            ([12, 3, 0, 6], [2, 0, 1, 2]),  # groups sharing weights
+        ],
+        ids=["ragged", "all_dead", "rhs_of_group"],
+    )
+    def test_matches_pallas_interpret(self, sizes, rhs_of_group):
+        G, E, C, K, N = 4, 3, 12, 64, 32
+        rng = np.random.default_rng(9)
+        buf = rng.standard_normal((G, C, K)).astype(np.float32)
+        rhs = (rng.standard_normal((E if rhs_of_group else G, K, N)) * 0.1).astype(np.float32)
+        gs = np.asarray(sizes, np.int32)
+        rog = None if rhs_of_group is None else np.asarray(rhs_of_group, np.int32)
+        want = jops.gmm_capacity(
+            jnp.asarray(buf), jnp.asarray(rhs), jnp.asarray(gs), bm=8, bk=32, bn=32,
+            interpret=True, rhs_of_group=None if rog is None else jnp.asarray(rog),
+        )
+        got = ops.gmm_capacity(t(buf), t(rhs), t(gs), None if rog is None else t(rog))
+        assert_close(got, want)
+        dead = np.arange(C)[None, :] >= gs[:, None]
+        assert (got.numpy()[dead] == 0).all()  # exact zeros past the size
+
+
+class TestExpertGemv:
+    @pytest.mark.parametrize("valid", [[1, 0, 1, 1, 0, 1], None], ids=["mixed", "default_all_live"])
+    def test_matches_pallas_interpret(self, valid):
+        E, S, K, N = 4, 6, 64, 32
+        rng = np.random.default_rng(10)
+        toks = rng.standard_normal((S, K)).astype(np.float32)
+        w = (rng.standard_normal((E, K, N)) * 0.1).astype(np.float32)
+        eids = np.asarray([3, 0, 1, 3, 2, 2], np.int32)
+        v = None if valid is None else np.asarray(valid, np.int32)
+        want = jops.expert_gemv(
+            jnp.asarray(toks), jnp.asarray(w), jnp.asarray(eids),
+            None if v is None else jnp.asarray(v), bk=32, bn=32, interpret=True,
+        )
+        got = ops.expert_gemv(t(toks), t(w), t(eids), None if v is None else t(v))
+        assert_close(got, want)
+        if v is not None:
+            assert (got.numpy()[v == 0] == 0).all()
+
+
+class TestDecodeAttentionSplit:
+    @pytest.mark.parametrize("n_splits", [2, 3, 8])
+    def test_matches_pallas_interpret(self, n_splits):
+        """Lengths leave the later splits of most rows empty (lse at
+        NEG_INF, zero weight) and one row has no live position at all."""
+        B, Kv, G, dh, T = 5, 2, 4, 32, 200
+        rng = np.random.default_rng(11)
+        q = rng.standard_normal((B, Kv * G, dh)).astype(np.float32)
+        ck = rng.standard_normal((B, T, Kv, dh)).astype(np.float32)
+        cv = rng.standard_normal((B, T, Kv, dh)).astype(np.float32)
+        L = np.asarray([0, 1, 63, 130, 200], np.int32)
+        want = jops.decode_attention(
+            jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv), jnp.asarray(L),
+            bt=16, n_splits=n_splits, interpret=True,
+        )
+        got = ops.decode_attention(t(q), t(ck), t(cv), t(L), n_splits=n_splits)
+        assert_close(got, want)
+        assert (got.numpy()[0] == 0).all()  # length 0: exact zeros
+
+    def test_partials_mark_empty_splits(self):
+        B, Kv, G, dh, T = 2, 1, 2, 16, 256
+        rng = np.random.default_rng(12)
+        q = t(rng.standard_normal((B, Kv * G, dh)).astype(np.float32))
+        ck = t(rng.standard_normal((B, T, Kv, dh)).astype(np.float32))
+        L = torch.tensor([70, 0], dtype=torch.int32)
+        assert ref.split_span(T, 8) == (4, 64) and ref.split_span(T, 3) == (3, 128)
+        out_p, lse = ref.decode_attention_split_partials(q, ck, ck, L, 4)
+        assert out_p.shape == (B, Kv, 4, G, dh) and lse.shape == (B, Kv, 4, G)
+        assert (lse[0, :, :2] > ref.NEG_INF).all() and (lse[0, :, 2:] == ref.NEG_INF).all()
+        assert (lse[1] == ref.NEG_INF).all() and (out_p[1] == 0).all()
+
+
+class TestDecodeAttentionPaged:
+    def test_matches_pallas_interpret(self):
+        """Page 8, shuffled blocks, trash cells past each length, an idle
+        slot of length 1 on the trash block and a length-0 slot."""
+        B, Kv, G, dh, page, nb = 5, 2, 4, 32, 8, 4
+        rng = np.random.default_rng(13)
+        n_pool = B * nb + 1
+        pk = rng.standard_normal((n_pool, page, Kv, dh)).astype(np.float32)
+        pv = rng.standard_normal((n_pool, page, Kv, dh)).astype(np.float32)
+        q = rng.standard_normal((B, Kv * G, dh)).astype(np.float32)
+        lens = np.asarray([0, 5, 8, 29, 1], np.int32)
+        order = rng.permutation(np.arange(1, n_pool))
+        tab = np.zeros((B, nb), np.int32)
+        nxt = 0
+        for b in range(B - 1):  # the last slot is idle: all trash cells
+            for j in range(-(-int(lens[b]) // page)):
+                tab[b, j] = order[nxt]
+                nxt += 1
+        want = jops.decode_attention_paged(
+            jnp.asarray(q), jnp.asarray(pk), jnp.asarray(pv), jnp.asarray(tab),
+            jnp.asarray(lens), interpret=True,
+        )
+        got = ops.decode_attention_paged(t(q), t(pk), t(pv), t(tab), t(lens))
+        assert_close(got, want)
+        assert (got.numpy()[0] == 0).all()
+
+
 class TestWrapperDispatch:
     def test_launch_counters_untouched_on_cpu(self):
         ops.reset_launches()
         rng = np.random.default_rng(8)
         q = t(rng.standard_normal((1, 2, 8)).astype(np.float32))
         ck = t(rng.standard_normal((1, 4, 1, 8)).astype(np.float32))
-        ops.decode_attention(q, ck, ck, torch.tensor([3], dtype=torch.int32))
-        assert ops.LAUNCHES == {
-            "swiglu_gmm_capacity": 0, "swiglu_gemv": 0, "decode_attention": 0,
+        one = torch.tensor([3], dtype=torch.int32)
+        ops.decode_attention(q, ck, ck, one)
+        ops.decode_attention(q, ck, ck, one, n_splits=2)
+        ops.decode_attention_paged(q, ck, ck, torch.zeros((1, 1), dtype=torch.int32), one)
+        w = t(rng.standard_normal((1, 8, 8)).astype(np.float32))
+        ops.gmm_capacity(q.reshape(1, 2, 8), w, torch.tensor([1], dtype=torch.int32))
+        ops.expert_gemv(q[0], w, torch.zeros(2, dtype=torch.int32))
+        assert set(ops.LAUNCHES) == {
+            "swiglu_gmm_capacity", "swiglu_gemv", "decode_attention", "decode_attention_split",
+            "decode_attention_paged", "gmm_capacity", "expert_gemv",
         }
+        assert all(n == 0 for n in ops.LAUNCHES.values())
 
     def test_mixed_devices_raise(self):
         q = torch.zeros((1, 2, 8))
         with pytest.raises(ValueError, match="mixed or unsupported"):
             ops.decode_attention(q, torch.zeros((1, 4, 1, 8), device="meta"),
                                  torch.zeros((1, 4, 1, 8)), torch.ones(1, dtype=torch.int32))
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-class TestKernelsOnCard:
-    """Each CUDA kernel against its plain version on the card, at the
-    proxy's widths.  bf16 tolerance 2e-2 as tests/test_fused_swiglu.py:50:
-    the kernels sum in another order than the plain float32 einsums and
-    round the output to bf16."""
-
-    def test_swiglu_gmm_capacity(self, cuda):
-        g = torch.Generator(device=cuda).manual_seed(0)
-        E, C, K, F, N = 8, 20, 128, 64, 128
-        bf = torch.bfloat16
-        buf = torch.randn((E, C, K), generator=g, device=cuda).to(bf)
-        wg, wu = (torch.randn((E, K, F), generator=g, device=cuda).mul(K**-0.5).to(bf) for _ in range(2))
-        wd = torch.randn((E, F, N), generator=g, device=cuda).mul(F**-0.5).to(bf)
-        gs = torch.tensor([20, 0, 1, 16, 17, 0, 5, 20], dtype=torch.int32, device=cuda)
-        got = ops.swiglu_gmm_capacity(buf, wg, wu, wd, gs)
-        want = ref.fused_swiglu_gmm_ref(buf, wg, wu, wd, gs)
-        assert torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-2)
-
-    def test_swiglu_gemv(self, cuda):
-        g = torch.Generator(device=cuda).manual_seed(1)
-        E, K, F, N = 8, 128, 64, 128
-        bf = torch.bfloat16
-        toks = torch.randn((E, K), generator=g, device=cuda).to(bf)
-        wg, wu = (torch.randn((E, K, F), generator=g, device=cuda).mul(K**-0.5).to(bf) for _ in range(2))
-        wd = torch.randn((E, F, N), generator=g, device=cuda).mul(F**-0.5).to(bf)
-        eids = torch.arange(E, dtype=torch.int32, device=cuda)
-        valid = torch.tensor([1, 0, 1, 1, 0, 0, 1, 1], dtype=torch.int32, device=cuda)
-        got = ops.swiglu_gemv(toks, wg, wu, wd, eids, valid)
-        want = ref.fused_swiglu_gemv_ref(toks, wg, wu, wd, eids, valid)
-        assert torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-2)
-
-    def test_decode_attention(self, cuda):
-        g = torch.Generator(device=cuda).manual_seed(2)
-        B, T, Kv, G, dh = 4, 100, 2, 8, 128
-        bf = torch.bfloat16
-        q = torch.randn((B, Kv * G, dh), generator=g, device=cuda).to(bf)
-        ck, cv = (torch.randn((B, T, Kv, dh), generator=g, device=cuda).to(bf) for _ in range(2))
-        L = torch.tensor([100, 0, 65, 1], dtype=torch.int32, device=cuda)
-        got = ops.decode_attention(q, ck, cv, L)
-        want = ref.decode_attention_ref(q, ck, cv, L)
-        assert torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-2)
-        assert (got[1] == 0).all()

@@ -95,6 +95,74 @@ class TestLayers:
         assert_close(tv, jv)
 
 
+def _pool(rng, B, nb, page, Kv, dh, lens):
+    """A shuffled block pool with each slot's first ceil(len/page) blocks
+    allocated (block 0 is trash) and the owner / block_pos it implies."""
+    n_pool = B * nb + 1
+    pk = rng.standard_normal((n_pool, page, Kv, dh)).astype(np.float32)
+    pv = rng.standard_normal((n_pool, page, Kv, dh)).astype(np.float32)
+    order = rng.permutation(np.arange(1, n_pool))
+    tab = np.zeros((B, nb), np.int32)
+    owner = np.full((n_pool,), -1, np.int32)
+    bpos = np.zeros((n_pool,), np.int32)
+    nxt = 0
+    for b, n in enumerate(lens):
+        for j in range(-(-int(n) // page)):
+            tab[b, j] = order[nxt]
+            owner[order[nxt]], bpos[order[nxt]] = b, j
+            nxt += 1
+    return pk, pv, tab, owner, bpos
+
+
+class TestPagedAttention:
+    def test_ref_and_pool_major_twin_match_jax(self):
+        B, Kv, G, dh, page, nb = 4, 2, 2, 16, 8, 4
+        rng = np.random.default_rng(5)
+        lens = np.asarray([0, 5, 8, 29], np.int32)
+        pk, pv, tab, owner, bpos = _pool(rng, B, nb, page, Kv, dh, lens)
+        q = rng.standard_normal((B, 1, Kv * G, dh)).astype(np.float32)
+        J = jnp.asarray
+        got = tattn.paged_decode_attention_ref(t(q), t(pk), t(pv), t(tab), t(lens))
+        want = jattn.paged_decode_attention_ref(J(q), J(pk), J(pv), J(tab), J(lens))
+        # a length-0 row is exact zeros, as in the TPU kernel; the JAX oracle
+        # gives a uniform mean there (kernels/ref.py docstring)
+        assert_close(got[1:], np.asarray(want)[1:])
+        assert (got[0] == 0).all()
+        want = jattn.paged_decode_attention_xla(J(q), J(pk), J(pv), J(owner), J(bpos), J(lens))
+        got = tattn.paged_decode_attention_xla(t(q), t(pk), t(pv), t(owner), t(bpos), t(lens))
+        assert_close(got, want)
+
+    def test_gqa_decode_paged_writes_pool_in_place(self, monkeypatch):
+        """Slot 3 is idle (position 0, an all-trash table row): its write
+        lands in the trash block and no live row changes.  The idle slot
+        then attends over its trash row, as the TPU kernel and the JAX
+        oracle do (the JAX pool-major twin gives it zeros), so JAX runs its
+        oracle here."""
+        monkeypatch.setenv("REPRO_FLASH_DECODE", "0")
+        cfg_j, cfg_t = proxy_arch(jget).attn, proxy_arch(tget).attn
+        d, B, page, nb = 128, 4, 8, 4
+        rng = np.random.default_rng(6)
+        p = {n: (rng.standard_normal(s) * d**-0.5).astype(np.float32) for n, s in (
+            ("wq", (d, 128)), ("wk", (d, 64)), ("wv", (d, 64)), ("wo", (128, d)))}
+        pos = np.asarray([0, 7, 16, 0], np.int32)
+        pk, pv, tab, owner, bpos = _pool(rng, B, nb, page, 2, 32, [1, 8, 17, 0])
+        x = rng.standard_normal((B, 1, d)).astype(np.float32)
+        J = jnp.asarray
+        jy, jk, jv = jattn.gqa_decode_paged(
+            {k: J(v) for k, v in p.items()}, J(x), J(pos), J(pk), J(pv),
+            (J(tab), J(owner), J(bpos)), cfg_j,
+        )
+        tk, tv = t(pk.copy()), t(pv.copy())
+        ty = tattn.gqa_decode_paged(
+            {k: t(v) for k, v in p.items()}, t(x), t(pos), tk, tv, (t(tab), t(owner), t(bpos)), cfg_t,
+        )
+        assert_close(ty, jy)
+        live = np.arange(1, pk.shape[0])  # the trash block takes two writes in any order
+        assert_close(tk[live], np.asarray(jk)[live])
+        assert_close(tv[live], np.asarray(jv)[live])
+        assert not np.allclose(tk.numpy()[tab[1, 0], 7], pk[tab[1, 0], 7])  # the new row landed
+
+
 class TestLM:
     @pytest.mark.parametrize("mode", ["dual_path_cost", "dense_family"])
     def test_prefill_and_decode_match_jax(self, mode):
@@ -125,6 +193,32 @@ class TestLM:
         np.testing.assert_array_equal(np.asarray(jaux.counts), taux.counts.numpy())
         assert int(jaux.dropped) == int(taux.dropped)
         assert_close(taux.moe_aux, jaux.moe_aux)
+
+    def test_paged_decode_matches_jax(self):
+        jlm, jp, tlm, tp = _pair("dual_path_cost")
+        rng = np.random.default_rng(7)
+        B, page, nb = 3, 8, 4
+        pos = np.asarray([5, 0, 17], np.int32)
+        pk, pv, tab, owner, bpos = _pool(rng, B, nb, page, 2, 32, pos + 1)
+        L = jlm.arch.n_layers
+        pools = [np.stack([pk * (i + 1) for i in range(L)]), np.stack([pv * (i + 1) for i in range(L)])]
+        jc = jlm.init_paged_cache(pk.shape[0], page)
+        tc = tlm.init_paged_cache(pk.shape[0], page)
+        assert [tuple(a.shape) for a in tc["blocks"]] == [a.shape for a in jc["blocks"]]
+        jcache = {"blocks": tuple(jnp.asarray(a) for a in pools)}
+        tcache = {"blocks": tuple(t(a.copy()) for a in pools)}
+        tok = rng.integers(0, 512, (B, 1)).astype(np.int32)
+        jb = {"tokens": jnp.asarray(tok), "position": jnp.asarray(pos), "block_tables": jnp.asarray(tab),
+              "pool_owner": jnp.asarray(owner), "pool_pos": jnp.asarray(bpos)}
+        tb = {"tokens": t(tok).long(), "position": t(pos), "block_tables": t(tab),
+              "pool_owner": t(owner), "pool_pos": t(bpos)}
+        jl, jnc, jaux = jlm.decode_step(jp, jb, jcache)
+        tl, tnc, taux = tlm.decode_step(tp, tb, tcache)
+        assert tnc is tcache
+        assert_close(tl, jl)
+        for a, b in zip(tnc["blocks"], jnc["blocks"]):
+            assert_close(a[:, 1:], np.asarray(b)[:, 1:])  # the trash block is write-only
+        np.testing.assert_array_equal(np.asarray(jaux.counts), taux.counts.numpy())
 
     def test_padded_vocab_is_masked(self):
         arch = dataclasses.replace(proxy_arch(tget), vocab_size=500)

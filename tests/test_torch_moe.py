@@ -125,6 +125,45 @@ class TestExecutor:
             dead = np.arange(C)[None, :] >= rows[:, None]
             assert (ty.numpy()[dead] == 0).all()
 
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("mode,max_head", [("dual_path", 0), ("dual_path_cost", 0), ("dual_path_cost", 3)])
+    def test_three_call_executor_matches_jax(self, monkeypatch, mode, max_head, dtype):
+        """REPRO_FUSED_SWIGLU=0: head and tail run gate, up and down as
+        three calls each (the JAX side runs its Pallas kernels in interpret
+        mode).  Tolerance: float32 1e-5; bf16 2e-2 (tests/test_fused_swiglu.py:50),
+        since silu(gate) * up is rounded to bf16 between the calls on both
+        sides after sums taken in other orders."""
+        monkeypatch.setenv("REPRO_FUSED_SWIGLU", "0")
+        monkeypatch.setenv("REPRO_DUAL_BACKEND", "pallas")
+        calls = dict.fromkeys(("gmm_capacity", "expert_gemv", "swiglu_gmm_capacity", "swiglu_gemv"), 0)
+        for name in calls:
+            def counted(*args, _fn=getattr(tmoe.ops, name), _name=name):
+                calls[_name] += 1
+                return _fn(*args)
+            monkeypatch.setattr(tmoe.ops, name, counted)
+        jcfg = dataclasses.replace(proxy_arch(jget, mode).moe, dual_max_head=max_head)
+        tcfg = dataclasses.replace(proxy_arch(tget, mode).moe, dual_max_head=max_head)
+        E, C, d, f = jcfg.n_experts, 6, 128, jcfg.d_expert
+        rng = np.random.default_rng(4)
+        p = _params(rng, d, f, E)
+        rows = (rng.integers(0, C + 1, E) * (rng.random(E) < 0.3)).astype(np.int32)
+        buf = rng.standard_normal((E, C, d)).astype(np.float32)
+        buf *= (np.arange(C)[None, :] < rows[:, None])[..., None]
+        jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+        jp = _tree(p, lambda a: jnp.asarray(a, jd))
+        jp["w_router"] = jnp.asarray(p["w_router"])
+        tp = _tree(p, lambda a: t(a).to(td))
+        tp["w_router"] = t(p["w_router"])
+        jy, jdrop = jmoe.experts_ffn_exec(jp, jnp.asarray(buf, jd), jnp.asarray(rows), jcfg)
+        ty, tdrop = tmoe.experts_ffn_exec(tp, t(buf).to(td), t(rows), tcfg)
+        assert ty.dtype == td
+        tol = {} if dtype == "float32" else dict(rtol=2e-2, atol=2e-2)
+        assert_close(ty, np.asarray(jy, np.float32), **tol)
+        assert int(jdrop) == int(tdrop)
+        assert calls == {"gmm_capacity": 3, "expert_gemv": 3, "swiglu_gmm_capacity": 0, "swiglu_gemv": 0}
+        dead = np.arange(C)[None, :] >= rows[:, None]
+        assert (ty.float().numpy()[dead] == 0).all()
+
     @pytest.mark.parametrize("mode", ["dense", "dual_path_cost"])
     def test_moe_block_matches_jax(self, mode):
         jarch = dataclasses.replace(proxy_arch(jget, mode), moe=dataclasses.replace(proxy_arch(jget, mode).moe, n_shared=1))
