@@ -13,10 +13,18 @@ Phases, each fatal on failure:
 3. kernels: holds each kernel against its plain PyTorch version on the card
    at the main path's shapes plus edge cases (bf16 tolerance rtol = atol =
    2e-2; exact zeros on dead rows and length-0 rows; empty KV splits; trash
-   table cells, an idle slot on the trash block and poisoned free blocks),
-   and times kernel, plain version and one PyTorch library call with CUDA
-   events, and each wrapper's host time per call.  The split-KV kernel has no model caller: its path is its entry
-   point, driven once per layer of a decode step with the counts zeroed;
+   table cells, an idle slot on the trash block and poisoned free blocks).
+   The two kernels that combine split partials through ticket counters
+   (dense decode attention, the grouped GEMM) run each case three times on
+   the same buffers, each launch against the plain version and all three
+   bitwise equal.  It times kernel, plain version and one PyTorch library
+   call with CUDA events (median and min-max of 20 launches), and each
+   wrapper's host time per call.  The split-KV kernel has no model caller:
+   its path is its entry point, driven once per layer of a decode step with
+   the counts zeroed.  With ``--parent-csrc DIR`` (the parent commit's
+   ``src/repro_torch/kernels/csrc``, unpacked) it also builds the parent's
+   dense attention and grouped GEMM and times them in turns beside the new
+   ones on the same inputs;
 4. serving: builds qwen3-moe-30b-a3b at full width and depth in bf16 with
    seeded random weights and serves the same 12 requests twice through
    ``ServingEngine``: a dense KV cache with the fused SwiGLU kernels, then
@@ -140,19 +148,19 @@ def phase_build() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches, by CUDA events.
-    Before each, zeroing a 1 GiB buffer flushes the 50 MB L2 and keeps the
-    card busy (about 0.3 ms) while the host runs ``fn``'s Python wrapper
-    (20-65 us), so the timed window holds the kernels, not the host's
-    launch latency."""
+def time_samples(fn, iters: int = 20, warmup: int = 2) -> list:
+    """Device time of each of ``iters`` launches of ``fn`` (ms), by CUDA
+    events.  Before each, zeroing a 1 GiB buffer flushes the 50 MB L2 and
+    keeps the card busy (about 0.3 ms) while the host runs ``fn``'s Python
+    wrapper (20-65 us), so the timed window holds the kernels, not the
+    host's launch latency."""
     import torch
 
     flush = torch.empty(2**30, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    total = 0.0
+    samples = []
     for _ in range(iters):
         flush.zero_()
         e0 = torch.cuda.Event(enable_timing=True)
@@ -161,8 +169,73 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         fn()
         e1.record()
         torch.cuda.synchronize()
-        total += e0.elapsed_time(e1)
-    return total / iters
+        samples.append(e0.elapsed_time(e1))
+    return samples
+
+
+def spread(samples) -> dict:
+    """Median and min-max of timing samples (ms)."""
+    import numpy as np
+
+    return dict(median=float(np.median(samples)), min=float(min(samples)), max=float(max(samples)),
+                n=len(samples))
+
+
+def timings(**fns) -> dict:
+    """For each named callable, its median device time over 20 launches
+    (``time_samples``) under the name, and the median with its min-max
+    under ``<name>_spread``."""
+    out = {}
+    for name, fn in fns.items():
+        sp = spread(time_samples(fn))
+        out[name], out[f"{name}_spread"] = sp["median"], sp
+    return out
+
+
+def in_turns(parent_fn, new_fn) -> dict:
+    """The parent commit's kernel and the new one on the same inputs, timed
+    in turns (parent, new, new, parent; 20 launches a turn), so drift over
+    the call falls on both: each one's median and min-max over its 40."""
+    samples = {"parent": [], "new": []}
+    for who in ("parent", "new", "new", "parent"):
+        samples[who] += time_samples(parent_fn if who == "parent" else new_fn)
+    out = {who: spread(v) for who, v in samples.items()}
+    out["new_over_parent"] = out["new"]["median"] / out["parent"]["median"]
+    return out
+
+
+def load_parent(csrc: Path) -> dict:
+    """The parent commit's dense decode attention and grouped GEMM, built
+    from its ``csrc`` directory (an unpacked ``git archive`` of the parent)
+    with the port's nvcc flags into a temporary directory, and bound under
+    the parent's C interface: launch functions by kernel name."""
+    import ctypes
+    import tempfile
+
+    from repro_torch.kernels import build
+
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    argtypes = {
+        "decode_attention": [P, P, P, P, P, I, I, I, I, I, F, P],
+        "grouped_gemm": [P, P, P, P, P, I, I, I, I, P],
+    }
+    tmp = tempfile.TemporaryDirectory(prefix="parent_kernels_")
+    procs = {
+        name: subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", f"{tmp.name}/{name}.so", str(csrc / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in argtypes
+    }
+    fns = {"_tmp": tmp}
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"parent {name} did not build:\n{out}")
+        fn = getattr(ctypes.CDLL(f"{tmp.name}/{name}.so"), name)
+        fn.argtypes, fn.restype = argtypes[name], ctypes.c_int
+        fns[name] = fn
+    log(f"parent kernels built from {csrc}")
+    return fns
 
 
 def host_us(fn, calls: int = 50) -> float:
@@ -199,6 +272,21 @@ def _compare(name: str, got, want, zero_rows=None) -> float:
     return err
 
 
+def _repeat_compare(name: str, call, want, zero_rows=None, times: int = 3) -> float:
+    """``times`` back-to-back launches on the same buffers, each held
+    against the plain version (a ticket counter that a launch left non-zero
+    breaks the next one), and bitwise equal to each other (split partials
+    summed in a fixed order)."""
+    import torch
+
+    outs = [call() for _ in range(times)]
+    err = max(_compare(f"{name} (launch {i + 1} of {times})", o, want, zero_rows)
+              for i, o in enumerate(outs))
+    if not all(torch.equal(outs[0], o) for o in outs[1:]):
+        fail(f"{name}: repeated launches on the same inputs differ in bits")
+    return err
+
+
 def _decode_routing(E: int, k: int, n_tok: int, seed: int):
     """Per-expert counts of one decode step's routing: ``n_tok`` tokens
     each choosing ``k`` distinct experts."""
@@ -211,7 +299,10 @@ def _decode_routing(E: int, k: int, n_tok: int, seed: int):
     return counts
 
 
-def phase_kernels(arch) -> dict:
+def phase_kernels(arch, parent=None) -> dict:
+    """Every kernel against its plain version, then timed.  ``parent``
+    (``load_parent``): the parent commit's dense attention and grouped
+    GEMM, timed in turns beside the new ones at the same inputs."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -263,10 +354,10 @@ def phase_kernels(arch) -> dict:
     flops = 2 * live_rows * 3 * K * Fd
     results["swiglu_gmm_capacity"] = dict(
         max_abs_err=max(errs),
-        ms=time_ms(lambda: ops.swiglu_gmm_capacity(buf, wg, wu, wd, gs)),
         host_us=host_us(lambda: ops.swiglu_gmm_capacity(buf, wg, wu, wd, gs)),
-        plain_ms=time_ms(lambda: ref.fused_swiglu_gmm_ref(buf, wg, wu, wd, gs)),
-        library_ms=time_ms(library_head),
+        **timings(ms=lambda: ops.swiglu_gmm_capacity(buf, wg, wu, wd, gs),
+                  plain_ms=lambda: ref.fused_swiglu_gmm_ref(buf, wg, wu, wd, gs),
+                  library_ms=library_head),
         bytes=byts, flops=flops,
         shape=f"buf ({E},{C_dec},{K}), {n_live} live groups, {live_rows} live rows",
     )
@@ -297,45 +388,75 @@ def phase_kernels(arch) -> dict:
 
     results["swiglu_gemv"] = dict(
         max_abs_err=max(errs),
-        ms=time_ms(lambda: ops.swiglu_gemv(toks, wg, wu, wd, eids, valid)),
         host_us=host_us(lambda: ops.swiglu_gemv(toks, wg, wu, wd, eids, valid)),
-        plain_ms=time_ms(lambda: ref.fused_swiglu_gemv_ref(toks, wg, wu, wd, eids, valid)),
-        library_ms=time_ms(library_tail),
+        **timings(ms=lambda: ops.swiglu_gemv(toks, wg, wu, wd, eids, valid),
+                  plain_ms=lambda: ref.fused_swiglu_gemv_ref(toks, wg, wu, wd, eids, valid),
+                  library_ms=library_tail),
         bytes=n_valid * (3 * K * Fd * 2 + K * 2) + S * N * 2 + S * 8,
         flops=2 * n_valid * 3 * K * Fd,
         shape=f"tokens ({S},{K}), {n_valid} valid rows",
     )
 
     # ---- kernel 6: grouped matmul, one call of the three-call head ----
+    # persistent split-K: each case three launches on the same buffers
+    # (tickets back at zero after each) with bitwise-equal outputs
     errs = []
     rog = torch.as_tensor(np.random.default_rng(4).integers(0, E, E), dtype=torch.int32, device=dev)
+    one_live = np.zeros(E, np.int64)
+    one_live[17] = C_dec
+    prefill_sizes = np.random.default_rng(5).integers(0, 41, E)
     for C, w, sizes, rhs_of_group in (
-        (C_dec, wg, head, None),  # decode gate/up call
-        (40, wd, np.random.default_rng(5).integers(0, 41, E), None),  # prefill down call, C % 16 != 0
+        (C_dec, wg, head, None),  # decode gate/up call: 13 live groups
+        (40, wd, prefill_sizes, None),  # prefill down call, C % 16 != 0, ragged sizes
         (C_dec, wg, np.r_[np.zeros(E // 2, np.int64), np.full(E // 2, C_dec)], None),  # all-dead groups
         (C_dec, wg, head, rog),  # groups sharing weights
+        (C_dec, wg, one_live, None),  # one live group: split-K over every SM
+        (C_dec, wg, np.random.default_rng(7).integers(1, C_dec + 1, E), None),  # all 128 live
     ):
         buf = rnd((E, C, w.shape[1]))
         gs = torch.as_tensor(sizes, dtype=torch.int32, device=dev)
-        got = ops.gmm_capacity(buf, w, gs, rhs_of_group)
         want = ref.gmm_ref(buf, w, gs, rhs_of_group)
         dead = torch.arange(C, device=dev)[None, :] >= gs[:, None]
-        errs.append(_compare(f"gmm_capacity C={C}", got, want, zero_rows=dead))
+        errs.append(_repeat_compare(f"gmm_capacity C={C}, {int((sizes > 0).sum())} live groups",
+                                    lambda: ops.gmm_capacity(buf, w, gs, rhs_of_group), want,
+                                    zero_rows=dead))
     gs = torch.as_tensor(head, dtype=torch.int32, device=dev)
     # dispatch zero-fills the rows past each group's size, so one bmm over
     # the slab computes the same function
     buf = rnd((E, C_dec, K)) * (torch.arange(C_dec, device=dev)[None, :, None] < gs[:, None, None])
+    gs_pre = torch.as_tensor(prefill_sizes, dtype=torch.int32, device=dev)
+    buf_pre = rnd((E, 40, Fd)) * (torch.arange(40, device=dev)[None, :, None] < gs_pre[:, None, None])
     results["gmm_capacity"] = dict(
         max_abs_err=max(errs),
-        ms=time_ms(lambda: ops.gmm_capacity(buf, wg, gs)),
         host_us=host_us(lambda: ops.gmm_capacity(buf, wg, gs)),
-        plain_ms=time_ms(lambda: ref.gmm_ref(buf, wg, gs)),
-        library_ms=time_ms(lambda: torch.bmm(buf, wg)),
+        **timings(ms=lambda: ops.gmm_capacity(buf, wg, gs),
+                  plain_ms=lambda: ref.gmm_ref(buf, wg, gs),
+                  library_ms=lambda: torch.bmm(buf, wg),
+                  prefill_down_ms=lambda: ops.gmm_capacity(buf_pre, wd, gs_pre),
+                  prefill_down_library_ms=lambda: torch.bmm(buf_pre, wd)),
         bytes=n_live * K * Fd * 2 + live_rows * K * 2 + E * C_dec * Fd * 2 + E * 4,
         flops=2 * live_rows * K * Fd,
         shape=f"gate call: buf ({E},{C_dec},{K}) x ({E},{K},{Fd}), {n_live} live groups, "
               f"{live_rows} live rows",
+        prefill_down_shape=f"buf ({E},40,{Fd}) x ({E},{Fd},{N}), {int((prefill_sizes > 0).sum())} "
+                           f"live groups, {int(prefill_sizes.sum())} live rows",
     )
+    if parent is not None:
+        def parent_gmm(x, w, sizes):
+            out = torch.empty((x.shape[0], x.shape[1], w.shape[2]), dtype=bf, device=dev)
+            rc = parent["grouped_gemm"](x.data_ptr(), w.data_ptr(), sizes.data_ptr(), None,
+                                        out.data_ptr(), x.shape[0], x.shape[1], x.shape[2],
+                                        w.shape[2], torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                fail(f"parent grouped_gemm failed to launch ({rc})")
+            return out
+
+        _compare("parent grouped_gemm", parent_gmm(buf, wg, gs), ref.gmm_ref(buf, wg, gs))
+        results["gmm_capacity"]["parent"] = dict(
+            decode_gate=in_turns(lambda: parent_gmm(buf, wg, gs), lambda: ops.gmm_capacity(buf, wg, gs)),
+            prefill_down=in_turns(lambda: parent_gmm(buf_pre, wd, gs_pre),
+                                  lambda: ops.gmm_capacity(buf_pre, wd, gs_pre)),
+        )
 
     # ---- kernel 7: expert GEMV, one call of the three-call tail ----
     errs = []
@@ -356,10 +477,10 @@ def phase_kernels(arch) -> dict:
 
     results["expert_gemv"] = dict(
         max_abs_err=max(errs),
-        ms=time_ms(lambda: ops.expert_gemv(toks, wg, eids, valid)),
         host_us=host_us(lambda: ops.expert_gemv(toks, wg, eids, valid)),
-        plain_ms=time_ms(lambda: ref.expert_gemv_ref(toks, wg, eids, valid)),
-        library_ms=time_ms(library_gemv),
+        **timings(ms=lambda: ops.expert_gemv(toks, wg, eids, valid),
+                  plain_ms=lambda: ref.expert_gemv_ref(toks, wg, eids, valid),
+                  library_ms=library_gemv),
         bytes=n_valid * (K * Fd * 2 + K * 2) + S * Fd * 2 + S * 8,
         flops=2 * n_valid * K * Fd,
         shape=f"gate call: tokens ({S},{K}) x ({E},{K},{Fd}), {n_valid} valid rows",
@@ -367,19 +488,25 @@ def phase_kernels(arch) -> dict:
     del wg, wu, wd
 
     # ---- kernel 3: decode attention ----
+    # split over each live length: each case three launches on the same
+    # buffers (tickets back at zero after each) with bitwise-equal outputs
     B, H, Kv, dh = n_slots, a.n_heads, a.n_kv_heads, a.d_head
     rng = np.random.default_rng(3)
     errs = []
     for T, lens in (
         (max_seq, rng.integers(129, 545, B)),  # the serving shape
-        (1000, np.r_[0, 1000, 999, 63, 64, 65, 1, 500]),  # ragged tail, length 0
+        (1000, np.r_[0, 1000, 999, 63, 64, 65, 1, 500]),  # ragged tail, length 0, length T
+        (1000, np.r_[64, 1, 33, 32, 0, 17, 64, 2]),  # every length <= 64: one split each
+        (max_seq, np.r_[max_seq, np.ones(B - 1, np.int64)]),  # one long sequence, seven idle slots
+        (4100, np.r_[4100, 1025, 1500, 33, 0, 2049, 4099, 3000]),  # several chunks per split
     ):
         q = rnd((B, H, dh))
         ck, cv = rnd((B, T, Kv, dh)), rnd((B, T, Kv, dh))
         L = torch.as_tensor(lens, dtype=torch.int32, device=dev)
-        got = ops.decode_attention(q, ck, cv, L)
         want = ref.decode_attention_ref(q, ck, cv, L)
-        errs.append(_compare(f"decode_attention T={T}", got, want, zero_rows=L == 0))
+        errs.append(_repeat_compare(f"decode_attention T={T} lengths {lens.tolist()}",
+                                    lambda: ops.decode_attention(q, ck, cv, L), want,
+                                    zero_rows=L == 0))
     lens = rng.integers(129, 545, B)
     q = rnd((B, H, dh))
     ck, cv = rnd((B, max_seq, Kv, dh)), rnd((B, max_seq, Kv, dh))
@@ -395,16 +522,31 @@ def phase_kernels(arch) -> dict:
 
     results["decode_attention"] = dict(
         max_abs_err=max(errs),
-        ms=time_ms(lambda: ops.decode_attention(q, ck, cv, L)),
         host_us=host_us(lambda: ops.decode_attention(q, ck, cv, L)),
-        plain_ms=time_ms(lambda: ref.decode_attention_ref(q, ck, cv, L)),
-        library_ms=time_ms(library_attn),
+        **timings(ms=lambda: ops.decode_attention(q, ck, cv, L),
+                  plain_ms=lambda: ref.decode_attention_ref(q, ck, cv, L),
+                  library_ms=library_attn),
         bytes=int(lens.sum()) * Kv * dh * 2 * 2 + 2 * B * H * dh * 2 + B * 4,
         flops=4 * int(lens.sum()) * H * dh,
         shape=f"q ({B},{H},{dh}), cache ({B},{max_seq},{Kv},{dh}), lengths {lens.tolist()}",
     )
     attn_bytes = results["decode_attention"]["bytes"]
     attn_flops = results["decode_attention"]["flops"]
+    if parent is not None:
+        def parent_attn():
+            out = torch.empty_like(q)
+            rc = parent["decode_attention"](q.data_ptr(), ck.data_ptr(), cv.data_ptr(), L.data_ptr(),
+                                            out.data_ptr(), B, max_seq, Kv, G, dh, 1.0 / dh**0.5,
+                                            torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                fail(f"parent decode_attention failed to launch ({rc})")
+            return out
+
+        _compare("parent decode_attention", parent_attn(), ref.decode_attention_ref(q, ck, cv, L))
+        results["decode_attention"]["parent"] = dict(
+            serving=in_turns(parent_attn, lambda: ops.decode_attention(q, ck, cv, L)),
+            library=spread(time_samples(library_attn)),
+        )
 
     # ---- kernel 4: split-KV decode attention ----
     errs = []
@@ -422,10 +564,10 @@ def phase_kernels(arch) -> dict:
         errs.append(_compare(f"decode_attention_split T={T} S={n_splits}", got, want, zero_rows=Le == 0))
     results["decode_attention_split"] = dict(
         max_abs_err=max(errs),
-        ms=time_ms(lambda: ops.decode_attention(q, ck, cv, L, n_splits=SPLIT_KV_SPLITS)),
         host_us=host_us(lambda: ops.decode_attention(q, ck, cv, L, n_splits=SPLIT_KV_SPLITS)),
-        plain_ms=time_ms(lambda: ref.decode_attention_split_ref(q, ck, cv, L, SPLIT_KV_SPLITS)),
-        library_ms=time_ms(library_attn),
+        **timings(ms=lambda: ops.decode_attention(q, ck, cv, L, n_splits=SPLIT_KV_SPLITS),
+                  plain_ms=lambda: ref.decode_attention_split_ref(q, ck, cv, L, SPLIT_KV_SPLITS),
+                  library_ms=library_attn),
         bytes=attn_bytes, flops=attn_flops,
         shape=f"as decode_attention, n_splits={SPLIT_KV_SPLITS}",
     )
@@ -484,10 +626,10 @@ def phase_kernels(arch) -> dict:
 
     results["decode_attention_paged"] = dict(
         max_abs_err=max(errs),
-        ms=time_ms(lambda: ops.decode_attention_paged(q, pk, pv, tab, L)),
         host_us=host_us(lambda: ops.decode_attention_paged(q, pk, pv, tab, L)),
-        plain_ms=time_ms(lambda: ref.decode_attention_paged_ref(q, pk, pv, tab, L)),
-        library_ms=time_ms(library_paged),
+        **timings(ms=lambda: ops.decode_attention_paged(q, pk, pv, tab, L),
+                  plain_ms=lambda: ref.decode_attention_paged_ref(q, pk, pv, tab, L),
+                  library_ms=library_paged),
         bytes=attn_bytes + sum(blocks) * 4, flops=attn_flops,
         shape=f"q ({B},{H},{dh}), pool ({n_pool},{page},{Kv},{dh}), tables ({B},{max_blocks}), "
               f"lengths {lens.tolist()}",
@@ -498,10 +640,21 @@ def phase_kernels(arch) -> dict:
     for name, r in results.items():
         r["bound_ms"] = max(r["bytes"] / PEAK_HBM_BYTES, r["flops"] / PEAK_BF16_FLOPS) * 1e3
         r["bound_by"] = "bytes" if r["bytes"] / PEAK_HBM_BYTES >= r["flops"] / PEAK_BF16_FLOPS else "operations"
-        log(f"kernel {name}: max|err| {r['max_abs_err']:.3g}  kernel {r['ms']:.4f} ms  "
+        sp = r["ms_spread"]
+        log(f"kernel {name}: max|err| {r['max_abs_err']:.3g}  kernel {r['ms']:.4f} ms "
+            f"(median of {sp['n']}, {sp['min']:.4f}-{sp['max']:.4f})  "
             f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
             f"host {r['host_us']:.1f} us/call  "
             f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})  [{r['shape']}]")
+    r = results["gmm_capacity"]
+    log(f"kernel gmm_capacity prefill down call [{r['prefill_down_shape']}]: "
+        f"{r['prefill_down_ms']:.4f} ms, torch.bmm {r['prefill_down_library_ms']:.4f} ms")
+    for name, r in results.items():
+        for shape, t in r.get("parent", {}).items():
+            if "parent" in t:
+                log(f"in turns, {name} {shape}: parent {t['parent']['median']:.4f} ms "
+                    f"({t['parent']['min']:.4f}-{t['parent']['max']:.4f}), new {t['new']['median']:.4f} ms "
+                    f"({t['new']['min']:.4f}-{t['new']['max']:.4f}), new/parent {t['new_over_parent']:.3f}")
     torch.cuda.empty_cache()
     return results
 
@@ -929,6 +1082,9 @@ def phase_profile(eng, arch, rng, n_steps: int = 4) -> dict:
         launches_per_step=launches_per_step,
         idle_share=1.0 - device_ms / step_ms,
         top_device=[(e.key, e.count // n_steps, dev_us(e) / 1e3 / n_steps) for e in top_dev],
+        # the port's own kernels (they live in anonymous namespaces), top 12 or not
+        port_kernels=[(e.key.split("(")[1].split("::")[-1], e.count // n_steps, dev_us(e) / 1e3 / n_steps)
+                      for e in on_device if e.key.startswith("(anonymous namespace)::")],
         top_host=[(e.key, e.count // n_steps, e.self_cpu_time_total / 1e3 / n_steps) for e in top_cpu],
     )
     log(f"profile: full-batch decode step {plain_step_ms:.1f} ms unprofiled (host sieve "
@@ -936,6 +1092,8 @@ def phase_profile(eng, arch, rng, n_steps: int = 4) -> dict:
         f"idle share {out['idle_share']:.3f}, {launches_per_step} kernel launches per step")
     for key, calls, ms in out["top_device"]:
         log(f"  device {ms:8.3f} ms/step {calls:6d} calls  {key[:90]}")
+    for key, calls, ms in out["port_kernels"]:
+        log(f"  port kernel {key}: {ms:.3f} ms/step, {calls} calls")
     for key, calls, ms in out["top_host"]:
         log(f"  host   {ms:8.3f} ms/step {calls:6d} calls  {key[:90]} (profiled)")
     while not eng.sched.idle:
@@ -991,6 +1149,13 @@ def _prefill_decode(lm, params, prompt, tok, paged: bool):
 
 
 def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent-csrc", type=Path, default=None,
+                    help="the parent commit's kernels/csrc directory: time its dense decode "
+                         "attention and grouped GEMM in turns beside the new ones (phase 3)")
+    args = ap.parse_args()
     card = phase_device()
     sys.path.insert(0, str(SRC))
     import torch
@@ -1001,7 +1166,8 @@ def main() -> None:
 
     arch = get_arch("qwen3-moe-30b-a3b")
     build_info = phase_build()
-    kernels = phase_kernels(arch)
+    parent = load_parent(args.parent_csrc) if args.parent_csrc else None
+    kernels = phase_kernels(arch, parent)
     lm, params = build_model(arch)
     serve = {}
     with fused_swiglu("1"):

@@ -8,168 +8,608 @@
 //   out[g, r] = 0                  for the other rows
 // accumulated in float32 and rounded to bf16.
 //
-// What bounds it on an H100: bytes.  A live (group, 16-row) tile needs its
-// expert's K x N bf16 weights (3.1 MB for a qwen3-30b gate/up/down matrix)
-// for 2 flops per weight and live row; a capacity of 8 (decode) or 40
-// (prefill) rows stays far below the card's ~295 flops per byte.
+// What bounds it on an H100: bytes.  A live group needs its expert's K x N
+// bf16 weights (3.1 MB for a qwen3-30b gate/up/down matrix) for 2 flops
+// per weight and live row; a capacity of 8 (decode) or 40 (prefill) rows
+// stays far below the card's ~295 flops per byte.  The decode gate call
+// streams 40.9 MB (13 live groups): 12.2 us at 3.35 TB/s.
 //
-// Design.  The TPU grid walks (m-tile, n-tile, k-tile) in order with a
-// (bm, bn) float32 accumulator in VMEM and skips the MXU work of dead
-// tiles.  Here one block computes one (16-row, 64-column) output tile of
-// one group over the whole K, so a live expert's weights are spread over
-// N / 64 blocks (12 for gate/up, 32 for down at qwen3-30b widths).  A block
-// reads its group's size itself: on a tile with no live row it writes the
-// tile's zeros and leaves without reading a weight.  The capacity C need
-// not be a multiple of 16: rows at or past the group's size are loaded as
-// zeros and written as zeros, rows at or past C are neither read nor
-// written (no padded copy of the slab).  (x, w) chunks of 64 along K flow
-// through a 4-stage ring in shared memory by cp.async, so three chunks are
-// in flight while the tensor cores (WMMA, bf16 in, float32 accumulate)
-// multiply the fourth; each of the 4 warps owns one 16 x 16 output
-// fragment.  No TMA and no wgmma yet.
+// Design.  A persistent grid, one block per SM.  Each block reads the
+// group sizes and builds the list of live groups in shared memory.  The
+// work is a sequence of (output tile, 64-deep K-chunk) pairs, a tile being
+// (live group, 64-row block, 128-column tile).  With fewer tiles than
+// twice the blocks (a decode step: 78 tiles at the gate call) the blocks
+// split it in the stream-K manner: every block takes an equal contiguous
+// run, so 13 live groups spread over every SM as evenly as 128 do, and a
+// run holds at most two partial tiles (its first and its last).  With more
+// (a prefill) block b takes whole tiles b, b + grid, ..., so no tile is
+// shared and the blocks' streams interleave over the weights (contiguous
+// runs there left the slowest blocks behind the median: 0.232 against
+// 0.198 ms at the prefill down call, H100 80GB HBM3 at 700 W).  Dead groups and rows at or past a
+// group's size are written as zeros by the same blocks and no weight is
+// read for them; rows at or past C are neither read nor written.
+//
+// The block is warp-specialised.  One producer warp streams each chunk
+// into an 8-stage ring in dynamic shared memory: the weights as TMA boxes
+// of 64 rows x 64 columns (128-byte swizzled; a 2D tensor map of rhs,
+// encoded once per weight tensor on the host), the slab rows of the live
+// fragments by cp.async.  The TMA's bytes and the copies' arrivals
+// (cp.async.mbarrier.arrive.noinc) complete the stage's "full" mbarrier;
+// eight consumer warps release a stage on its "empty" mbarrier once they
+// have multiplied it.  So up to 128 KB of weights stay in flight per SM,
+// continuously across tiles and through the consumers' epilogues.  (Warps
+// that both issued cp.async copies and multiplied them streamed slower
+// than the parent's kernel: the issue stalls under back-pressure, and
+// nothing was issued while they multiplied.  Split-K over fixed K-slices
+// gave each block several partial tiles, and a fence taken mid-stream
+// waits behind the whole card's stream.)
+//
+// The product swaps A and B: the 128 weight columns of a tile are the M
+// side of mma.sync m16n8k16 (one 16-column slice per consumer warp, loaded
+// from the swizzled K x N boxes by ldmatrix.trans, the stage's four
+// k-steps at once) and the slab rows are its n = 8 side, one fragment per
+// 8 live rows (1 at decode, 5 at a 40-row prefill); fragment rows past the
+// live count are zero-filled and never read from the slab.  A tile that
+// one block covers whole is written at once.  A tile shared by several
+// blocks gets a float32 partial from each, written at the end of the
+// block's run (the first tile's accumulator waits in registers, so no
+// fence stalls the consumers mid-stream) under one fence and a ticket per
+// tile; the consumer warps of the block that takes a tile's last ticket
+// sum its partials in block order, which is K order (the same bits
+// whichever block finishes last), write the bf16 tile and reset the ticket
+// for the next launch.  The kernel allocates nothing on the card:
+// partials and tickets come from the wrapper; the dynamic shared-memory
+// limit is raised once, by grouped_gemm_init, never at launch.
 //
 // Tolerance: tensor-core tiles sum in another order than the plain
 // version's float32 einsum; after the bf16 rounding of the output the
 // kernel agrees with it within the repo's bf16 tolerance (rtol = atol =
 // 2e-2, tests/test_fused_swiglu.py:50).
 
+#include <cuda.h>  // CUtensorMap and its enums (the driver entry point comes from the runtime)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
-using namespace nvcuda;
+#include <map>
+#include <tuple>
 
 namespace {
 
-constexpr int BM = 16;      // rows per tile (one WMMA row tile)
-constexpr int BN = 64;      // output columns per block
-constexpr int BK = 64;      // contraction depth per stage
-constexpr int NSTAGE = 4;   // ring depth
-constexpr int NWARPS = BN / 16;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int PAD = 8;      // bf16 elements of row padding (keeps 32-byte fragment alignment)
-constexpr int LDX = BK + PAD;
-constexpr int LDW = BN + PAD;
+constexpr int BN = 128;          // weight columns per tile: the mma's M side
+constexpr int BK = 64;           // contraction depth per stage
+constexpr int RB = 64;           // slab rows per tile at most: the mma's N side
+constexpr int NFRAG = RB / 8;    // n = 8 fragments per tile at most
+constexpr int NSTAGE = 8;        // ring depth
+constexpr int NCW = BN / 16;     // consumer warps, one 16-column slice each
+constexpr int NCT = NCW * 32;    // consumer threads
+constexpr int NT = NCT + 32;     // and one producer warp
+constexpr int HALF = 64;         // weight columns per TMA box: 128 B, the swizzle span
+constexpr int W_BYTES = BK * BN * 2;  // a stage's weights: two 64 x 64 boxes, 128-byte swizzled
+constexpr int LDX = BK + 8;      // slab row stride in bf16: 144 B, conflict-free fragment loads
 
-struct __align__(128) Smem {
-  unsigned short xs[NSTAGE][BM * LDX];  // bf16
-  unsigned short ws[NSTAGE][BK * LDW];  // bf16
-};
-static_assert(sizeof(Smem) <= 48 * 1024, "static shared memory");
-static_assert(BM * BN * sizeof(float) <= sizeof(Smem), "output staging reuses the ring");
-
-__device__ inline void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+// slab rows a stage holds: C rounded up to whole fragments, at most RB
+__host__ __device__ inline int x_rows(int C) {
+  const int rows = (C + 7) / 8 * 8;
+  return rows < RB ? rows : RB;
 }
-__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ inline void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+// a stage: the weight boxes (1024-byte aligned for the swizzle), then the slab rows
+__host__ __device__ inline int stage_bytes(int C) {
+  return (W_BYTES + x_rows(C) * LDX * 2 + 1023) / 1024 * 1024;
+}
+// alignment slack, the ring, a full and an empty mbarrier per stage, the
+// lists and two tiles' contributors (K / BK each at most)
+__host__ __device__ inline int smem_bytes(int G, int C, int K) {
+  return 1024 + NSTAGE * stage_bytes(C) + 2 * NSTAGE * 8 + (4 * G + 1 + 2 * (K / BK)) * 4;
+}
 
-__global__ void __launch_bounds__(NTHREADS)
-grouped_gemm_kernel(const __nv_bfloat16* __restrict__ x,    // (G, C, K)
-                    const __nv_bfloat16* __restrict__ rhs,  // (E, K, N)
-                    const int* __restrict__ group_sizes,    // (G,)
+__device__ inline unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ inline void mbar_init(unsigned bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ inline void mbar_arrive(unsigned bar) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar)
+               : "memory");
+}
+
+// whether the barrier's phase of this parity has completed (may suspend briefly)
+__device__ inline bool mbar_try_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Until the barrier's phase of this parity has completed.  A wait of more
+// than about 4e9 cycles (seconds; a chunk takes microseconds) can only be
+// a fault of the pipeline: it traps, so the launch fails instead of
+// hanging the card.
+__device__ inline void mbar_wait(unsigned bar, unsigned parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > 4000000000LL) __trap();
+}
+
+__device__ inline void mbar_arrive_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// TMA: the box at (x, y) of a 2D tensor map into shared memory, completing
+// on mbarrier `bar`
+__device__ inline void tma_load_2d(unsigned dst, const CUtensorMap* map, int x, int y,
+                                   unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, "
+      "%3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+
+__device__ inline void cp_async16(unsigned dst, const void* src, bool full) {
+  // src-size 0 fills the 16 bytes with zeros and reads nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
+
+// an arrive on `bar` once every cp.async this thread issued so far has landed
+__device__ inline void cp_async_arrive(unsigned bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// a barrier of the consumer warps alone (the producer never waits on it)
+__device__ inline void consumer_sync() { asm volatile("bar.sync 1, %0;\n" ::"n"(NCT) : "memory"); }
+
+// four 8x8 bf16 tiles: with the slab's rows as rows, the B fragments
+// (b0, b1) of m16n8k16 for two 16-deep k-steps
+__device__ inline void ldmatrix_x4(unsigned* r, const void* smem) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(smem)));
+}
+
+// four 8x8 bf16 tiles, transposed: the A fragment of m16n8k16 from a
+// row-major K x N weight tile
+__device__ inline void ldmatrix_x4_trans(unsigned* r, const void* smem) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(smem)));
+}
+
+// a pure register operation: not volatile, so the compiler may schedule it
+__device__ inline void mma_bf16(float* c, const unsigned* a, unsigned b0, unsigned b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An output tile: (live group, row block, column tile).
+struct Tile {
+  int g, e, row0, live, n0, ncols;
+};
+
+struct Lists {
+  const int* size;    // (G,) rows per group, clamped to [0, C]
+  const int* live;    // (n_live,) live groups in order
+  const int* expert;  // (n_live,) their weight rows
+  const int* tstart;  // (n_live + 1,) first tile of each live group
+  int n_live, ntn, N;
+};
+
+__device__ inline Tile tile_of(int t, const Lists& L) {
+  Tile w;
+  int lo = 0, hi = L.n_live - 1;  // the live group holding the tile
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (L.tstart[mid] <= t) lo = mid;
+    else hi = mid - 1;
+  }
+  const int rem = t - L.tstart[lo];
+  w.g = L.live[lo];
+  w.e = L.expert[lo];
+  w.row0 = rem / L.ntn * RB;
+  w.live = min(RB, L.size[w.g] - w.row0);
+  w.n0 = rem % L.ntn * BN;
+  w.ncols = min(BN, L.N - w.n0);
+  return w;
+}
+
+// The stream-K split of `total` chunks over `nblk` blocks: block b takes
+// [first_chunk(b), first_chunk(b + 1)), empty when blocks outnumber chunks.
+// total * nblk < 2^32 (the launcher checks), so 32-bit arithmetic serves.
+struct Split {
+  unsigned total, nblk;
+  __device__ int first_chunk(int b) const { return (int)(total * b / nblk); }
+  // the block taking chunk c: the last block whose run starts at or before c
+  __device__ int owner(int c) const { return (int)(((c + 1) * nblk - 1) / total); }
+  // the chunk after block owner(c)'s run: the next contributor's first
+  __device__ int next(int c) const { return first_chunk(owner(c) + 1); }
+  // the partial slot of block owner(c)'s part of the tile starting at chunk tc0:
+  // 2b for the block's first tile, 2b + 1 for its last
+  __device__ int slot(int c, int tc0) const {
+    const int bb = owner(c);
+    return 2 * bb + (first_chunk(bb) < tc0 ? 1 : 0);
+  }
+};
+
+__global__ void __launch_bounds__(NT, 1)
+grouped_gemm_kernel(const __grid_constant__ CUtensorMap wmap,  // rhs (E, K, N) as (E * K, N)
+                    const __nv_bfloat16* __restrict__ x,       // (G, C, K)
+                    const int* __restrict__ group_sizes,       // (G,)
                     const int* __restrict__ rhs_of_group,   // (G,) or null
                     __nv_bfloat16* __restrict__ out,        // (G, C, N)
-                    int C, int K, int N, int tiles_per_group) {
-  __shared__ Smem sm;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int g = blockIdx.x / tiles_per_group;
-  const int row0 = (blockIdx.x % tiles_per_group) * BM;
-  const int n0 = blockIdx.y * BN;
-  const int size = max(0, min(group_sizes[g], C));
-  const int rows = min(BM, C - row0);  // rows of this tile inside the slab
-  const int live = max(0, min(BM, size - row0));
-  __nv_bfloat16* otile = out + ((size_t)g * C + row0) * N + n0;
-  constexpr int VPR = BN / 8;  // 16-byte vectors per output row
+                    float* __restrict__ part,               // (2 * grid, x_rows(C), BN) shared-tile parts
+                    int* __restrict__ tickets,              // (tiles,), zero between launches
+                    int G, int C, int K, int N) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // the swizzled boxes need 1024-byte alignment
+  unsigned char* smem = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
+  __shared__ int s_nlive, s_nparts[2], s_last[2];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int nblk = gridDim.x;
+  const int ntn = (N + BN - 1) / BN, nk = K / BK;
+  const int xr = x_rows(C), sb = stage_bytes(C);
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem + NSTAGE * sb);
+  const unsigned full0 = smem_addr(bars), empty0 = smem_addr(bars + NSTAGE);
+  int* s_size = reinterpret_cast<int*>(bars + 2 * NSTAGE);
+  int* s_live = s_size + G;
+  int* s_exp = s_live + G;
+  int* s_tstart = s_exp + G;
+  int* s_slot = s_tstart + G + 1;  // partial slots of two tiles' contributors, in K order
 
-  if (live == 0) {  // dead tile: zeros, no weight traffic
-    for (int i = tid; i < rows * VPR; i += NTHREADS)
-      *reinterpret_cast<uint4*>(otile + (size_t)(i / VPR) * N + (i % VPR) * 8) =
-          make_uint4(0, 0, 0, 0);
-    return;
-  }
-  const int e = rhs_of_group ? rhs_of_group[g] : g;
-  const __nv_bfloat16* xg = x + ((size_t)g * C + row0) * K;
-  const __nv_bfloat16* we = rhs + (size_t)e * K * N + n0;
-
-  // rows past the live count stay zero in every stage: only live rows are
-  // ever copied in
-  for (int i = tid; i < NSTAGE * BM * LDX; i += NTHREADS) (&sm.xs[0][0])[i] = 0;
-  __syncthreads();
-
-  const int nk = K / BK;
-  auto load_stage = [&](int stage, int kc) {
-    const int k0 = kc * BK;
-    for (int i = tid; i < BK * (BN / 8); i += NTHREADS) {
-      const int r = i / (BN / 8), c = i % (BN / 8);
-      cp_async16(&sm.ws[stage][r * LDW + c * 8], we + (size_t)(k0 + r) * N + c * 8);
+  if (tid == NCT)
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<unsigned long long>(&wmap))
+                 : "memory");
+  for (int g = tid; g < G; g += NT) s_size[g] = max(0, min(group_sizes[g], C));
+  if (tid == 0) {
+    for (int st = 0; st < NSTAGE; ++st) {
+      mbar_init(full0 + 8 * st, 33);     // the TMA arrive (with its bytes), and one per
+                                         // producer lane as its slab copies land
+      mbar_init(empty0 + 8 * st, NCW);   // one arrive per consumer warp
     }
-    for (int i = tid; i < live * (BK / 8); i += NTHREADS) {
-      const int r = i / (BK / 8), c = i % (BK / 8);
-      cp_async16(&sm.xs[stage][r * LDX + c * 8], xg + (size_t)r * K + k0 + c * 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == 0) {  // live groups in order, and the first tile of each
+    int base = 0, tbase = 0;
+    for (int g0 = 0; g0 < G; g0 += 32) {
+      const int g = g0 + lane;
+      const int sz = g < G ? s_size[g] : 0;
+      const int nt = sz > 0 ? (sz + RB - 1) / RB * ntn : 0;
+      const unsigned mask = __ballot_sync(0xffffffffu, sz > 0);
+      int incl = nt;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
+      }
+      if (sz > 0) {
+        const int pos = base + __popc(mask & ((1u << lane) - 1u));
+        s_live[pos] = g;
+        s_exp[pos] = rhs_of_group ? rhs_of_group[g] : g;
+        s_tstart[pos] = tbase + incl - nt;
+      }
+      base += __popc(mask);
+      tbase += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    if (lane == 0) {
+      s_nlive = base;
+      s_tstart[base] = tbase;
+    }
+  }
+  __syncthreads();  // the last barrier of the whole block: the warps part here
+
+  Lists L;
+  L.size = s_size;
+  L.live = s_live;
+  L.expert = s_exp;
+  L.tstart = s_tstart;
+  L.n_live = s_nlive;
+  L.ntn = ntn;
+  L.N = N;
+  const Split sk{(unsigned)(s_tstart[L.n_live] * nk), (unsigned)nblk};  // (tile, K-chunk) pairs
+  const int b = blockIdx.x;
+  // Tiles at least twice the blocks (a prefill): whole tiles round-robin,
+  // block b taking tiles b, b + grid, ..., so no tile is shared and the
+  // blocks' streams interleave over the weights; fewer: the stream-K split.
+  const int n_tiles = s_tstart[L.n_live];
+  const bool whole_tiles = n_tiles >= 2 * nblk;
+  const int c_lo = whole_tiles ? 0 : sk.first_chunk(b);
+  const int J = whole_tiles ? (b < n_tiles ? (n_tiles - b + nblk - 1) / nblk : 0) * nk
+                            : sk.first_chunk(b + 1) - c_lo;
+  // chunk j of this block's run: its tile and K-chunk
+  auto chunk_of = [&](int j, int& t, int& kc) {
+    if (whole_tiles) {
+      t = b + j / nk * nblk;
+      kc = j % nk;
+    } else {
+      t = (c_lo + j) / nk;
+      kc = (c_lo + j) % nk;
     }
   };
-#pragma unroll
-  for (int s = 0; s < NSTAGE - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_async_commit();
+
+  if (warp == NCW) {  // producer: chunk j of this block's stream into stage j % NSTAGE
+    Tile w;
+    for (int j = 0; j < J; ++j) {
+      const int st = j % NSTAGE;
+      int t, kc;
+      chunk_of(j, t, kc);
+      if (j >= NSTAGE) mbar_wait(empty0 + 8 * st, (j / NSTAGE - 1) & 1);  // fill j - NSTAGE consumed
+      if (j == 0 || kc == 0) w = tile_of(t, L);
+      const int k0 = kc * BK;
+      const unsigned full = full0 + 8 * st;
+      const unsigned ws = smem_addr(smem + st * sb), xs = ws + W_BYTES;
+      if (lane == 0) {  // the weights: one box of 64 rows x 64 columns per half tile
+        const int halves = w.ncols / HALF;
+        mbar_arrive_expect_tx(full, halves * BK * HALF * 2);
+        for (int h = 0; h < halves; ++h)
+          tma_load_2d(ws + h * BK * HALF * 2, &wmap, w.n0 + h * HALF, w.e * K + k0, full);
+      }
+      // the slab rows of the live fragments: rows from the live count up are
+      // zero-filled, not read
+      const __nv_bfloat16* xsrc = x + ((size_t)w.g * C + w.row0) * K + k0;
+      for (int i = lane; i < (w.live + 7) / 8 * 8 * (BK / 8); i += 32) {
+        const int r = i / (BK / 8), cc = i % (BK / 8);
+        const bool live = r < w.live;
+        cp_async16(xs + (r * LDX + cc * 8) * 2, xsrc + (size_t)(live ? r : 0) * K + cc * 8, live);
+      }
+      cp_async_arrive(full);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
   }
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-  wmma::fill_fragment(acc, 0.0f);
-  for (int kc = 0; kc < nk; ++kc) {
-    cp_async_wait<NSTAGE - 2>();  // chunk kc has landed (for this thread)
-    __syncthreads();              // ... for every thread; chunk kc - 1 consumed
-    if (kc + NSTAGE - 1 < nk) load_stage((kc + NSTAGE - 1) % NSTAGE, kc + NSTAGE - 1);
-    cp_async_commit();
-    const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(sm.xs[kc % NSTAGE]);
-    const __nv_bfloat16* ws = reinterpret_cast<const __nv_bfloat16*>(sm.ws[kc % NSTAGE]);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-      wmma::load_matrix_sync(a, xs + kk, LDX);
-      wmma::load_matrix_sync(b, ws + kk * LDW + warp * 16, LDW);
-      wmma::mma_sync(acc, a, b, acc);
+  // consumers.  While the first chunks are in flight: zeros on every row at
+  // or past its group's size (dead groups whole), one warp per slab row.
+  for (int row = b * NCW + warp; row < G * C; row += nblk * NCW) {
+    if (row % C >= s_size[row / C]) {
+      uint4* dst = reinterpret_cast<uint4*>(out + (size_t)row * N);
+      for (int v = lane; v < N / 8; v += 32) dst[v] = make_uint4(0, 0, 0, 0);
     }
   }
-  cp_async_wait<0>();
-  __syncthreads();  // every warp done with the ring: reuse it for the output
-  float* stage = reinterpret_cast<float*>(&sm);
-  wmma::store_matrix_sync(stage + warp * 16, acc, BN, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < rows * VPR; i += NTHREADS) {
-    const int r = i / VPR, c = i % VPR;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r < live) {
-      const float* src = stage + r * BN + c * 8;
-      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&v);
+
+  const int m0 = warp * 16, gid = lane / 4, t4 = lane % 4;
+  float acc[NFRAG][4], acc_first[NFRAG][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) p[j] = __floats2bfloat162_rn(src[2 * j], src[2 * j + 1]);
+  for (int f = 0; f < NFRAG; ++f) acc[f][0] = acc[f][1] = acc[f][2] = acc[f][3] = 0.0f;
+  Tile w_first, tws[2];
+  int t_first = -1, tts[2], n_out = 0;
+
+  // At the end of the run: this block's float32 parts of the tiles it
+  // shares with other blocks (its last tile, and its first when that was
+  // kept), each written to its slot (2b for the block's first tile, 2b + 1
+  // for its last), then one fence and a ticket per tile; the block with a
+  // tile's last ticket sums the parts in K order, writes the bf16 tile and
+  // resets the ticket.
+  auto write_part = [&](const float (&a)[NFRAG][4], const Tile& tw, int tt) {
+    const int nfr = (tw.live + 7) / 8;
+    float* slot = part + (size_t)(2 * b + (tt == c_lo / nk ? 0 : 1)) * xr * BN;
+    if (m0 < tw.ncols) {
+#pragma unroll
+      for (int f = 0; f < NFRAG; ++f) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = f * 8 + 2 * t4 + i % 2;
+          if (f < nfr && r < tw.live) slot[r * BN + m0 + gid + 8 * (i / 2)] = a[f][i];
+        }
+      }
     }
-    *reinterpret_cast<uint4*>(otile + (size_t)r * N + c * 8) = v;
+  };
+  auto publish = [&](int n_tiles_out, const Tile* tws, const int* tts) {
+    consumer_sync();  // every consumer's parts are written ...
+    if (tid == 0) {
+      __threadfence();  // ... and visible (the fence is cumulative over the barrier)
+      for (int q = 0; q < n_tiles_out; ++q) {
+        const int tc0 = tts[q] * nk;
+        int* slots = s_slot + q * nk;
+        int n = 0;  // the blocks whose runs meet the tile, in K order
+        for (int cc = tc0; cc < tc0 + nk; cc = sk.next(cc)) slots[n++] = sk.slot(cc, tc0);
+        s_nparts[q] = n;
+        s_last[q] = atomicAdd(&tickets[tts[q]], 1) == n - 1;
+      }
+    }
+    consumer_sync();
+    for (int q = 0; q < n_tiles_out; ++q) {
+      if (!s_last[q]) continue;  // another block finishes this tile
+      __threadfence();
+      const Tile& tw = tws[q];
+      const int* slots = s_slot + q * nk;
+      const int n_parts = s_nparts[q];
+      for (int i = tid; i < tw.live * tw.ncols; i += NCT) {
+        const int r = i / tw.ncols, col = i % tw.ncols;
+        float sum = 0.0f;
+        for (int k0 = 0; k0 < n_parts; k0 += 8) {  // eight loads in flight, summed in order
+          float v[8];
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            v[k] = k0 + k < n_parts ? __ldcg(part + ((size_t)slots[k0 + k] * xr + r) * BN + col)
+                                    : 0.0f;
+#pragma unroll
+          for (int k = 0; k < 8; ++k) sum += v[k];
+        }
+        out[((size_t)tw.g * C + tw.row0 + r) * N + tw.n0 + col] = __float2bfloat16(sum);
+      }
+      if (tid == 0) tickets[tts[q]] = 0;  // every part of this launch has taken its ticket
+    }
+  };
+  Tile w;
+  for (int j = 0; j < J; ++j) {
+    const int st = j % NSTAGE;
+    int t, kc;
+    chunk_of(j, t, kc);
+    if (j == 0 || kc == 0) w = tile_of(t, L);
+    const int nfrag = (w.live + 7) / 8;
+    mbar_wait(full0 + 8 * st, (j / NSTAGE) & 1);  // chunk j has landed
+    if (m0 < w.ncols) {
+      const unsigned char* ws = smem + st * sb;
+      const unsigned short* xs = reinterpret_cast<const unsigned short*>(ws + W_BYTES);
+      // ldmatrix rows: lanes 8i..8i+7 address 8x8 tile i = (k half i / 2,
+      // column half i % 2); in a 128-byte swizzled box the 16-byte chunk of
+      // row k sits at chunk ^ (k % 8), and k % 8 = lane % 8 here
+      const unsigned char* arow = ws + (m0 / HALF) * BK * HALF * 2 +
+                                  ((lane / 16) * 8 + lane % 8) * HALF * 2 +
+                                  ((((m0 % HALF) / 8 + lane / 8 % 2) ^ (lane % 8)) * 16);
+      unsigned a[BK / 16][4];  // the stage's A fragments, all loads in flight at once
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) ldmatrix_x4_trans(a[kk], arow + kk * 16 * HALF * 2);
+#pragma unroll
+      for (int f = 0; f < NFRAG; ++f) {
+        if (f < nfrag) {
+          // lanes 8i..8i+7 address rows f*8.. of the 8-column block i of a 32-deep half
+          const unsigned short* brow = xs + (f * 8 + lane % 8) * LDX + (lane / 8) * 8;
+#pragma unroll
+          for (int h = 0; h < BK / 32; ++h) {
+            unsigned bf[4];  // b0, b1 of k-step 2h, then of k-step 2h + 1
+            ldmatrix_x4(bf, brow + h * 32);
+            mma_bf16(acc[f], a[2 * h], bf[0], bf[1]);
+            mma_bf16(acc[f], a[2 * h + 1], bf[2], bf[3]);
+          }
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * st);  // this warp is done with the stage
+    if (kc != nk - 1 && j != J - 1) continue;
+
+    // End of this block's part of tile t.  Fragment element i of acc[f] is
+    // row f * 8 + 2 * t4 + i % 2, column m0 + gid + 8 * (i / 2) of the tile.
+    const int tc0 = t * nk;
+    if (whole_tiles || (c_lo <= tc0 && c_lo + J >= tc0 + nk)) {  // the whole tile is this block's
+      if (m0 < w.ncols) {
+#pragma unroll
+        for (int f = 0; f < NFRAG; ++f) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = f * 8 + 2 * t4 + i % 2;
+            if (f < nfrag && r < w.live)
+              out[((size_t)w.g * C + w.row0 + r) * N + w.n0 + m0 + gid + 8 * (i / 2)] =
+                  __float2bfloat16(acc[f][i]);
+          }
+        }
+      }
+    } else if (j != J - 1) {
+      // the block's first tile, shared with the block before: kept until the
+      // end of the run, so no fence stalls the consumers mid-stream
+#pragma unroll
+      for (int f = 0; f < NFRAG; ++f)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc_first[f][i] = acc[f][i];
+      w_first = w;
+      t_first = t;
+    } else {
+      write_part(acc, w, t);
+      tws[n_out] = w;
+      tts[n_out++] = t;
+    }
+    if (j == J - 1) {
+      if (t_first >= 0) {
+        write_part(acc_first, w_first, t_first);
+        tws[n_out] = w_first;
+        tts[n_out++] = t_first;
+      }
+      if (n_out > 0) publish(n_out, tws, tts);
+    }
+#pragma unroll
+    for (int f = 0; f < NFRAG; ++f) acc[f][0] = acc[f][1] = acc[f][2] = acc[f][3] = 0.0f;
   }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled = nullptr;
+
+// The TMA map of weights rhs (E, K, N) bf16, seen as (E * K) rows of N:
+// 64 x 64 boxes, 128-byte swizzled.  Encoded on the host once per
+// (address, shape) and kept: a weight tensor is launched on many times.
+const CUtensorMap* weight_map(const void* rhs, int E, int K, int N) {
+  static std::map<std::tuple<const void*, int, int, int>, CUtensorMap> maps;
+  const auto key = std::make_tuple(rhs, E, K, N);
+  auto it = maps.find(key);
+  if (it != maps.end()) return &it->second;
+  CUtensorMap m;
+  const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)E * K};
+  const cuuint64_t strides[1] = {(cuuint64_t)N * 2};
+  const cuuint32_t box[2] = {HALF, BK}, unit[2] = {1, 1};
+  if (encode_tiled == nullptr ||
+      encode_tiled(&m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(rhs), dims, strides,
+                   box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return nullptr;
+  return &maps.emplace(key, m).first->second;
 }
 
 }  // namespace
 
-// Launches on `stream`; allocates nothing; returns cudaGetLastError().
-// Caller guarantees: bf16 contiguous x (G, C, K), rhs (E, K, N) and out
-// (G, C, N) with 16-byte aligned bases, K % 64 == 0, N % 64 == 0, int32
-// group tables.
+// Once per device, before the first launch: raises the kernel's dynamic
+// shared-memory limit to the most a block may opt into, finds the
+// driver's tensor-map encoder, and returns the SM count (the persistent
+// grid) and that limit.
+extern "C" int grouped_gemm_init(int* n_sm, int* max_smem) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes fa;
+  if (encode_tiled == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (e != cudaSuccess) return (int)e;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return (int)cudaErrorSymbolNotFound;
+    encode_tiled = reinterpret_cast<EncodeTiled>(fn);
+  }
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, grouped_gemm_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *max_smem = optin - (int)fa.sharedSizeBytes;
+  return (int)cudaFuncSetAttribute(grouped_gemm_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, *max_smem);
+}
+
+// What a launch over (G, C, K, N) on `n_blocks` blocks needs from the
+// caller: float32 partials (of two tiles per block at most), int32
+// tickets (one per tile) and dynamic shared memory.
+extern "C" void grouped_gemm_scratch(int G, int C, int K, int N, int n_blocks,
+                                     long long* part_floats, long long* n_tickets, int* smem) {
+  *part_floats = 2LL * n_blocks * x_rows(C) * BN;
+  *n_tickets = (long long)G * ((C + RB - 1) / RB) * ((N + BN - 1) / BN);
+  *smem = smem_bytes(G, C, K);
+}
+
+// Launches on `stream`; allocates nothing on the card; returns
+// cudaGetLastError().  Caller guarantees: bf16 contiguous x (G, C, K), rhs
+// (E, K, N) and out (G, C, N) with 16-byte aligned bases, K % 64 == 0,
+// N % 64 == 0, int32 group tables, scratch as grouped_gemm_scratch says,
+// and a prior grouped_gemm_init on this device.
 extern "C" int grouped_gemm(const void* x, const void* rhs, const int* group_sizes,
-                            const int* rhs_of_group, void* out, int G, int C, int K, int N,
-                            void* stream) {
-  if (K % BK != 0 || N % BN != 0) return (int)cudaErrorInvalidValue;
+                            const int* rhs_of_group, void* out, float* part, int* tickets, int G,
+                            int C, int K, int N, int E, int n_blocks, void* stream) {
+  if (K % BK != 0 || N % 64 != 0 || n_blocks < 1) return (int)cudaErrorInvalidValue;
+  const long long most_chunks = (long long)G * ((C + RB - 1) / RB) * ((N + BN - 1) / BN) * (K / BK);
+  if (most_chunks * n_blocks >= (1LL << 32)) return (int)cudaErrorInvalidValue;  // Split's range
   if (G == 0 || C == 0 || N == 0) return (int)cudaGetLastError();
-  const int tiles_per_group = (C + BM - 1) / BM;
-  grouped_gemm_kernel<<<dim3(G * tiles_per_group, N / BN), NTHREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(rhs), group_sizes,
-      rhs_of_group, static_cast<__nv_bfloat16*>(out), C, K, N, tiles_per_group);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K == 0) return (int)cudaMemsetAsync(out, 0, (size_t)G * C * N * 2, st);
+  const CUtensorMap* wmap = weight_map(rhs, E, K, N);
+  if (wmap == nullptr) return (int)cudaErrorInvalidValue;
+  grouped_gemm_kernel<<<n_blocks, NT, smem_bytes(G, C, K), st>>>(
+      *wmap, static_cast<const __nv_bfloat16*>(x), group_sizes, rhs_of_group,
+      static_cast<__nv_bfloat16*>(out), part, tickets, G, C, K, N);
   return (int)cudaGetLastError();
 }
 

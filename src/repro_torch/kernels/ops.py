@@ -13,7 +13,7 @@ can show that its path went through the kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -33,15 +33,33 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 _ARGTYPES = {
     "fused_swiglu_gmm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fused_swiglu_gemv": [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "decode_attention_split": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _F, _P],
     "decode_attention_paged": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    "grouped_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "grouped_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "expert_gemv": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+# the libraries' helper entry points: (argtypes, restype)
+_IP, _LLP = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)
+_HELPERS = {
+    "decode_attention": {"decode_attention_splits": ([_I], ctypes.c_int)},
+    "grouped_gemm": {
+        "grouped_gemm_init": ([_IP, _IP], ctypes.c_int),
+        "grouped_gemm_scratch": ([_I, _I, _I, _I, _I, _LLP, _LLP, _IP], None),
+    },
 }
 # a block's shared-memory ceiling on Hopper (232,448 bytes)
 _MAX_SMEM = 232448
+# kernels whose library exports ``<name>_init(int* ...)``, run once per
+# device when the library is first used there: the ints it returns
+_INIT_OUTS = {"grouped_gemm": ("n_sm", "max_smem")}
+_INIT: Dict[Tuple[str, int], Dict[str, int]] = {}
+# zeroed int32 ticket counters, one buffer per (kernel, device, size); each
+# launch leaves its counters at zero again.  One buffer per device assumes
+# one stream, as the port uses: two streams sharing it would race.
+_TICKETS: Dict[Tuple[str, int, int], torch.Tensor] = {}
+_SCRATCH: Dict[Tuple, Tuple[int, ...]] = {}
 
 
 def reset_launches() -> None:
@@ -49,13 +67,33 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _kernel(name: str):
+def _kernel(name: str, device: Optional[torch.device] = None):
+    """The loaded library and launch function of kernel ``name``; on the
+    first use on ``device`` it also runs the library's init entry point
+    (``_INIT_OUTS``), whose results ``_INIT`` keeps."""
     lib = build.load(name)
     fn = getattr(lib, name)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
+        for helper, (argtypes, restype) in _HELPERS.get(name, {}).items():
+            getattr(lib, helper).argtypes = argtypes
+            getattr(lib, helper).restype = restype
+    if name in _INIT_OUTS and (name, device.index) not in _INIT:
+        outs = [ctypes.c_int() for _ in _INIT_OUTS[name]]
+        with torch.cuda.device(device):
+            rc = getattr(lib, f"{name}_init")(*(ctypes.byref(o) for o in outs))
+        _raise_on(lib, rc, f"{name}_init")
+        _INIT[(name, device.index)] = {k: o.value for k, o in zip(_INIT_OUTS[name], outs)}
     return lib, fn
+
+
+def _tickets(name: str, device: torch.device, n: int) -> torch.Tensor:
+    key = (name, device.index, n)
+    buf = _TICKETS.get(key)
+    if buf is None:
+        buf = _TICKETS[key] = torch.zeros((n,), dtype=torch.int32, device=device)
+    return buf
 
 
 def _raise_on(lib, rc: int, name: str) -> None:
@@ -191,10 +229,26 @@ def gmm_capacity(
     _check_i32("group_sizes", group_sizes, G)
     if rhs_of_group is not None:
         _check_i32("rhs_of_group", rhs_of_group, G)
-    lib, fn = _kernel("grouped_gemm")
-    out = torch.empty((G, C, N), dtype=buf.dtype, device=buf.device)
-    rc = fn(_ptr(buf), _ptr(rhs), _ptr(group_sizes), _ptr(rhs_of_group), _ptr(out),
-            G, C, K, N, _stream(buf))
+    dev = buf.device
+    lib, fn = _kernel("grouped_gemm", dev)
+    n_sm = _INIT[("grouped_gemm", dev.index)]["n_sm"]
+    key = ("grouped_gemm", dev.index, G, C, K, N)
+    if key not in _SCRATCH:
+        part_floats, n_tickets, smem = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_int()
+        lib.grouped_gemm_scratch(G, C, K, N, n_sm, ctypes.byref(part_floats),
+                                 ctypes.byref(n_tickets), ctypes.byref(smem))
+        max_smem = _INIT[("grouped_gemm", dev.index)]["max_smem"]
+        _require(smem.value <= max_smem,
+                 f"gmm_capacity with G={G}, C={C} needs {smem.value} B of shared memory per block")
+        _require(n_tickets.value * (K // 64) * n_sm < 2**32,
+                 f"gmm_capacity with G={G}, C={C}, K={K}, N={N} has too many chunks to split")
+        _SCRATCH[key] = (part_floats.value, n_tickets.value)
+    part_floats, n_tickets = _SCRATCH[key]
+    # float32 partials of the tiles that blocks share (one block per SM)
+    part = torch.empty((part_floats,), dtype=torch.float32, device=dev)
+    out = torch.empty((G, C, N), dtype=buf.dtype, device=dev)
+    rc = fn(_ptr(buf), _ptr(rhs), _ptr(group_sizes), _ptr(rhs_of_group), _ptr(out), _ptr(part),
+            _ptr(_tickets("grouped_gemm", dev, n_tickets)), G, C, K, N, E, n_sm, _stream(buf))
     _raise_on(lib, rc, "grouped_gemm")
     LAUNCHES["gmm_capacity"] += 1
     return out
@@ -262,9 +316,9 @@ def decode_attention(
     _check_attention(q, cache_k, cache_v, lengths, B, Kv)
     _require(cache_k.shape[0] == B, "cache batch does not match q")
     out = torch.empty_like(q)
+    G = H // Kv
     if n_splits > 1:
         S, span = ref.split_span(T, n_splits)
-        G = H // Kv
         part = torch.empty((B, Kv, S, G, dh), dtype=torch.float32, device=q.device)
         lse = torch.empty((B, Kv, S, G), dtype=torch.float32, device=q.device)
         lib, fn = _kernel("decode_attention_split")
@@ -274,8 +328,16 @@ def decode_attention(
         LAUNCHES["decode_attention_split"] += 1
         return out
     lib, fn = _kernel("decode_attention")
-    rc = fn(_ptr(q), _ptr(cache_k), _ptr(cache_v), _ptr(lengths), _ptr(out),
-            B, T, Kv, H // Kv, dh, 1.0 / dh**0.5, _stream(q))
+    key = ("decode_attention", T)
+    if key not in _SCRATCH:
+        _SCRATCH[key] = (lib.decode_attention_splits(T),)
+    (S,) = _SCRATCH[key]
+    # float32 partials and log-sum-exps of the splits over each live length
+    part = torch.empty((B * Kv, S, G, dh), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B * Kv, S, G), dtype=torch.float32, device=q.device)
+    rc = fn(_ptr(q), _ptr(cache_k), _ptr(cache_v), _ptr(lengths), _ptr(part), _ptr(lse),
+            _ptr(_tickets("decode_attention", q.device, B * Kv)), _ptr(out),
+            B, T, Kv, G, dh, 1.0 / dh**0.5, _stream(q))
     _raise_on(lib, rc, "decode_attention")
     LAUNCHES["decode_attention"] += 1
     return out

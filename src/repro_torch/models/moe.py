@@ -75,7 +75,10 @@ def route(x: torch.Tensor, w_router: torch.Tensor, cfg: MoEConfig) -> RouterOut:
     E = w_router.shape[1]
     logits = x.float() @ w_router.float()
     probs = torch.softmax(logits, dim=-1)
-    top_p, top_i = torch.topk(probs, cfg.top_k, dim=-1)
+    # a stable descending sort puts the lower index first among equal
+    # probabilities, as jax.lax.top_k does (torch.topk leaves ties unordered)
+    srt_p, srt_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_i = srt_p[:, : cfg.top_k], srt_i[:, : cfg.top_k]
     weights = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
     flat = top_i.reshape(-1)
     frac = torch.zeros((E,), dtype=torch.float32, device=x.device).index_add_(

@@ -93,6 +93,43 @@ class TestGmmCapacity:
         rog = torch.tensor([2, 0, 1, 2, 1, 0], dtype=torch.int32, device=cuda)
         _close(ops.gmm_capacity(buf, rhs, gs, rog), ref.gmm_ref(buf, rhs, gs, rog))
 
+    @pytest.mark.parametrize(
+        "live,C,K,N,shared",
+        [
+            (1, 8, 2048, 768, False),  # one live group: its tiles shared by every SM
+            (13, 8, 2048, 768, False),  # the decode gate call
+            (13, 8, 768, 2048, False),  # the decode down call
+            (128, 8, 2048, 768, False),  # every group live: whole tiles round-robin
+            (128, 40, 768, 2048, False),  # prefill down call, C % 16 != 0, ragged sizes
+            (20, 100, 256, 192, False),  # two row blocks, a 64-column last tile
+            (13, 8, 2048, 768, True),  # groups sharing weights (rhs_of_group)
+        ],
+        ids=["one_live", "decode_gate", "decode_down", "all_live", "prefill_down_C40",
+             "two_row_blocks", "rhs_of_group"],
+    )
+    def test_persistent_stream_k(self, cuda, live, C, K, N, shared):
+        """The persistent kernel on live-group counts from one to all (tiles
+        shared between blocks, and whole tiles), against the plain version,
+        three times on the same buffers (each launch must leave its tickets
+        at zero for the next), and bitwise equal from call to call (shared
+        tiles summed in K order)."""
+        G = 128
+        g = torch.Generator(device=cuda).manual_seed(live + C)
+        buf = _rnd(g, (G, C, K), cuda)
+        rhs = _rnd(g, (G, K, N), cuda, K**-0.5)
+        sizes = torch.zeros((G,), dtype=torch.int32, device=cuda)
+        groups = torch.randperm(G, generator=g, device=cuda)[:live]
+        sizes[groups] = torch.randint(1, C + 1, (live,), generator=g, device=cuda).to(torch.int32)
+        sizes[groups[0]] = C + 5  # past the capacity: clamped to C
+        rog = torch.randint(0, G, (G,), generator=g, device=cuda).to(torch.int32) if shared else None
+        want = ref.gmm_ref(buf, rhs, sizes, rog)
+        dead = torch.arange(C, device=cuda)[None, :] >= sizes[:, None]
+        outs = [ops.gmm_capacity(buf, rhs, sizes, rog) for _ in range(3)]
+        for got in outs:
+            _close(got, want)
+            assert (got[dead] == 0).all()
+        assert all(torch.equal(outs[0], o) for o in outs[1:])
+
 
 @pytest.mark.cuda
 class TestExpertGemv:
@@ -130,6 +167,37 @@ class TestDecodeAttention:
         got = ops.decode_attention(q, ck, cv, L)
         _close(got, ref.decode_attention_ref(q, ck, cv, L))
         assert (got[1] == 0).all()
+
+    @pytest.mark.parametrize(
+        "T,lens",
+        [
+            (1000, [0, 1, 63, 64, 65, 1000, 999, 500]),  # ragged tails, length 0, length T
+            (1000, [64, 1, 33, 32, 0, 17, 64, 2]),  # every length <= 64: one split each
+            (1024, [1024, 1, 1, 1, 1, 1, 1, 1]),  # one long sequence, seven idle slots
+            (1024, [145, 387, 201, 330, 260, 178, 299, 356]),  # serving lengths
+            (4100, [4100, 1025, 1500, 33, 0, 2049, 4099, 3000]),  # several chunks per split
+        ],
+        ids=["edges", "short", "one_long_seven_idle", "serving", "long_cache"],
+    )
+    def test_dense_split_over_live_length(self, cuda, T, lens):
+        """The dense kernel splits each sequence over its own live length
+        and combines the splits in the last block to finish: against the
+        plain version, three times on the same buffers (each launch must
+        leave its tickets at zero for the next), and bitwise equal from call
+        to call (splits summed in split order)."""
+        g = torch.Generator(device=cuda).manual_seed(T + lens[0])
+        B, Kv, G, dh = 8, 4, 8, 128
+        q = _rnd(g, (B, Kv * G, dh), cuda)
+        ck, cv = (_rnd(g, (B, T, Kv, dh), cuda) for _ in range(2))
+        L = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        want = ref.decode_attention_ref(q, ck, cv, L)
+        ops.reset_launches()
+        outs = [ops.decode_attention(q, ck, cv, L) for _ in range(3)]
+        assert ops.LAUNCHES["decode_attention"] == 3 and ops.LAUNCHES["decode_attention_split"] == 0
+        for got in outs:
+            _close(got, want)
+            assert (got[L == 0] == 0).all()
+        assert all(torch.equal(outs[0], o) for o in outs[1:])
 
     @pytest.mark.parametrize("n_splits", [2, 3, 8])
     def test_split(self, cuda, n_splits):
@@ -175,3 +243,23 @@ class TestDecodeAttention:
         got = ops.decode_attention_paged(q, pk, pv, tab, L)
         _close(got, ref.decode_attention_paged_ref(q, pk, pv, tab, L))
         assert (got[1] == 0).all()
+
+
+@pytest.mark.cuda
+class TestRouterTies:
+    def test_route_puts_the_lower_index_first(self, cuda):
+        """Tied router probabilities on the card: the lower expert index
+        comes first, as jax.lax.top_k orders them."""
+        from repro_torch.configs import get_arch
+        from repro_torch.models import moe
+
+        cfg = get_arch("qwen3-moe-30b-a3b").moe  # 128 experts, top-8
+        d, E = 16, cfg.n_experts
+        g = torch.Generator(device=cuda).manual_seed(0)
+        w = torch.randn((d, E), generator=g, device=cuda) * 0.1
+        w[:, 5] = w[:, 77] = 3.0  # a two-way tie above every other expert
+        x = torch.zeros((2, d), device=cuda)
+        x[1] = 1.0  # row 0: all 128 probabilities equal
+        r = moe.route(x, w, cfg)
+        assert r.expert_idx[0].tolist() == list(range(8))
+        assert r.expert_idx[1, :2].tolist() == [5, 77]

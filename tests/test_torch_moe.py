@@ -67,6 +67,46 @@ class TestRouter:
         assert_close(tr.weights, jr.weights)
         assert_close(tr.aux_loss, jr.aux_loss)
 
+    @pytest.mark.parametrize("tie", ["flat_row", "two_way", "three_way"])
+    def test_route_breaks_ties_as_jax_top_k(self, tie):
+        """Tied probabilities: ``jax.lax.top_k`` puts the lower index first,
+        and the port must pick the same experts in the same order, so the
+        counts and the dispatch's slots and drops match exactly.  At qwen3
+        routing widths (128 experts, top-8); ``flat_row`` feeds zero rows of
+        x (all 128 probabilities equal), the others duplicate router columns
+        among the top 8."""
+        E, k, d, T = 128, 8, 16, 12
+        jcfg = dataclasses.replace(proxy_arch(jget).moe, n_experts=E, top_k=k)
+        tcfg = dataclasses.replace(proxy_arch(tget).moe, n_experts=E, top_k=k)
+        rng = np.random.default_rng(7)
+        x = rng.standard_normal((T, d)).astype(np.float32)
+        w = rng.standard_normal((d, E)).astype(np.float32)
+        if tie == "flat_row":
+            x[::3] = 0.0
+            tied = [(r, list(range(E))) for r in range(0, T, 3)]
+        else:
+            x = np.abs(x) + 0.1
+            cols = [5, 77] if tie == "two_way" else [5, 40, 77]
+            w[:, cols] = 2.0 + np.abs(w[:, [cols[0]]])  # the same, largest column
+            tied = [(r, cols) for r in range(T)]
+        probs = torch.softmax(t(x) @ t(w), dim=-1)
+        for r, cols in tied:  # the ties are exact on the port's side too
+            assert (probs[r, cols] == probs[r, cols[0]]).all()
+        jr = jmoe.route(jnp.asarray(x), jnp.asarray(w), jcfg)
+        tr = tmoe.route(t(x), t(w), tcfg)
+        np.testing.assert_array_equal(np.asarray(jr.expert_idx), tr.expert_idx.numpy())
+        np.testing.assert_array_equal(np.asarray(jr.counts), tr.counts.numpy())
+        assert_close(tr.weights, jr.weights)
+        for r, cols in tied:
+            want = list(range(k)) if tie == "flat_row" else cols
+            assert tr.expert_idx[r, : len(want)].tolist() == want
+        cap = 2  # the tied experts overflow: drops
+        jd = jmoe.dispatch(jnp.asarray(x), jr, E, cap)
+        td = tmoe.dispatch(t(x), tr, E, cap)
+        np.testing.assert_array_equal(np.asarray(jd.slot_of), td.slot_of.numpy())
+        np.testing.assert_array_equal(np.asarray(jd.buf), td.buf.numpy())
+        assert int(jd.n_dropped) == int(td.n_dropped) > 0
+
 
 class TestDispatch:
     @pytest.mark.parametrize(
