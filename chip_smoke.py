@@ -13,18 +13,22 @@ Phases, each fatal on failure:
 3. kernels: holds each kernel against its plain PyTorch version on the card
    at the main path's shapes plus edge cases (bf16 tolerance rtol = atol =
    2e-2; exact zeros on dead rows and length-0 rows; empty KV splits; trash
-   table cells, an idle slot on the trash block and poisoned free blocks).
-   The two kernels that combine split partials through ticket counters
-   (dense decode attention, the grouped GEMM) run each case three times on
-   the same buffers, each launch against the plain version and all three
-   bitwise equal.  It times kernel, plain version and one PyTorch library
-   call with CUDA events (median and min-max of 20 launches), and each
-   wrapper's host time per call.  The split-KV kernel has no model caller:
-   its path is its entry point, driven once per layer of a decode step with
-   the counts zeroed.  With ``--parent-csrc DIR`` (the parent commit's
+   table cells, an idle slot on the trash block, poisoned free blocks and
+   table cells outside the pool).  The four kernels that leave counters
+   for the next launch (the fused head, dense and paged decode attention,
+   the grouped GEMM) run each case three times on the same buffers, each
+   launch against the plain version and all three bitwise equal.  A
+   ``torch.profiler`` trace of one head call must hold one kernel.  It
+   times kernel, plain version and one PyTorch library call with CUDA
+   events (median and min-max of 20 launches; the head at its prefill
+   shape too), and each wrapper's host time per call.  The split-KV
+   kernel has no model caller: its path is its entry point, driven once
+   per layer of a decode step with the counts zeroed.  With
+   ``--parent-csrc DIR`` (the parent commit's
    ``src/repro_torch/kernels/csrc``, unpacked) it also builds the parent's
-   dense attention and grouped GEMM and times them in turns beside the new
-   ones on the same inputs;
+   fused head, paged and dense attention, times them in turns beside the
+   new ones on the same inputs (the head at decode and at prefill), and
+   requires the dense kernel's output to equal the parent's bit for bit;
 4. serving: builds qwen3-moe-30b-a3b at full width and depth in bf16 with
    seeded random weights and serves the same 12 requests twice through
    ``ServingEngine``: a dense KV cache with the fused SwiGLU kernels, then
@@ -148,12 +152,15 @@ def phase_build() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def time_samples(fn, iters: int = 20, warmup: int = 2) -> list:
+def time_samples(fn, iters: int = 20, warmup: int = 2, flush_by: str = "write") -> list:
     """Device time of each of ``iters`` launches of ``fn`` (ms), by CUDA
     events.  Before each, zeroing a 1 GiB buffer flushes the 50 MB L2 and
     keeps the card busy (about 0.3 ms) while the host runs ``fn``'s Python
     wrapper (20-65 us), so the timed window holds the kernels, not the
-    host's launch latency."""
+    host's launch latency.  The zeros leave the L2 full of dirty lines,
+    which a kernel that reads more than the L2 holds writes back to
+    memory; ``flush_by="read"`` flushes by reading the buffer instead,
+    which leaves the L2 clean."""
     import torch
 
     flush = torch.empty(2**30, dtype=torch.uint8, device="cuda")
@@ -162,7 +169,10 @@ def time_samples(fn, iters: int = 20, warmup: int = 2) -> list:
     torch.cuda.synchronize()
     samples = []
     for _ in range(iters):
-        flush.zero_()
+        if flush_by == "read":
+            flush.amax()
+        else:
+            flush.zero_()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -192,23 +202,24 @@ def timings(**fns) -> dict:
     return out
 
 
-def in_turns(parent_fn, new_fn) -> dict:
+def in_turns(parent_fn, new_fn, flush_by: str = "write") -> dict:
     """The parent commit's kernel and the new one on the same inputs, timed
     in turns (parent, new, new, parent; 20 launches a turn), so drift over
     the call falls on both: each one's median and min-max over its 40."""
     samples = {"parent": [], "new": []}
     for who in ("parent", "new", "new", "parent"):
-        samples[who] += time_samples(parent_fn if who == "parent" else new_fn)
+        samples[who] += time_samples(parent_fn if who == "parent" else new_fn, flush_by=flush_by)
     out = {who: spread(v) for who, v in samples.items()}
     out["new_over_parent"] = out["new"]["median"] / out["parent"]["median"]
     return out
 
 
 def load_parent(csrc: Path) -> dict:
-    """The parent commit's dense decode attention and grouped GEMM, built
-    from its ``csrc`` directory (an unpacked ``git archive`` of the parent)
-    with the port's nvcc flags into a temporary directory, and bound under
-    the parent's C interface: launch functions by kernel name."""
+    """The parent commit's fused head, paged attention and dense attention,
+    built from its ``csrc`` directory (an unpacked ``git archive`` of the
+    parent) with the port's nvcc flags into a temporary directory, and
+    bound under the parent's C interface (as of commit e8f8960): launch
+    functions by kernel name, plus the dense kernel's split count."""
     import ctypes
     import tempfile
 
@@ -216,8 +227,9 @@ def load_parent(csrc: Path) -> dict:
 
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     argtypes = {
-        "decode_attention": [P, P, P, P, P, I, I, I, I, I, F, P],
-        "grouped_gemm": [P, P, P, P, P, I, I, I, I, P],
+        "fused_swiglu_gmm": [P] * 8 + [I] * 5 + [P],
+        "decode_attention_paged": [P] * 6 + [I] * 7 + [F, P],
+        "decode_attention": [P] * 8 + [I] * 5 + [F, P],
     }
     tmp = tempfile.TemporaryDirectory(prefix="parent_kernels_")
     procs = {
@@ -231,11 +243,31 @@ def load_parent(csrc: Path) -> dict:
         out, _ = proc.communicate()
         if proc.returncode != 0:
             fail(f"parent {name} did not build:\n{out}")
-        fn = getattr(ctypes.CDLL(f"{tmp.name}/{name}.so"), name)
+        lib = ctypes.CDLL(f"{tmp.name}/{name}.so")
+        fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes[name], ctypes.c_int
         fns[name] = fn
+        if name == "decode_attention":
+            lib.decode_attention_splits.argtypes, lib.decode_attention_splits.restype = [I], ctypes.c_int
+            fns["decode_attention_splits"] = lib.decode_attention_splits
     log(f"parent kernels built from {csrc}")
     return fns
+
+
+def _kernels_per_call(call) -> list:
+    """The device kernels one ``call`` runs, by name, from a
+    ``torch.profiler`` trace of that call alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    call()  # built and initialised outside the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    return sorted(n.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+                  .split("::")[-1] for n in names)
 
 
 def host_us(fn, calls: int = 50) -> float:
@@ -301,8 +333,8 @@ def _decode_routing(E: int, k: int, n_tok: int, seed: int):
 
 def phase_kernels(arch, parent=None) -> dict:
     """Every kernel against its plain version, then timed.  ``parent``
-    (``load_parent``): the parent commit's dense attention and grouped
-    GEMM, timed in turns beside the new ones at the same inputs."""
+    (``load_parent``): the parent commit's fused head, paged and dense
+    attention, timed in turns beside the new ones at the same inputs."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -327,40 +359,96 @@ def phase_kernels(arch, parent=None) -> dict:
     results = {}
 
     # ---- kernel 1: head grouped SwiGLU ----
+    # persistent, one launch: each case three launches on the same buffers
+    # (readiness counters back at zero after each) with bitwise-equal outputs
     C_dec = 8  # capacity(T=8) at qwen3-30b, min_capacity floor
     head = np.where(counts >= 2, counts, 0)
+    prefill_sizes = np.random.default_rng(5).integers(0, 41, E)  # ragged, 0-40
+    rog = torch.as_tensor(np.random.default_rng(4).integers(0, E, E), dtype=torch.int32, device=dev)
+    over = head.copy()
+    over[np.flatnonzero(head)[:3]] = C_dec + 5  # past the capacity: clamped to C
     errs = []
-    for C, sizes in (
-        (C_dec, head),  # the decode step's head split
-        (40, np.random.default_rng(2).integers(0, 41, E)),  # prefill, T=512
-        (C_dec, np.r_[np.zeros(E // 2, np.int64), np.full(E // 2, C_dec)]),  # all-dead groups
+    for C, sizes, rhs_of_group in (
+        (C_dec, head, None),  # the decode step's head split
+        (40, prefill_sizes, None),  # prefill, T=512
+        (C_dec, np.r_[np.zeros(E // 2, np.int64), np.full(E // 2, C_dec)], None),  # dead groups
+        (C_dec, np.zeros(E, np.int64), None),  # every group dead
+        (C_dec, over, None),
+        (C_dec, head, rog),  # groups sharing experts
     ):
         buf = rnd((E, C, K))
         gs = torch.as_tensor(sizes, dtype=torch.int32, device=dev)
-        got = ops.swiglu_gmm_capacity(buf, wg, wu, wd, gs)
-        want = ref.fused_swiglu_gmm_ref(buf, wg, wu, wd, gs)
+        want = ref.fused_swiglu_gmm_ref(buf, wg, wu, wd, gs, rhs_of_group)
         dead = torch.arange(C, device=dev)[None, :] >= gs[:, None]
-        errs.append(_compare(f"swiglu_gmm_capacity C={C}", got, want, zero_rows=dead))
+        errs.append(_repeat_compare(
+            f"swiglu_gmm_capacity C={C}, {int((sizes > 0).sum())} live groups"
+            f"{', rhs_of_group' if rhs_of_group is not None else ''}",
+            lambda: ops.swiglu_gmm_capacity(buf, wg, wu, wd, gs, rhs_of_group), want,
+            zero_rows=dead))
     buf = rnd((E, C_dec, K))
     gs = torch.as_tensor(head, dtype=torch.int32, device=dev)
+    buf_pre = rnd((E, 40, K))
+    gs_pre = torch.as_tensor(prefill_sizes, dtype=torch.int32, device=dev)
     live_rows = int(head.sum())
     n_live = int((head > 0).sum())
+    kernels_per_call = _kernels_per_call(lambda: ops.swiglu_gmm_capacity(buf, wg, wu, wd, gs))
+    if kernels_per_call != ["fused_swiglu_gmm_kernel"]:
+        fail(f"one swiglu_gmm_capacity call ran the kernels {kernels_per_call}, not one fused kernel")
 
     def library_head():
         h = F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
         return torch.bmm(h, wd) * (torch.arange(C_dec, device=dev)[None, :, None] < gs[:, None, None])
 
-    byts = n_live * 3 * K * Fd * 2 + live_rows * K * 2 + E * C_dec * N * 2 + E * 4
+    def head_bytes(n_groups, rows, C):
+        return n_groups * 3 * K * Fd * 2 + rows * K * 2 + E * C * N * 2 + E * 4
+
+    byts = head_bytes(n_live, live_rows, C_dec)
     flops = 2 * live_rows * 3 * K * Fd
+    pre_rows = int(prefill_sizes.sum())
+    pre_bound = max(head_bytes(int((prefill_sizes > 0).sum()), pre_rows, 40) / PEAK_HBM_BYTES,
+                    2 * pre_rows * 3 * K * Fd / PEAK_BF16_FLOPS) * 1e3
     results["swiglu_gmm_capacity"] = dict(
         max_abs_err=max(errs),
         host_us=host_us(lambda: ops.swiglu_gmm_capacity(buf, wg, wu, wd, gs)),
+        kernels_per_call=kernels_per_call,
         **timings(ms=lambda: ops.swiglu_gmm_capacity(buf, wg, wu, wd, gs),
                   plain_ms=lambda: ref.fused_swiglu_gmm_ref(buf, wg, wu, wd, gs),
-                  library_ms=library_head),
-        bytes=byts, flops=flops,
+                  library_ms=library_head,
+                  prefill_ms=lambda: ops.swiglu_gmm_capacity(buf_pre, wg, wu, wd, gs_pre)),
+        # the same, the L2 flushed by a read (no dirty lines to write back)
+        clean_l2_ms=spread(time_samples(lambda: ops.swiglu_gmm_capacity(buf, wg, wu, wd, gs),
+                                        flush_by="read")),
+        bytes=byts, flops=flops, prefill_bound_ms=pre_bound,
         shape=f"buf ({E},{C_dec},{K}), {n_live} live groups, {live_rows} live rows",
+        prefill_shape=f"buf ({E},40,{K}), {int((prefill_sizes > 0).sum())} live groups, "
+                      f"{pre_rows} live rows",
     )
+    if parent is not None:
+        def parent_head(x, sizes):
+            G_, C_ = x.shape[:2]
+            partial = parent_scratch.get((G_, C_))
+            if partial is None:  # the parent's (F / 64, G, C, N) float32 split partials
+                partial = parent_scratch[(G_, C_)] = torch.empty(
+                    (Fd // 64, G_, C_, N), dtype=torch.float32, device=dev)
+            out = torch.empty((G_, C_, N), dtype=bf, device=dev)
+            rc = parent["fused_swiglu_gmm"](x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
+                                            sizes.data_ptr(), None, partial.data_ptr(), out.data_ptr(),
+                                            G_, C_, K, Fd, N, torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                fail(f"parent fused_swiglu_gmm failed to launch ({rc})")
+            return out
+
+        parent_scratch = {}
+        _compare("parent fused_swiglu_gmm", parent_head(buf, gs), ref.fused_swiglu_gmm_ref(buf, wg, wu, wd, gs))
+        results["swiglu_gmm_capacity"]["parent"] = dict(
+            decode=in_turns(lambda: parent_head(buf, gs),
+                            lambda: ops.swiglu_gmm_capacity(buf, wg, wu, wd, gs)),
+            prefill=in_turns(lambda: parent_head(buf_pre, gs_pre),
+                             lambda: ops.swiglu_gmm_capacity(buf_pre, wg, wu, wd, gs_pre)),
+            decode_clean_l2=in_turns(lambda: parent_head(buf, gs),
+                                     lambda: ops.swiglu_gmm_capacity(buf, wg, wu, wd, gs), flush_by="read"),
+        )
+        del parent_scratch
 
     # ---- kernel 2: tail per-row SwiGLU GEMV ----
     S = E  # E * tau rows, tau = 1
@@ -401,10 +489,8 @@ def phase_kernels(arch, parent=None) -> dict:
     # persistent split-K: each case three launches on the same buffers
     # (tickets back at zero after each) with bitwise-equal outputs
     errs = []
-    rog = torch.as_tensor(np.random.default_rng(4).integers(0, E, E), dtype=torch.int32, device=dev)
     one_live = np.zeros(E, np.int64)
     one_live[17] = C_dec
-    prefill_sizes = np.random.default_rng(5).integers(0, 41, E)
     for C, w, sizes, rhs_of_group in (
         (C_dec, wg, head, None),  # decode gate/up call: 13 live groups
         (40, wd, prefill_sizes, None),  # prefill down call, C % 16 != 0, ragged sizes
@@ -441,22 +527,6 @@ def phase_kernels(arch, parent=None) -> dict:
         prefill_down_shape=f"buf ({E},40,{Fd}) x ({E},{Fd},{N}), {int((prefill_sizes > 0).sum())} "
                            f"live groups, {int(prefill_sizes.sum())} live rows",
     )
-    if parent is not None:
-        def parent_gmm(x, w, sizes):
-            out = torch.empty((x.shape[0], x.shape[1], w.shape[2]), dtype=bf, device=dev)
-            rc = parent["grouped_gemm"](x.data_ptr(), w.data_ptr(), sizes.data_ptr(), None,
-                                        out.data_ptr(), x.shape[0], x.shape[1], x.shape[2],
-                                        w.shape[2], torch.cuda.current_stream().cuda_stream)
-            if rc != 0:
-                fail(f"parent grouped_gemm failed to launch ({rc})")
-            return out
-
-        _compare("parent grouped_gemm", parent_gmm(buf, wg, gs), ref.gmm_ref(buf, wg, gs))
-        results["gmm_capacity"]["parent"] = dict(
-            decode_gate=in_turns(lambda: parent_gmm(buf, wg, gs), lambda: ops.gmm_capacity(buf, wg, gs)),
-            prefill_down=in_turns(lambda: parent_gmm(buf_pre, wd, gs_pre),
-                                  lambda: ops.gmm_capacity(buf_pre, wd, gs_pre)),
-        )
 
     # ---- kernel 7: expert GEMV, one call of the three-call tail ----
     errs = []
@@ -491,6 +561,24 @@ def phase_kernels(arch, parent=None) -> dict:
     # split over each live length: each case three launches on the same
     # buffers (tickets back at zero after each) with bitwise-equal outputs
     B, H, Kv, dh = n_slots, a.n_heads, a.n_kv_heads, a.d_head
+    G = H // Kv
+    stream = torch.cuda.current_stream().cuda_stream
+    if parent is not None:
+        parent_tickets = torch.zeros((B * Kv,), dtype=torch.int32, device=dev)
+
+        def parent_attn(q, ck, cv, L):
+            T = ck.shape[1]
+            S = parent["decode_attention_splits"](T)
+            part = torch.empty((B * Kv, S, G, dh), dtype=torch.float32, device=dev)
+            lse = torch.empty((B * Kv, S, G), dtype=torch.float32, device=dev)
+            out = torch.empty_like(q)
+            rc = parent["decode_attention"](q.data_ptr(), ck.data_ptr(), cv.data_ptr(), L.data_ptr(),
+                                            part.data_ptr(), lse.data_ptr(), parent_tickets.data_ptr(),
+                                            out.data_ptr(), B, T, Kv, G, dh, 1.0 / dh**0.5, stream)
+            if rc != 0:
+                fail(f"parent decode_attention failed to launch ({rc})")
+            return out
+
     rng = np.random.default_rng(3)
     errs = []
     for T, lens in (
@@ -507,12 +595,15 @@ def phase_kernels(arch, parent=None) -> dict:
         errs.append(_repeat_compare(f"decode_attention T={T} lengths {lens.tolist()}",
                                     lambda: ops.decode_attention(q, ck, cv, L), want,
                                     zero_rows=L == 0))
+        # the dense kernel's loop moved into decode_split.cuh: same bits as the parent's
+        if parent is not None and not torch.equal(parent_attn(q, ck, cv, L),
+                                                  ops.decode_attention(q, ck, cv, L)):
+            fail(f"decode_attention T={T} lengths {lens.tolist()}: not bitwise equal to the parent's")
     lens = rng.integers(129, 545, B)
     q = rnd((B, H, dh))
     ck, cv = rnd((B, max_seq, Kv, dh)), rnd((B, max_seq, Kv, dh))
     L = torch.as_tensor(lens, dtype=torch.int32, device=dev)
     mask = (torch.arange(max_seq, device=dev)[None, :] < L[:, None])[:, None, None, :]
-    G = H // Kv
 
     def library_attn():
         # the G query heads of a kv head are G query rows of one SDPA head
@@ -533,19 +624,11 @@ def phase_kernels(arch, parent=None) -> dict:
     attn_bytes = results["decode_attention"]["bytes"]
     attn_flops = results["decode_attention"]["flops"]
     if parent is not None:
-        def parent_attn():
-            out = torch.empty_like(q)
-            rc = parent["decode_attention"](q.data_ptr(), ck.data_ptr(), cv.data_ptr(), L.data_ptr(),
-                                            out.data_ptr(), B, max_seq, Kv, G, dh, 1.0 / dh**0.5,
-                                            torch.cuda.current_stream().cuda_stream)
-            if rc != 0:
-                fail(f"parent decode_attention failed to launch ({rc})")
-            return out
-
-        _compare("parent decode_attention", parent_attn(), ref.decode_attention_ref(q, ck, cv, L))
+        if not torch.equal(parent_attn(q, ck, cv, L), ops.decode_attention(q, ck, cv, L)):
+            fail("decode_attention at the serving shape: not bitwise equal to the parent's")
         results["decode_attention"]["parent"] = dict(
-            serving=in_turns(parent_attn, lambda: ops.decode_attention(q, ck, cv, L)),
-            library=spread(time_samples(library_attn)),
+            serving=in_turns(lambda: parent_attn(q, ck, cv, L), lambda: ops.decode_attention(q, ck, cv, L)),
+            bitwise_equal=True,
         )
 
     # ---- kernel 4: split-KV decode attention ----
@@ -580,34 +663,62 @@ def phase_kernels(arch, parent=None) -> dict:
     results["decode_attention_split"]["path_launches"] = ops.LAUNCHES["decode_attention_split"]
 
     # ---- kernel 5: paged decode attention ----
+    # split over each live length through the block table: each case three
+    # launches on the same buffers (tickets back at zero after each) with
+    # bitwise-equal outputs
     page = 16
     max_blocks = max_seq // page
     n_pool = n_slots * max_blocks + 1
-    errs = []
-    for pg, lens_e, idle in (
-        (page, lens, None),  # the serving shape
-        (page, np.r_[0, 1024, 1, 17, 300, 16, 33, 640], 2),  # length 0, idle slot 2 on the trash block
-        (8, np.r_[0, 1024, 1, 17, 300, 8, 9, 640], 2),
-    ):
+
+    def paged_case(pg, lens_e, idle=(), bad=()):
+        """Inputs of one paged case and the plain version's output: each
+        live slot's blocks drawn from a shuffled pool, cells past its length
+        on the trash block 0, ``idle`` slots' rows all trash, the free
+        blocks poisoned so that a read of one shows; ``bad`` (slot, cell,
+        value) cells point outside the pool, and the plain version reads a
+        zero block in their place."""
         nb = max_seq // pg
         pool = n_slots * nb + 1
         pk, pv = rnd((pool, pg, Kv, dh)), rnd((pool, pg, Kv, dh))
-        tab = np.zeros((n_slots, nb), np.int32)  # unused cells: the trash block 0
+        tab = np.zeros((n_slots, nb), np.int32)
         order = np.random.default_rng(6).permutation(np.arange(1, pool))
         nxt = 0
         for b, n in enumerate(lens_e):
-            if b != idle:
-                k = -(-int(n) // pg)
+            if b not in idle:
+                k = min(nb, -(-int(n) // pg))
                 tab[b, :k] = order[nxt:nxt + k]
                 nxt += k
         free = torch.as_tensor(order[nxt:], device=dev).long()
-        pk[free], pv[free] = 1e4, -1e4  # a read of a free block would show
+        pk[free], pv[free] = 1e4, -1e4
+        tab_ref = tab.copy()
+        for b, c, v in bad:
+            tab[b, c], tab_ref[b, c] = v, pool  # the plain version's zero block
         qe = rnd((B, H, dh))
         te = torch.as_tensor(tab, device=dev)
         Le = torch.as_tensor(lens_e, dtype=torch.int32, device=dev)
-        got = ops.decode_attention_paged(qe, pk, pv, te, Le)
-        want = ref.decode_attention_paged_ref(qe, pk, pv, te, Le)
-        errs.append(_compare(f"decode_attention_paged page={pg}", got, want, zero_rows=Le == 0))
+        if bad:
+            zero = torch.zeros((1, pg, Kv, dh), dtype=bf, device=dev)
+            want = ref.decode_attention_paged_ref(qe, torch.cat([pk, zero]), torch.cat([pv, zero]),
+                                                  torch.as_tensor(tab_ref, device=dev), Le)
+        else:
+            want = ref.decode_attention_paged_ref(qe, pk, pv, te, Le)
+        return (qe, pk, pv, te, Le), want
+
+    errs = []
+    for what, pg, lens_e, idle, bad in (
+        ("serving", page, lens, (), ()),
+        ("length 0, idle slot 2", page, np.r_[0, 1024, 1, 17, 300, 16, 33, 640], (2,), ()),
+        ("length 0, idle slot 2", 8, np.r_[0, 1024, 1, 17, 300, 8, 9, 640], (2,), ()),
+        ("length 0, idle slot 2", 32, np.r_[0, 1024, 1, 33, 300, 32, 65, 640], (2,), ()),
+        ("length 0, idle slot 2", 64, np.r_[0, 1024, 1, 65, 300, 64, 129, 640], (2,), ()),
+        ("one long slot, seven idle", page, np.r_[1024, np.ones(B - 1, np.int64)], tuple(range(1, B)), ()),
+        ("a length past max_blocks x page", page, np.r_[1500, lens[1:]], (), ()),
+        ("cells outside the pool", page, lens, (), ((0, 2, n_pool + 7), (1, 0, -3))),
+    ):
+        args, want = paged_case(pg, lens_e, idle, bad)
+        errs.append(_repeat_compare(f"decode_attention_paged page={pg} ({what})",
+                                    lambda: ops.decode_attention_paged(*args), want,
+                                    zero_rows=args[4] == 0))
     pk, pv = rnd((n_pool, page, Kv, dh)), rnd((n_pool, page, Kv, dh))
     perm = torch.randperm(n_pool - 1, generator=gen, device=dev).add(1)
     blocks = [-(-int(n) // page) for n in lens]
@@ -634,6 +745,21 @@ def phase_kernels(arch, parent=None) -> dict:
         shape=f"q ({B},{H},{dh}), pool ({n_pool},{page},{Kv},{dh}), tables ({B},{max_blocks}), "
               f"lengths {lens.tolist()}",
     )
+    if parent is not None:
+        def parent_paged():
+            out = torch.empty_like(q)
+            rc = parent["decode_attention_paged"](q.data_ptr(), pk.data_ptr(), pv.data_ptr(), tab.data_ptr(),
+                                                  L.data_ptr(), out.data_ptr(), B, n_pool, page, Kv, G,
+                                                  dh, max_blocks, 1.0 / dh**0.5, stream)
+            if rc != 0:
+                fail(f"parent decode_attention_paged failed to launch ({rc})")
+            return out
+
+        _compare("parent decode_attention_paged", parent_paged(),
+                 ref.decode_attention_paged_ref(q, pk, pv, tab, L))
+        results["decode_attention_paged"]["parent"] = dict(
+            serving=in_turns(parent_paged, lambda: ops.decode_attention_paged(q, pk, pv, tab, L)),
+        )
     small = rnd((B, H * dh))
     log(f"host time of one small PyTorch op (SiLU of a ({B},{H * dh}) tensor): "
         f"{host_us(lambda: F.silu(small)):.1f} us/call")
@@ -646,12 +772,18 @@ def phase_kernels(arch, parent=None) -> dict:
             f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
             f"host {r['host_us']:.1f} us/call  "
             f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})  [{r['shape']}]")
+    r = results["swiglu_gmm_capacity"]
+    log(f"kernel swiglu_gmm_capacity prefill [{r['prefill_shape']}]: {r['prefill_ms']:.4f} ms "
+        f"({r['prefill_ms_spread']['min']:.4f}-{r['prefill_ms_spread']['max']:.4f}), "
+        f"bound {r['prefill_bound_ms']:.4f} ms; kernels per call {r['kernels_per_call']}; decode with "
+        f"the L2 flushed by a read {r['clean_l2_ms']['median']:.4f} ms "
+        f"({r['clean_l2_ms']['min']:.4f}-{r['clean_l2_ms']['max']:.4f})")
     r = results["gmm_capacity"]
     log(f"kernel gmm_capacity prefill down call [{r['prefill_down_shape']}]: "
         f"{r['prefill_down_ms']:.4f} ms, torch.bmm {r['prefill_down_library_ms']:.4f} ms")
     for name, r in results.items():
         for shape, t in r.get("parent", {}).items():
-            if "parent" in t:
+            if isinstance(t, dict) and "parent" in t:
                 log(f"in turns, {name} {shape}: parent {t['parent']['median']:.4f} ms "
                     f"({t['parent']['min']:.4f}-{t['parent']['max']:.4f}), new {t['new']['median']:.4f} ms "
                     f"({t['new']['min']:.4f}-{t['new']['max']:.4f}), new/parent {t['new_over_parent']:.3f}")
@@ -1153,8 +1285,8 @@ def main() -> None:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-csrc", type=Path, default=None,
-                    help="the parent commit's kernels/csrc directory: time its dense decode "
-                         "attention and grouped GEMM in turns beside the new ones (phase 3)")
+                    help="the parent commit's kernels/csrc directory: time its fused head, paged "
+                         "and dense decode attention in turns beside the new ones (phase 3)")
     args = ap.parse_args()
     card = phase_device()
     sys.path.insert(0, str(SRC))

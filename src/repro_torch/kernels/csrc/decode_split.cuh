@@ -1,0 +1,356 @@
+// GQA flash-decode of one query per sequence, split over each sequence's
+// live length, for a KV cache whose rows a map addresses.  Shared by the
+// dense decode kernel (decode_attention.cu: rows of a (B, T, Kv, DH)
+// cache) and the paged one (decode_attention_paged.cu: rows of a block
+// pool through a block table); split-KV over max_seq keeps its own loop
+// (flash_decode.cuh).
+//
+// For sequence b and query head h = kv * G + g:
+//   out[b, h] = softmax(q[b, h] . K[b, :len, kv] / sqrt(dh)) . V[b, :len, kv]
+// computed by online softmax in float32.  A length-0 row gives exact
+// zeros, as the TPU kernel's masked-tile guard does (decode_attention.py:44).
+//
+// The grid is (B * Kv, S) with S = min(32, ceil(T / 64)) splits, T the
+// most positions a sequence can hold.  Split s of (b, kv) takes a
+// contiguous run of that sequence's own live 32-position chunks, counted
+// on the device from its length: two chunks per split, more once a
+// sequence holds over 64 chunks, so the parallelism follows the live
+// length and never T.  A split past the last live chunk exits at once;
+// split 0 of a length-0 sequence writes its zeros.  K and V come by
+// cp.async into a ring of two chunks, the next chunk in flight while this
+// one is used; each 16-byte vector of a row is addressed through the row
+// map, and a row the map sends to -1 is read as zeros.  The products run
+// on the tensor cores (mma.sync m16n8k16, bf16 in, float32 accumulate):
+// the scores K q^T with positions on the M side and the G query heads on
+// n = 8 (one or two head tiles), P . V as V^T P^T with the 128 head dims
+// on M (two 16-dim tiles per warp) and the heads on n.  The probabilities
+// are rounded to bf16 for P . V (the TPU kernel multiplies in float32; the
+// rounding stays within the bf16 tolerance).  The online softmax takes one
+// warp per head, one lane per position.  A sequence with one live split
+// writes its output at once.  Otherwise each split writes a float32
+// partial and its log-sum-exp, then takes a ticket on the (b, kv) counter;
+// the block with the last ticket sums the splits in split order (the same
+// bits whichever block finishes last) and resets the counter, so the next
+// launch finds it at zero.  Nothing is allocated on the card: partials and
+// counters come from the wrapper.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cmath>
+
+namespace decode_split {
+
+constexpr int DH = 128;            // head dim (the wrappers check)
+constexpr int GMAX = 16;           // query heads per kv head: two n = 8 tiles at most
+constexpr int CHUNK = 32;          // positions per chunk: one lane each in the softmax
+constexpr int SMAX = 32;           // most splits per (b, kv)
+constexpr int MIN_CPS = 2;         // fewest chunks per split
+constexpr int NT = 128;            // threads per block
+constexpr int NWARP = NT / 32;
+constexpr int VPR = DH / 8;        // 16-byte vectors per row
+constexpr int LD = DH + 8;         // q, K and V row stride in bf16: 272 B, conflict-free ldmatrix
+constexpr int PLD = CHUNK + 8;     // probability row stride in bf16: 80 B, conflict-free ldmatrix
+constexpr int TASKS = GMAX * VPR / NT;  // (head, 8 dims) tasks per thread in the combine
+static_assert(CHUNK == 32, "the softmax gives each position of a chunk one lane");
+static_assert(SMAX <= 32, "the combine gives each split one lane");
+static_assert(DH == 16 * 2 * NWARP, "P . V gives each warp two 16-dim tiles");
+
+// Splits per (b, kv) for sequences of at most T positions: the partials'
+// second axis and the grid's.
+__host__ __device__ inline int splits_for(int T) {
+  const int splits = ((T + CHUNK - 1) / CHUNK + MIN_CPS - 1) / MIN_CPS;
+  return splits < 1 ? 1 : splits < SMAX ? splits : SMAX;
+}
+
+// raw bf16 storage (unsigned short): shared arrays of the bf16 class type
+// would need its (trivial) constructor to be accepted by every toolkit
+struct Smem {
+  __align__(16) unsigned short qs[GMAX * LD];         // heads past G are zeros
+  __align__(16) unsigned short ks[2][CHUNK * LD];     // ring of two chunks
+  __align__(16) unsigned short vs[2][CHUNK * LD];
+  __align__(16) unsigned short pb[GMAX * PLD];        // probabilities for P . V
+  float ps[GMAX][CHUNK];     // scores, then probabilities; split weights in the combine
+  float m[GMAX], l[GMAX];    // running max and sum per head
+  float corr[GMAX];          // rescale of the running output for this chunk
+  int ticket;
+};
+
+// Split s of a sequence of `len` live positions: its first chunk and
+// chunk count (nc = 0: an empty split), and the sequence's live splits.
+struct Split {
+  int len, n_splits, c_begin, nc;
+};
+
+__device__ inline Split split_of(int len, int s, int S) {
+  Split sp;
+  sp.len = len;
+  const int n_chunks = (len + CHUNK - 1) / CHUNK;
+  const int cps = max(MIN_CPS, (n_chunks + S - 1) / S);  // chunks per split, from the live length
+  sp.n_splits = cps ? (n_chunks + cps - 1) / cps : 0;
+  sp.c_begin = s * cps;
+  sp.nc = s < sp.n_splits ? min(cps, n_chunks - sp.c_begin) : 0;
+  return sp;
+}
+
+__device__ inline void cp_async16(void* smem, const void* gmem, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  // src-size 0 fills the 16 bytes with zeros and reads nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(full ? 16 : 0));
+}
+__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ inline void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+__device__ inline unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// four 8x8 bf16 tiles: fragments of mma.sync m16n8k16 from row-major rows
+__device__ inline void ldmatrix_x4(unsigned* r, const void* smem) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(smem)));
+}
+
+// the same, transposed: the A fragment from a row-major K x M tile
+__device__ inline void ldmatrix_x4_trans(unsigned* r, const void* smem) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(smem)));
+}
+
+// c += a . b, bf16 in, float32 accumulate (a pure register operation)
+__device__ inline void mma_bf16(float* c, const unsigned* a, unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ inline float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ inline float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ inline void store8_bf16(__nv_bfloat16* dst, const float* v) {
+  uint4 u;
+  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) p[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(dst) = u;
+}
+
+// Split blockIdx.y of row blockIdx.x = b * Kv + kv.  `rows(t)` is the
+// element offset of live position t's K/V row (its kv head, dim 0) in
+// `ck`/`cv`, or -1 for a row read as zeros; `qrow` and `orow` point at
+// query head kv * G of sequence b; `sp` is split_of(len, s, S).  Every
+// thread of the block calls it (it synchronises the block).
+template <class Rows>
+__device__ inline void attend_split(Smem& sm, const __nv_bfloat16* __restrict__ qrow,
+                                    const __nv_bfloat16* __restrict__ ck,
+                                    const __nv_bfloat16* __restrict__ cv, const Rows& rows,
+                                    const Split& sp, float* __restrict__ part,
+                                    float* __restrict__ lse, int* __restrict__ tickets,
+                                    __nv_bfloat16* __restrict__ orow, int G, float scale) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, t4 = lane % 4;  // a fragment's row and column pair
+  const int bk = blockIdx.x, s = blockIdx.y, S = gridDim.y;
+  const int len = sp.len, n_splits = sp.n_splits;
+  if (sp.nc == 0) {
+    if (s == 0)  // length 0: exact zeros
+      for (int i = tid; i < G * VPR; i += NT)
+        reinterpret_cast<uint4*>(orow)[i] = make_uint4(0, 0, 0, 0);
+    return;
+  }
+  const int c_begin = sp.c_begin, nc = sp.nc;
+  const int ntn = (G + 7) / 8;  // n = 8 tiles of query heads
+
+  // chunk c of the split into ring slot c % 2, one copy group, always
+  // committed (empty past the split) to keep the group count
+  auto load_chunk = [&](int c) {
+    if (c < nc) {
+      const int t0 = (c_begin + c) * CHUNK, slot = c % 2;
+      for (int i = tid; i < CHUNK * VPR; i += NT) {
+        const int r = i / VPR, v = i % VPR;
+        // rows past the length, and rows the map drops: zeros, no read
+        const long long off = t0 + r < len ? rows(t0 + r) : -1;
+        const bool full = off >= 0;
+        const size_t o = (full ? (size_t)off : 0) + v * 8;
+        cp_async16(&sm.ks[slot][r * LD + v * 8], ck + o, full);
+        cp_async16(&sm.vs[slot][r * LD + v * 8], cv + o, full);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int i = tid; i < ntn * 8 * VPR; i += NT) {  // q rows of whole head tiles
+    const int g = i / VPR, v = i % VPR;
+    cp_async16(&sm.qs[g * LD + v * 8], qrow + (size_t)(g < G ? g : 0) * DH + v * 8, g < G);
+  }
+  load_chunk(0);  // q rides in the first group
+  load_chunk(1);
+  for (int g = tid; g < GMAX; g += NT) {
+    sm.m[g] = -INFINITY;
+    sm.l[g] = 0.0f;
+    sm.corr[g] = 0.0f;
+  }
+  for (int i = tid; i < GMAX * PLD; i += NT) sm.pb[i] = 0;  // heads past G stay zero
+
+  // P . V accumulators: this warp's 16-dim tiles 2w, 2w + 1 by head tiles.
+  // Element i of a fragment is dim m0 + gid + 8 (i / 2), head n0 + 2 t4 + i % 2.
+  float o[2][2][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[mt][nt][i] = 0.0f;
+
+  for (int c = 0; c < nc; ++c) {
+    const int slot = c % 2;
+    const int n = min(CHUNK, len - (c_begin + c) * CHUNK);  // >= 1
+    cp_async_wait<1>();  // chunk c (and q) landed; chunk c + 1 may be in flight
+    __syncthreads();
+    if (warp < 2 * ntn) {  // scores K q^T: position tile warp % 2, head tile warp / 2
+      const int tb = (warp % 2) * 16, nb = (warp / 2) * 8;
+      const unsigned short* ka =
+          &sm.ks[slot][(tb + lane % 8 + (lane / 8 % 2) * 8) * LD + (lane / 16) * 8];
+      const unsigned short* qb = &sm.qs[(nb + lane % 8) * LD + (lane / 8) * 8];
+      float sc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; kk += 2) {
+        unsigned a0[4], a1[4], bq[4];  // bq: b0, b1 of k-step kk, then of kk + 1
+        ldmatrix_x4(a0, ka + kk * 16);
+        ldmatrix_x4(a1, ka + (kk + 1) * 16);
+        ldmatrix_x4(bq, qb + kk * 16);
+        mma_bf16(sc, a0, bq[0], bq[1]);
+        mma_bf16(sc, a1, bq[2], bq[3]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {  // element i: position tb + gid + 8 (i / 2),
+                                     // head nb + 2 t4 + i % 2
+        const int t = tb + gid + 8 * (i / 2), g = nb + 2 * t4 + i % 2;
+        sm.ps[g][t] = t < n ? sc[i] * scale : -INFINITY;
+      }
+    }
+    __syncthreads();
+    for (int g = warp; g < G; g += NWARP) {  // online softmax, one lane per position
+      const float v = sm.ps[g][lane];
+      const float m_old = sm.m[g];
+      const float m_new = fmaxf(m_old, warp_max(v));  // finite: position 0 is live
+      const float p = lane < n ? expf(v - m_new) : 0.0f;
+      const float corr = expf(m_old - m_new);  // 0 on the first chunk (m = -inf)
+      const float l = warp_sum(p);
+      sm.pb[g * PLD + lane] = __bfloat16_as_ushort(__float2bfloat16(p));
+      __syncwarp();
+      if (lane == 0) {
+        sm.l[g] = sm.l[g] * corr + l;
+        sm.m[g] = m_new;
+        sm.corr[g] = corr;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {  // O^T += V^T P^T over the chunk's two 16-position steps
+      const int m0 = (2 * warp + mt) * 16;
+      unsigned va[2][4];
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+        ldmatrix_x4_trans(va[ks], &sm.vs[slot][(ks * 16 + (lane / 16) * 8 + lane % 8) * LD + m0 +
+                                               (lane / 8 % 2) * 8]);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        if (nt < ntn) {
+          unsigned pbf[4];  // b0, b1 of positions 0-15, then of 16-31
+          ldmatrix_x4(pbf, &sm.pb[(nt * 8 + lane % 8) * PLD + (lane / 8) * 8]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) o[mt][nt][i] *= sm.corr[nt * 8 + 2 * t4 + i % 2];
+          mma_bf16(o[mt][nt], va[0], pbf[0], pbf[1]);
+          mma_bf16(o[mt][nt], va[1], pbf[2], pbf[3]);
+        }
+      }
+    }
+    __syncthreads();  // ring slot, scores and probabilities consumed
+    load_chunk(c + 2);
+  }
+  cp_async_wait<0>();
+
+  const bool single = n_splits == 1;
+  const size_t prow = (size_t)bk * S + s;  // (b, kv, s) row of the partials
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int d = (2 * warp + mt) * 16 + gid + 8 * (i / 2), g = nt * 8 + 2 * t4 + i % 2;
+        if (nt < ntn && g < G) {
+          const float v = o[mt][nt][i] / sm.l[g];  // l > 0: every split holds a live position
+          if (single) orow[g * DH + d] = __float2bfloat16(v);
+          else part[(prow * G + g) * DH + d] = v;
+        }
+      }
+    }
+  }
+  if (!single && tid < G) lse[prow * G + tid] = sm.m[tid] + logf(sm.l[tid]);
+  if (single) return;
+
+  // the last split of (b, kv) to finish combines them all
+  __syncthreads();  // every thread's partial is written ...
+  if (tid == 0) {
+    __threadfence();  // ... and visible (the fence is cumulative over the barrier)
+    sm.ticket = atomicAdd(&tickets[bk], 1);
+  }
+  __syncthreads();
+  if (sm.ticket != n_splits - 1) return;
+  __threadfence();
+  for (int g = warp; g < G; g += NWARP) {  // split weights: one lane per split
+    const float l = lane < n_splits ? __ldcg(lse + ((size_t)bk * S + lane) * G + g) : -INFINITY;
+    const float mx = warp_max(l);  // every lane shuffles: finite, split 0 is live
+    const float w = lane < n_splits ? expf(l - mx) : 0.0f;
+    const float den = warp_sum(w);  // a fixed butterfly: the same bits every launch
+    sm.ps[g][lane] = w;
+    if (lane == 0) sm.l[g] = den;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < TASKS; ++k) {
+    const int task = tid + k * NT;
+    if (task < G * VPR) {
+      const int g = task / VPR, v = task % VPR;
+      float o[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 8
+      for (int j = 0; j < n_splits; ++j) {  // split order: deterministic
+        const float w = sm.ps[g][j];
+        const float4* src =
+            reinterpret_cast<const float4*>(part + (((size_t)bk * S + j) * G + g) * DH + v * 8);
+        const float4 x = __ldcg(src), y = __ldcg(src + 1);
+        o[0] = fmaf(w, x.x, o[0]);
+        o[1] = fmaf(w, x.y, o[1]);
+        o[2] = fmaf(w, x.z, o[2]);
+        o[3] = fmaf(w, x.w, o[3]);
+        o[4] = fmaf(w, y.x, o[4]);
+        o[5] = fmaf(w, y.y, o[5]);
+        o[6] = fmaf(w, y.z, o[6]);
+        o[7] = fmaf(w, y.w, o[7]);
+      }
+      const float inv = 1.0f / sm.l[g];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) o[i] *= inv;
+      store8_bf16(orow + g * DH + v * 8, o);
+    }
+  }
+  if (tid == 0) tickets[bk] = 0;  // every split of this launch has taken its ticket
+}
+
+}  // namespace decode_split

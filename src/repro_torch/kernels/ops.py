@@ -31,34 +31,42 @@ LAUNCHES: Dict[str, int] = {
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = {
-    "fused_swiglu_gmm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "fused_swiglu_gmm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "fused_swiglu_gemv": [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "decode_attention_split": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _F, _P],
-    "decode_attention_paged": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "decode_attention_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _F, _P],
     "grouped_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "expert_gemv": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 # the libraries' helper entry points: (argtypes, restype)
 _IP, _LLP = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)
 _HELPERS = {
+    "fused_swiglu_gmm": {
+        "fused_swiglu_gmm_init": ([_IP, _IP], ctypes.c_int),
+        "fused_swiglu_gmm_scratch": ([_I, _I, _I, _I, _LLP, _LLP, _IP], None),
+    },
     "decode_attention": {"decode_attention_splits": ([_I], ctypes.c_int)},
+    "decode_attention_paged": {"decode_attention_splits": ([_I], ctypes.c_int)},
     "grouped_gemm": {
         "grouped_gemm_init": ([_IP, _IP], ctypes.c_int),
         "grouped_gemm_scratch": ([_I, _I, _I, _I, _I, _LLP, _LLP, _IP], None),
     },
 }
-# a block's shared-memory ceiling on Hopper (232,448 bytes)
-_MAX_SMEM = 232448
 # kernels whose library exports ``<name>_init(int* ...)``, run once per
 # device when the library is first used there: the ints it returns
-_INIT_OUTS = {"grouped_gemm": ("n_sm", "max_smem")}
+_INIT_OUTS = {"fused_swiglu_gmm": ("n_sm", "max_smem"), "grouped_gemm": ("n_sm", "max_smem")}
 _INIT: Dict[Tuple[str, int], Dict[str, int]] = {}
 # zeroed int32 ticket counters, one buffer per (kernel, device, size); each
 # launch leaves its counters at zero again.  One buffer per device assumes
 # one stream, as the port uses: two streams sharing it would race.
 _TICKETS: Dict[Tuple[str, int, int], torch.Tensor] = {}
+# scratch a kernel writes before it reads it back in the same launch, one
+# buffer per (kernel, device, shape, dtype), kept across launches: on one
+# stream the next launch starts after this one has finished with it
+_BUFFERS: Dict[Tuple, torch.Tensor] = {}
 _SCRATCH: Dict[Tuple, Tuple[int, ...]] = {}
 
 
@@ -94,6 +102,28 @@ def _tickets(name: str, device: torch.device, n: int) -> torch.Tensor:
     if buf is None:
         buf = _TICKETS[key] = torch.zeros((n,), dtype=torch.int32, device=device)
     return buf
+
+
+def _buffer(name: str, device: torch.device, shape: Tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+    key = (name, device.index, shape, dtype)
+    buf = _BUFFERS.get(key)
+    if buf is None:
+        buf = _BUFFERS[key] = torch.empty(shape, dtype=dtype, device=device)
+    return buf
+
+
+def _split_scratch(name: str, lib, T: int, q: torch.Tensor, Kv: int):
+    """The float32 partials and log-sum-exps of a split decode kernel
+    (``csrc/decode_split.cuh``) over sequences of at most ``T`` positions,
+    and its ticket counters."""
+    B, H, dh = q.shape
+    key = (name, T)
+    if key not in _SCRATCH:
+        _SCRATCH[key] = (lib.decode_attention_splits(T),)
+    (S,) = _SCRATCH[key]
+    part = _buffer(name, q.device, (B * Kv, S, H // Kv, dh), torch.float32)
+    lse = _buffer(name, q.device, (B * Kv, S, H // Kv), torch.float32)
+    return part, lse, _tickets(name, q.device, B * Kv)
 
 
 def _raise_on(lib, rc: int, name: str) -> None:
@@ -155,19 +185,33 @@ def swiglu_gmm_capacity(
     _require(wg.shape == (E, K, F) and wu.shape == wg.shape and wd.shape == (E, F, N),
              f"weight shapes {tuple(wg.shape)} {tuple(wu.shape)} {tuple(wd.shape)} "
              f"do not match buf {tuple(buf.shape)}")
-    _require(K % 128 == 0 and F % 64 == 0 and N % 128 == 0,
-             f"swiglu_gmm_capacity needs K % 128, F % 64, N % 128 == 0; got {K}, {F}, {N}")
+    _require(min(K, F, N) > 0 and K % 64 == 0 and F % 64 == 0 and N % 64 == 0,
+             f"swiglu_gmm_capacity needs K, F, N positive multiples of 64; got {K}, {F}, {N}")
     _check_i32("group_sizes", group_sizes, G)
     if rhs_of_group is not None:
         _check_i32("rhs_of_group", rhs_of_group, G)
-    lib, fn = _kernel("fused_swiglu_gmm")
-    lib.fused_swiglu_gmm_smem_bytes.argtypes = [_I]
-    smem = lib.fused_swiglu_gmm_smem_bytes(K)
-    _require(smem <= _MAX_SMEM, f"K={K} needs {smem} B of shared memory per block")
-    partial = torch.empty((F // 64, G, C, N), dtype=torch.float32, device=buf.device)
-    out = torch.empty((G, C, N), dtype=buf.dtype, device=buf.device)
-    rc = fn(_ptr(buf), _ptr(wg), _ptr(wu), _ptr(wd), _ptr(group_sizes),
-            _ptr(rhs_of_group), _ptr(partial), _ptr(out), G, C, K, F, N, _stream(buf))
+    dev = buf.device
+    lib, fn = _kernel("fused_swiglu_gmm", dev)
+    n_sm = _INIT[("fused_swiglu_gmm", dev.index)]["n_sm"]
+    key = ("fused_swiglu_gmm", dev.index, G, C, K, F)
+    if key not in _SCRATCH:
+        part_floats, n_counters, stages = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_int()
+        lib.fused_swiglu_gmm_scratch(G, C, F, n_sm, ctypes.byref(part_floats),
+                                     ctypes.byref(n_counters), ctypes.byref(stages))
+        _require(stages.value >= 2,
+                 f"swiglu_gmm_capacity with G={G}, C={C}, K={K} leaves no room for two ring stages")
+        _require(n_counters.value * (K // 64) * n_sm < 2**32,
+                 f"swiglu_gmm_capacity with G={G}, C={C}, K={K}, F={F} has too many chunks to split")
+        _SCRATCH[key] = (part_floats.value, n_counters.value)
+    part_floats, n_counters = _SCRATCH[key]
+    # the bf16 SiLU products of the live rows, read back by the down units,
+    # and the float32 partials of the gate/up units that blocks share
+    h = _buffer("fused_swiglu_gmm", dev, (G, C, F), buf.dtype)
+    part = _buffer("fused_swiglu_gmm", dev, (part_floats,), torch.float32)
+    out = torch.empty((G, C, N), dtype=buf.dtype, device=dev)
+    rc = fn(_ptr(buf), _ptr(wg), _ptr(wu), _ptr(wd), _ptr(group_sizes), _ptr(rhs_of_group),
+            _ptr(h), _ptr(part), _ptr(out), _ptr(_tickets("fused_swiglu_gmm", dev, n_counters)),
+            G, C, K, F, N, E, n_sm, _stream(buf))
     _raise_on(lib, rc, "fused_swiglu_gmm")
     LAUNCHES["swiglu_gmm_capacity"] += 1
     return out
@@ -328,16 +372,9 @@ def decode_attention(
         LAUNCHES["decode_attention_split"] += 1
         return out
     lib, fn = _kernel("decode_attention")
-    key = ("decode_attention", T)
-    if key not in _SCRATCH:
-        _SCRATCH[key] = (lib.decode_attention_splits(T),)
-    (S,) = _SCRATCH[key]
-    # float32 partials and log-sum-exps of the splits over each live length
-    part = torch.empty((B * Kv, S, G, dh), dtype=torch.float32, device=q.device)
-    lse = torch.empty((B * Kv, S, G), dtype=torch.float32, device=q.device)
+    part, lse, tickets = _split_scratch("decode_attention", lib, T, q, Kv)
     rc = fn(_ptr(q), _ptr(cache_k), _ptr(cache_v), _ptr(lengths), _ptr(part), _ptr(lse),
-            _ptr(_tickets("decode_attention", q.device, B * Kv)), _ptr(out),
-            B, T, Kv, G, dh, 1.0 / dh**0.5, _stream(q))
+            _ptr(tickets), _ptr(out), B, T, Kv, G, dh, 1.0 / dh**0.5, _stream(q))
     _raise_on(lib, rc, "decode_attention")
     LAUNCHES["decode_attention"] += 1
     return out
@@ -362,9 +399,11 @@ def decode_attention_paged(
              f"block_tables must be a contiguous int32 ({B}, max_blocks)")
     max_blocks = block_tables.shape[1]
     lib, fn = _kernel("decode_attention_paged")
+    part, lse, tickets = _split_scratch("decode_attention_paged", lib, max_blocks * page, q, Kv)
     out = torch.empty_like(q)
-    rc = fn(_ptr(q), _ptr(pool_k), _ptr(pool_v), _ptr(block_tables), _ptr(lengths), _ptr(out),
-            B, n_pool, page, Kv, H // Kv, dh, max_blocks, 1.0 / dh**0.5, _stream(q))
+    rc = fn(_ptr(q), _ptr(pool_k), _ptr(pool_v), _ptr(block_tables), _ptr(lengths), _ptr(part),
+            _ptr(lse), _ptr(tickets), _ptr(out), B, n_pool, page, Kv, H // Kv, dh, max_blocks,
+            1.0 / dh**0.5, _stream(q))
     _raise_on(lib, rc, "decode_attention_paged")
     LAUNCHES["decode_attention_paged"] += 1
     return out

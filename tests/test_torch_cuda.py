@@ -42,6 +42,71 @@ def _close(got, want):
     assert torch.allclose(got.float(), want.float(), **TOL), float((got.float() - want.float()).abs().max())
 
 
+def _three_launches(call, want, zero_rows):
+    """Three launches on the same buffers, each against the plain version
+    with exact zeros on ``zero_rows`` (a counter that a launch left
+    non-zero breaks the next one), and bitwise equal to each other."""
+    outs = [call() for _ in range(3)]
+    for got in outs:
+        _close(got, want)
+        assert (got[zero_rows] == 0).all()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+def _head_case(dev, seed, G, E, C, K, F, N, sizes, rog=None):
+    """Inputs of one fused-head case and the plain version's output.  The
+    weights of every expert no live group uses are 1e4, so a read of the
+    wrong expert shows."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    buf = _rnd(g, (G, C, K), dev)
+    wg, wu = (_rnd(g, (E, K, F), dev, K**-0.5) for _ in range(2))
+    wd = _rnd(g, (E, F, N), dev, F**-0.5)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    rog = None if rog is None else torch.tensor(rog, dtype=torch.int32, device=dev)
+    used = (rog.long() if rog is not None else torch.arange(G, device=dev))[gs > 0]
+    unused = torch.ones((E,), dtype=torch.bool, device=dev)
+    unused[used] = False
+    wg[unused], wu[unused], wd[unused] = 1e4, 1e4, 1e4
+    want = ref.fused_swiglu_gmm_ref(buf, wg, wu, wd, gs, rog)
+    dead = torch.arange(C, device=dev)[None, :] >= gs[:, None]
+    return (buf, wg, wu, wd, gs, rog), want, dead
+
+
+def _sizes(seed, G, C, live, hi=None):
+    """Group sizes: ``live`` random groups with 1..hi rows (hi = C), the
+    others dead."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sizes = np.zeros(G, np.int64)
+    groups = rng.permutation(G)[:live]
+    sizes[groups] = rng.integers(1, (hi or C) + 1, live)
+    return sizes.tolist()
+
+
+# (G, E, C, K, F, N, sizes, rhs_of_group) of the fused head's card cases
+_HEAD_CASES = {
+    # the full-width decode shape: 13 live groups of 2-8 rows
+    "decode": (128, 128, 8, 2048, 768, 2048, _sizes(0, 128, 8, 13, 8), None),
+    # a 512-token prefill chunk: C = 40, ragged sizes 0-40
+    "prefill_C40": (128, 128, 40, 2048, 768, 2048,
+                    [int(v) for v in torch.randint(0, 41, (128,), generator=torch.Generator().manual_seed(1))],
+                    None),
+    "all_dead": (128, 128, 8, 2048, 768, 2048, [0] * 128, None),
+    # sizes past the capacity clamp to C
+    "sizes_above_C": (16, 16, 8, 256, 128, 256, [9, 0, 8, 30, 1, 0, 0, 12, 0, 3, 0, 0, 7, 0, 100, 0], None),
+    # groups sharing experts, some experts unrouted
+    "rhs_of_group": (12, 6, 8, 256, 192, 320, [8, 3, 0, 5, 8, 1, 2, 0, 8, 4, 6, 7],
+                     [2, 0, 2, 5, 0, 2, 3, 1, 5, 5, 0, 3]),
+    "C1": (128, 128, 1, 2048, 768, 2048, _sizes(2, 128, 1, 40), None),
+    "C20": (32, 32, 20, 512, 256, 384, _sizes(3, 32, 20, 20), None),
+    # the smallest legal widths (K, F, N multiples of 64)
+    "smallest": (8, 8, 8, 64, 64, 64, [8, 0, 1, 5, 0, 8, 3, 2], None),
+    # two items per group (C > 64)
+    "C100": (16, 16, 100, 256, 128, 192, _sizes(4, 16, 100, 9), None),
+}
+
+
 @pytest.mark.cuda
 class TestFusedKernels:
     def test_swiglu_gmm_capacity(self, cuda):
@@ -52,6 +117,17 @@ class TestFusedKernels:
         wd = _rnd(g, (E, F, N), cuda, F**-0.5)
         gs = torch.tensor([20, 0, 1, 16, 17, 0, 5, 20], dtype=torch.int32, device=cuda)
         _close(ops.swiglu_gmm_capacity(buf, wg, wu, wd, gs), ref.fused_swiglu_gmm_ref(buf, wg, wu, wd, gs))
+
+    @pytest.mark.parametrize("case", list(_HEAD_CASES))
+    def test_swiglu_gmm_capacity_persistent(self, cuda, case):
+        """The persistent one-launch head against its plain version, three
+        times on the same buffers (readiness counters back at zero after
+        each), bitwise equal from call to call, one launch per call."""
+        G, E, C, K, F, N, sizes, rog = _HEAD_CASES[case]
+        args, want, dead = _head_case(cuda, len(case), G, E, C, K, F, N, sizes, rog)
+        ops.reset_launches()
+        _three_launches(lambda: ops.swiglu_gmm_capacity(*args), want, dead)
+        assert ops.LAUNCHES["swiglu_gmm_capacity"] == 3
 
     def test_swiglu_gemv(self, cuda):
         g = torch.Generator(device=cuda).manual_seed(1)
@@ -215,34 +291,74 @@ class TestDecodeAttention:
         _close(got, ref.decode_attention_ref(q, ck, cv, L))
         assert (got[0] == 0).all()
 
-    @pytest.mark.parametrize("page", [8, 16])
+    @pytest.mark.parametrize("page", [8, 16, 32, 64])
     def test_paged(self, cuda, page):
         """Shuffled pool blocks, trash cells past each length, an idle slot
         of length 1 on the trash block, a length-0 slot, and poisoned free
-        blocks that no slot may read."""
-        g = torch.Generator(device=cuda).manual_seed(page)
-        B, Kv, G, dh, max_blocks = 8, 4, 8, 128, 1024 // page
-        n_pool = B * max_blocks + 1
-        q = _rnd(g, (B, Kv * G, dh), cuda)
-        pk, pv = (_rnd(g, (n_pool, page, Kv, dh), cuda) for _ in range(2))
+        blocks that no slot may read; three launches on the same buffers
+        (tickets back at zero), bitwise equal."""
         lens = [1024, 0, 1, 17, 300, page, page + 1, 640]
-        order = torch.randperm(n_pool - 1, generator=g, device=cuda).add(1).tolist()
-        tab = torch.zeros((B, max_blocks), dtype=torch.int32)
-        nxt = 0
-        for b, n in enumerate(lens):
-            if b == 2:
-                continue  # idle slot: every cell is the trash block
-            for j in range(-(-n // page)):
-                tab[b, j] = order[nxt]
-                nxt += 1
-        used = set(tab.flatten().tolist())
-        free = [b for b in range(1, n_pool) if b not in used]
-        pk[free], pv[free] = 1e4, -1e4  # poison: a read of a free block shows
-        tab = tab.to(cuda)
-        L = torch.tensor(lens, dtype=torch.int32, device=cuda)
-        got = ops.decode_attention_paged(q, pk, pv, tab, L)
-        _close(got, ref.decode_attention_paged_ref(q, pk, pv, tab, L))
-        assert (got[1] == 0).all()
+        args, want = _paged_case(cuda, page, page, lens, idle=(2,))
+        _three_launches(lambda: ops.decode_attention_paged(*args), want, args[4] == 0)
+
+    @pytest.mark.parametrize(
+        "page,lens,idle,bad",
+        [
+            (16, [145, 387, 201, 330, 260, 178, 299, 356], (), ()),  # serving lengths
+            (16, [1024, 1, 1, 1, 1, 1, 1, 1], tuple(range(1, 8)), ()),  # one long slot, seven idle
+            (16, [1500, 387, 201, 330, 0, 178, 299, 356], (), ()),  # a length past max_blocks x page
+            (16, [300, 200, 1, 330, 260, 178, 299, 356], (), ((0, 2, "past"), (1, 0, "negative"))),
+            (64, [145, 387, 201, 330, 260, 178, 299, 356], (), ()),
+        ],
+        ids=["serving", "one_long_seven_idle", "length_past_table", "cells_outside_pool", "serving_page64"],
+    )
+    def test_paged_split_over_live_length(self, cuda, page, lens, idle, bad):
+        """The paged kernel splits each slot over its own live length through
+        the block table and combines in the last block to finish: three
+        launches on the same buffers, bitwise equal.  A table cell outside
+        the pool reads as zeros."""
+        args, want = _paged_case(cuda, page + len(lens) + sum(lens) % 97, page, lens, idle, bad)
+        ops.reset_launches()
+        _three_launches(lambda: ops.decode_attention_paged(*args), want, args[4] == 0)
+        assert ops.LAUNCHES["decode_attention_paged"] == 3
+
+
+def _paged_case(dev, seed, page, lens, idle=(), bad=()):
+    """Inputs of one paged case and the plain version's output: each live
+    slot's blocks drawn from a shuffled pool, cells past its length on the
+    trash block 0, ``idle`` slots' rows all trash, the free blocks poisoned
+    (a read of one shows); ``bad`` (slot, cell, "past" or "negative") cells
+    point outside the pool, and the plain version reads a zero block there."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, Kv, G, dh, max_blocks = 8, 4, 8, 128, 1024 // page
+    n_pool = B * max_blocks + 1
+    q = _rnd(g, (B, Kv * G, dh), dev)
+    pk, pv = (_rnd(g, (n_pool, page, Kv, dh), dev) for _ in range(2))
+    order = torch.randperm(n_pool - 1, generator=g, device=dev).add(1).tolist()
+    tab = torch.zeros((B, max_blocks), dtype=torch.int32)
+    nxt = 0
+    for b, n in enumerate(lens):
+        if b in idle:
+            continue  # idle slot: every cell is the trash block
+        for j in range(min(max_blocks, -(-n // page))):
+            tab[b, j] = order[nxt]
+            nxt += 1
+    used = set(tab.flatten().tolist())
+    free = [b for b in range(1, n_pool) if b not in used]
+    pk[free], pv[free] = 1e4, -1e4
+    tab_ref = tab.clone()
+    for b, c, kind in bad:
+        tab[b, c] = n_pool + 7 if kind == "past" else -3
+        tab_ref[b, c] = n_pool  # the plain version's zero block
+    L = torch.tensor(lens, dtype=torch.int32, device=dev)
+    tab = tab.to(dev)
+    if bad:
+        zero = torch.zeros((1, page, Kv, dh), dtype=BF, device=dev)
+        want = ref.decode_attention_paged_ref(q, torch.cat([pk, zero]), torch.cat([pv, zero]),
+                                              tab_ref.to(dev), L)
+    else:
+        want = ref.decode_attention_paged_ref(q, pk, pv, tab, L)
+    return (q, pk, pv, tab, L), want
 
 
 @pytest.mark.cuda
