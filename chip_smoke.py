@@ -14,36 +14,41 @@ Phases, each fatal on failure:
    at the main path's shapes plus edge cases (bf16 tolerance rtol = atol =
    2e-2; exact zeros on dead rows and length-0 rows; empty KV splits; trash
    table cells, an idle slot on the trash block, poisoned free blocks and
-   table cells outside the pool).  The four kernels that leave counters
-   for the next launch (the fused head, dense and paged decode attention,
-   the grouped GEMM) run each case three times on the same buffers, each
-   launch against the plain version and all three bitwise equal.  A
-   ``torch.profiler`` trace of one head call must hold one kernel.  It
-   times kernel, plain version and one PyTorch library call with CUDA
-   events (median and min-max of 20 launches; the head at its prefill
-   shape too), and each wrapper's host time per call.  The split-KV
+   table cells outside the pool).  The five kernels that leave counters
+   for the next launch (the fused head, dense, split-KV and paged decode
+   attention, the grouped GEMM) run each case three times on the same
+   buffers, each launch against the plain version and all three bitwise
+   equal.  A ``torch.profiler`` trace of one head call must hold one
+   kernel.  It times kernel, plain version and one PyTorch library call
+   with CUDA events (median and min-max of 20 launches; the head at its
+   prefill shape too), and each wrapper's host time per call.  The split-KV
    kernel has no model caller: its path is its entry point, driven once
    per layer of a decode step with the counts zeroed.  With
    ``--parent-csrc DIR`` (the parent commit's
    ``src/repro_torch/kernels/csrc``, unpacked) it also builds the parent's
-   fused head, paged and dense attention, times them in turns beside the
-   new ones on the same inputs (the head at decode and at prefill), and
-   requires the dense kernel's output to equal the parent's bit for bit;
+   dense and split-KV attention, times them in turns beside the new ones
+   on the same inputs, and requires the dense kernel's output to equal the
+   parent's bit for bit;
 4. serving: builds qwen3-moe-30b-a3b at full width and depth in bf16 with
    seeded random weights and serves the same 12 requests twice through
    ``ServingEngine``: a dense KV cache with the fused SwiGLU kernels, then
    a paged KV cache (page 16) with the three-call MoE path
-   (``REPRO_FUSED_SWIGLU=0``).  Each run zeroes the launch counters just
-   before and checks every request and token, that its path's kernels
-   launched and no other did, and (paged) that the pool is all free
-   again; it records per phase (prefill, decode) the head's live rows, the
-   tail's valid rows and the tokens dropped, and fails unless they add up
-   to the routed assignments and both head and tail had rows; a profiled
-   window of decode steps then splits a step into device time, host
-   sieve time and idle share.  After each run a 2-layer slice of the same
-   weights on that path is held against the plain path on the CPU, with
-   the router's discrete choices shared between the two devices.  Last,
-   full-batch decode steps of the two paths are timed in turns.
+   (``REPRO_FUSED_SWIGLU=0``).  The engine runs its first decode step
+   eagerly, captures the step as a CUDA graph and replays it on every
+   later decode step.  Each run zeroes the launch counters just before
+   and checks every request and token, that every decode step after the
+   first replayed the graph, that its path's kernels launched (counted
+   through the replays) and no other did, and (paged) that the pool is all
+   free again; it records per phase (prefill, decode) the head's live
+   rows, the tail's valid rows and the tokens dropped, and fails unless
+   they add up to the routed assignments and both head and tail had
+   rows; profiled windows of replayed and of eager decode steps then split
+   a step into device time, host sieve time and idle share.  After each
+   run a 2-layer slice of the same weights on that path is held against
+   the plain path on the CPU, with the router's discrete choices shared
+   between the two devices.  Last, full-batch decode steps of the two
+   paths, eager and replayed, are timed in turns, and the eager and
+   replayed engines must give the same tokens.
 
 It prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -215,11 +220,11 @@ def in_turns(parent_fn, new_fn, flush_by: str = "write") -> dict:
 
 
 def load_parent(csrc: Path) -> dict:
-    """The parent commit's fused head, paged attention and dense attention,
-    built from its ``csrc`` directory (an unpacked ``git archive`` of the
-    parent) with the port's nvcc flags into a temporary directory, and
-    bound under the parent's C interface (as of commit e8f8960): launch
-    functions by kernel name, plus the dense kernel's split count."""
+    """The parent commit's dense and split-KV decode attention, built from
+    its ``csrc`` directory (an unpacked ``git archive`` of the parent) with
+    the port's nvcc flags into a temporary directory, and bound under the
+    parent's C interface (as of commit 9511965): launch functions by kernel
+    name, plus the dense kernel's split count."""
     import ctypes
     import tempfile
 
@@ -227,9 +232,9 @@ def load_parent(csrc: Path) -> dict:
 
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     argtypes = {
-        "fused_swiglu_gmm": [P] * 8 + [I] * 5 + [P],
-        "decode_attention_paged": [P] * 6 + [I] * 7 + [F, P],
         "decode_attention": [P] * 8 + [I] * 5 + [F, P],
+        # q, k, v, lengths, part, lse, out, B, T, Kv, G, dh, S, span, scale, stream
+        "decode_attention_split": [P] * 7 + [I] * 7 + [F, P],
     }
     tmp = tempfile.TemporaryDirectory(prefix="parent_kernels_")
     procs = {
@@ -333,8 +338,8 @@ def _decode_routing(E: int, k: int, n_tok: int, seed: int):
 
 def phase_kernels(arch, parent=None) -> dict:
     """Every kernel against its plain version, then timed.  ``parent``
-    (``load_parent``): the parent commit's fused head, paged and dense
-    attention, timed in turns beside the new ones at the same inputs."""
+    (``load_parent``): the parent commit's dense and split-KV attention,
+    timed in turns beside the new ones at the same inputs."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -423,32 +428,6 @@ def phase_kernels(arch, parent=None) -> dict:
         prefill_shape=f"buf ({E},40,{K}), {int((prefill_sizes > 0).sum())} live groups, "
                       f"{pre_rows} live rows",
     )
-    if parent is not None:
-        def parent_head(x, sizes):
-            G_, C_ = x.shape[:2]
-            partial = parent_scratch.get((G_, C_))
-            if partial is None:  # the parent's (F / 64, G, C, N) float32 split partials
-                partial = parent_scratch[(G_, C_)] = torch.empty(
-                    (Fd // 64, G_, C_, N), dtype=torch.float32, device=dev)
-            out = torch.empty((G_, C_, N), dtype=bf, device=dev)
-            rc = parent["fused_swiglu_gmm"](x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
-                                            sizes.data_ptr(), None, partial.data_ptr(), out.data_ptr(),
-                                            G_, C_, K, Fd, N, torch.cuda.current_stream().cuda_stream)
-            if rc != 0:
-                fail(f"parent fused_swiglu_gmm failed to launch ({rc})")
-            return out
-
-        parent_scratch = {}
-        _compare("parent fused_swiglu_gmm", parent_head(buf, gs), ref.fused_swiglu_gmm_ref(buf, wg, wu, wd, gs))
-        results["swiglu_gmm_capacity"]["parent"] = dict(
-            decode=in_turns(lambda: parent_head(buf, gs),
-                            lambda: ops.swiglu_gmm_capacity(buf, wg, wu, wd, gs)),
-            prefill=in_turns(lambda: parent_head(buf_pre, gs_pre),
-                             lambda: ops.swiglu_gmm_capacity(buf_pre, wg, wu, wd, gs_pre)),
-            decode_clean_l2=in_turns(lambda: parent_head(buf, gs),
-                                     lambda: ops.swiglu_gmm_capacity(buf, wg, wu, wd, gs), flush_by="read"),
-        )
-        del parent_scratch
 
     # ---- kernel 2: tail per-row SwiGLU GEMV ----
     S = E  # E * tau rows, tau = 1
@@ -632,19 +611,26 @@ def phase_kernels(arch, parent=None) -> dict:
         )
 
     # ---- kernel 4: split-KV decode attention ----
+    # the dense kernel's split over each live length: each case three
+    # launches on the same buffers (tickets back at zero after each) with
+    # bitwise-equal outputs; the plain version keeps the TPU's partition
+    edge = np.r_[0, 1, 32, 64, 65, 4099, 1000, 2049]  # whole splits empty in most rows
     errs = []
     for T, lens_e, n_splits in (
         (max_seq, lens, SPLIT_KV_SPLITS),  # the serving shape
-        (1000, np.r_[0, 1000, 999, 63, 64, 65, 1, 500], 2),  # length 0, ragged tail
-        (1000, np.r_[0, 1000, 999, 63, 64, 65, 1, 500], 3),
-        (1000, np.r_[0, 1000, 999, 63, 64, 65, 1, 500], 8),  # empty splits in most rows
+        (4100, edge, 2),
+        (4100, edge, 3),
+        (4100, edge, SPLIT_KV_SPLITS),
+        (4100, edge, 8),
+        (1000, np.r_[0, 1000, 999, 63, 64, 65, 1, 500], 8),
     ):
         qe = rnd((B, H, dh))
         cke, cve = rnd((B, T, Kv, dh)), rnd((B, T, Kv, dh))
         Le = torch.as_tensor(lens_e, dtype=torch.int32, device=dev)
-        got = ops.decode_attention(qe, cke, cve, Le, n_splits=n_splits)
         want = ref.decode_attention_split_ref(qe, cke, cve, Le, n_splits)
-        errs.append(_compare(f"decode_attention_split T={T} S={n_splits}", got, want, zero_rows=Le == 0))
+        errs.append(_repeat_compare(f"decode_attention_split T={T} S={n_splits} lengths {lens_e.tolist()}",
+                                    lambda: ops.decode_attention(qe, cke, cve, Le, n_splits=n_splits),
+                                    want, zero_rows=Le == 0))
     results["decode_attention_split"] = dict(
         max_abs_err=max(errs),
         host_us=host_us(lambda: ops.decode_attention(q, ck, cv, L, n_splits=SPLIT_KV_SPLITS)),
@@ -654,6 +640,25 @@ def phase_kernels(arch, parent=None) -> dict:
         bytes=attn_bytes, flops=attn_flops,
         shape=f"as decode_attention, n_splits={SPLIT_KV_SPLITS}",
     )
+    if parent is not None:
+        def parent_split():
+            # the parent's two launches over S ranges of T, partials per call
+            S, span = ref.split_span(max_seq, SPLIT_KV_SPLITS)
+            part = torch.empty((B, Kv, S, G, dh), dtype=torch.float32, device=dev)
+            lse = torch.empty((B, Kv, S, G), dtype=torch.float32, device=dev)
+            out = torch.empty_like(q)
+            rc = parent["decode_attention_split"](q.data_ptr(), ck.data_ptr(), cv.data_ptr(), L.data_ptr(),
+                                                  part.data_ptr(), lse.data_ptr(), out.data_ptr(), B,
+                                                  max_seq, Kv, G, dh, S, span, 1.0 / dh**0.5, stream)
+            if rc != 0:
+                fail(f"parent decode_attention_split failed to launch ({rc})")
+            return out
+
+        _compare("parent decode_attention_split", parent_split(),
+                 ref.decode_attention_split_ref(q, ck, cv, L, SPLIT_KV_SPLITS))
+        results["decode_attention_split"]["parent"] = dict(
+            serving=in_turns(parent_split, lambda: ops.decode_attention(q, ck, cv, L, n_splits=SPLIT_KV_SPLITS)),
+        )
     # its path: the kernel entry point (no model caller), driven once per
     # layer of a decode step at the serving shape, counts zeroed just before
     ops.reset_launches()
@@ -745,21 +750,6 @@ def phase_kernels(arch, parent=None) -> dict:
         shape=f"q ({B},{H},{dh}), pool ({n_pool},{page},{Kv},{dh}), tables ({B},{max_blocks}), "
               f"lengths {lens.tolist()}",
     )
-    if parent is not None:
-        def parent_paged():
-            out = torch.empty_like(q)
-            rc = parent["decode_attention_paged"](q.data_ptr(), pk.data_ptr(), pv.data_ptr(), tab.data_ptr(),
-                                                  L.data_ptr(), out.data_ptr(), B, n_pool, page, Kv, G,
-                                                  dh, max_blocks, 1.0 / dh**0.5, stream)
-            if rc != 0:
-                fail(f"parent decode_attention_paged failed to launch ({rc})")
-            return out
-
-        _compare("parent decode_attention_paged", parent_paged(),
-                 ref.decode_attention_paged_ref(q, pk, pv, tab, L))
-        results["decode_attention_paged"]["parent"] = dict(
-            serving=in_turns(parent_paged, lambda: ops.decode_attention_paged(q, pk, pv, tab, L)),
-        )
     small = rnd((B, H * dh))
     log(f"host time of one small PyTorch op (SiLU of a ({B},{H * dh}) tensor): "
         f"{host_us(lambda: F.silu(small)):.1f} us/call")
@@ -802,8 +792,12 @@ class PathProbe:
     sync), tokens routed and dropped, and the host time of the sieve pass.
 
     It wraps ``moe.head_stage``/``moe.tail_stage`` and the engine's
-    ``lm.prefill``/``lm.decode_step``/``_run_sieve``; the kernels' launch
-    counters are untouched."""
+    ``lm.prefill``/``_decode``/``_run_sieve``; the kernels' launch counters
+    are untouched.  The engine captures its decode step as a CUDA graph on
+    the first decode step, in phase 1: the row counters' adds are captured
+    with it (into phase 1's row) and run on every replay, and the routed
+    and dropped tokens are read from what ``_decode`` returns, eager or
+    replayed."""
 
     def __init__(self, eng):
         import torch
@@ -815,8 +809,8 @@ class PathProbe:
         self.rows = torch.zeros(2, 2, dtype=torch.int64, device="cuda")  # [phase, head/tail]
         self.routed, self.dropped = [0, 0], [0, 0]
         self.sieve_s = 0.0
-        self._orig = (moe.head_stage, moe.tail_stage, eng.lm.prefill, eng.lm.decode_step,
-                      eng._run_sieve)
+        self.decode_calls, self.replays = 0, 0
+        self._orig = (moe.head_stage, moe.tail_stage, eng.lm.prefill, eng._decode, eng._run_sieve)
 
     def install(self) -> None:
         head, tail, prefill, decode, run_sieve = self._orig
@@ -830,11 +824,13 @@ class PathProbe:
             rows[self.phase, 1] += valid.sum()
             return tail(toks, wg, wu, wd, eids, valid)
 
-        def counted(phase, fn):
+        def counted(phase, fn, aux_at):
             def run(*args):
                 self.phase = phase
+                self.decode_calls += phase
+                self.replays += phase and self.eng._graph is not None
                 out = fn(*args)
-                aux = out[2]
+                aux = out[aux_at]
                 self.routed[phase] += int(aux.counts.sum())
                 self.dropped[phase] += int(aux.dropped)
                 return out
@@ -846,12 +842,12 @@ class PathProbe:
             self.sieve_s += time.perf_counter() - t
 
         self.moe.head_stage, self.moe.tail_stage = head_stage, tail_stage
-        self.eng.lm.prefill, self.eng.lm.decode_step = counted(0, prefill), counted(1, decode)
+        self.eng.lm.prefill, self.eng._decode = counted(0, prefill, 2), counted(1, decode, 1)
         self.eng._run_sieve = timed_sieve
 
     def remove(self) -> None:
         self.moe.head_stage, self.moe.tail_stage = self._orig[:2]
-        del self.eng.lm.prefill, self.eng.lm.decode_step, self.eng._run_sieve
+        del self.eng.lm.prefill, self.eng._decode, self.eng._run_sieve
 
     def summary(self) -> dict:
         rows = self.rows.tolist()
@@ -953,6 +949,9 @@ def phase_serve(lm, params, batching, path_kernels) -> dict:
             fail(f"{run} run: kernel {name} of its path was not launched")
         if name not in path_kernels and n != 0:
             fail(f"{run} run: kernel {name} is not on its path but was launched {n} times")
+    if probe.decode_calls < 2 or probe.replays != probe.decode_calls - 1:
+        fail(f"{run} run: {probe.replays} of {probe.decode_calls} decode steps replayed the captured "
+             "graph; every step after the first must")
     if eng.paged is not None and eng.paged.n_free != eng.paged.n_pool - 1:
         fail(f"paged run: {eng.paged.n_free} of {eng.paged.n_pool - 1} pool blocks free after the run")
     for name, ph in path.items():
@@ -991,6 +990,8 @@ def phase_serve(lm, params, batching, path_kernels) -> dict:
         sieve_refreshes=len(eng.sieve_refreshes),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         launches=launches,
+        decode_calls=probe.decode_calls, replays=probe.replays,
+        graph_launches=dict(eng._graph_launches),
     )
     log(f"serve {run}: {len(reqs)} requests, {out['prompt_tokens']} prompt + {out['decode_tokens']} "
         f"decode tokens in {wall:.2f} s ({out['steps']} steps); decode {out['decode_tok_per_s']:.1f} tok/s "
@@ -998,7 +999,7 @@ def phase_serve(lm, params, batching, path_kernels) -> dict:
         f"({len(full)} at a full batch: {out['full_batch_step_ms']:.1f} ms, host sieve "
         f"{out['full_batch_sieve_ms']:.1f} ms); TTFT p50 {out['ttft_p50_s'] * 1e3:.1f} ms "
         f"max {out['ttft_max_s'] * 1e3:.1f} ms; TPOT p50 {out['tpot_p50_s'] * 1e3:.2f} ms; "
-        f"launches {launches}")
+        f"{probe.replays} of {probe.decode_calls} decode steps replayed; launches {launches}")
     for name, ph in path.items():
         log(f"serve {run} path {name}: head rows {ph['head_rows']}, valid tail rows {ph['tail_rows']}, "
             f"dropped {ph['dropped_tokens']} of {ph['routed_tokens']} routed ({ph['drop_share']:.3f})")
@@ -1011,11 +1012,14 @@ def phase_serve(lm, params, batching, path_kernels) -> dict:
 
 
 def phase_ab(lm, params, n_steps: int = 4) -> dict:
-    """Full-batch decode-step time of the two serving paths in turns
-    (dense, paged, paged, dense, twice) on the same weights and prompts,
-    so that host drift over the call falls on both: each turn prefills 8
-    requests of 256 tokens, then times ``n_steps`` decode steps on the
-    host clock (each step ends in the logits' copy to the host)."""
+    """Full-batch decode-step time of the two serving paths, each eager and
+    replayed, in turns (dense eager, dense replayed, paged eager, paged
+    replayed, then the reverse, twice) on the same weights and prompts, so
+    that host drift over the call falls on all four: each turn prefills 8
+    requests of 256 tokens, then times ``n_steps`` decode steps on the host
+    clock (each step ends in the logits' copy to the host).  The eager
+    engines run with the engine's private ``_replay`` off.  Eager and
+    replayed engines of a path must give the same tokens."""
     import numpy as np
     import torch
 
@@ -1025,29 +1029,48 @@ def phase_ab(lm, params, n_steps: int = 4) -> dict:
         "dense": (BatchingConfig(n_slots=8, max_seq=1024), "1"),
         "paged": (BatchingConfig(n_slots=8, max_seq=1024, paged=True, page_size=16), "0"),
     }
-    engines = {name: ServingEngine(lm, params, cfg) for name, (cfg, _) in paths.items()}
+    order = [(name, mode) for name in paths for mode in ("eager", "replay")]
+    engines = {}
+    for name, mode in order:
+        engines[(name, mode)] = eng = ServingEngine(lm, params, paths[name][0])
+        eng._replay = mode == "replay"
     rng = np.random.default_rng(2)
     prompts = [[int(t) for t in rng.integers(0, lm.arch.vocab_size, 256)] for _ in range(8)]
-    steps = {name: [] for name in paths}
-    for name in ("dense", "paged", "paged", "dense") * 2:
-        eng = engines[name]
-        with fused_swiglu(paths[name][1]):
-            for prompt in prompts:
-                eng.submit(Request(prompt=list(prompt), max_new_tokens=n_steps + 2))
+    steps = {key: [] for key in order}
+    tokens = {key: [] for key in order}
+    for key in (order + order[::-1]) * 2:
+        eng = engines[key]
+        with fused_swiglu(paths[key[0]][1]):
+            reqs = [Request(prompt=list(prompt), max_new_tokens=n_steps + 2) for prompt in prompts]
+            for r in reqs:
+                eng.submit(r)
             eng.step()  # prefills every slot and decodes once
             torch.cuda.synchronize()
             for _ in range(n_steps):
                 t0 = time.perf_counter()
                 eng.step()
-                steps[name].append(1e3 * (time.perf_counter() - t0))
+                steps[key].append(1e3 * (time.perf_counter() - t0))
             while not eng.sched.idle:
                 eng.step()
-    out = {name: dict(step_ms=sorted(v), median_ms=float(np.median(v))) for name, v in steps.items()}
-    out["paged_over_dense"] = out["paged"]["median_ms"] / out["dense"]["median_ms"]
-    log(f"in turns: full-batch decode step median dense {out['dense']['median_ms']:.1f} ms, paged "
-        f"{out['paged']['median_ms']:.1f} ms (x{out['paged_over_dense']:.3f}) over "
-        f"{len(steps['dense'])} steps each; dense {min(steps['dense']):.1f}-{max(steps['dense']):.1f} ms, "
-        f"paged {min(steps['paged']):.1f}-{max(steps['paged']):.1f} ms")
+        tokens[key].append([r.generated for r in reqs])
+    for name in paths:
+        if tokens[(name, "eager")] != tokens[(name, "replay")]:
+            fail(f"{name}: the replayed decode step gives other tokens than the eager step")
+    out = {f"{name}_{mode}": dict(step_ms=sorted(v), median_ms=float(np.median(v)))
+           for (name, mode), v in steps.items()}
+    for name in paths:
+        out[f"{name}_replay_over_eager"] = out[f"{name}_replay"]["median_ms"] / out[f"{name}_eager"]["median_ms"]
+    out["paged_over_dense_replay"] = out["paged_replay"]["median_ms"] / out["dense_replay"]["median_ms"]
+    out["paged_over_dense_eager"] = out["paged_eager"]["median_ms"] / out["dense_eager"]["median_ms"]
+    out["same_tokens"] = True
+    for name in paths:
+        e, r = out[f"{name}_eager"], out[f"{name}_replay"]
+        log(f"in turns, {name}: full-batch decode step median eager {e['median_ms']:.1f} ms "
+            f"({min(e['step_ms']):.1f}-{max(e['step_ms']):.1f}), replayed {r['median_ms']:.1f} ms "
+            f"({min(r['step_ms']):.1f}-{max(r['step_ms']):.1f}), replayed/eager "
+            f"x{out[f'{name}_replay_over_eager']:.3f} over {len(e['step_ms'])} steps each; same tokens")
+    log(f"in turns: paged/dense x{out['paged_over_dense_replay']:.3f} replayed, "
+        f"x{out['paged_over_dense_eager']:.3f} eager")
     del engines
     torch.cuda.empty_cache()
     return out
@@ -1155,23 +1178,73 @@ def phase_reference(lm, params, paged: bool) -> dict:
 
 
 def phase_profile(eng, arch, rng, n_steps: int = 4) -> dict:
-    """Where a full-batch decode step's time goes: 8 fresh requests are
-    prefilled, then ``n_steps`` decode steps run on the host clock (the
-    host sieve pass timed on its own), then ``n_steps`` more under
-    ``torch.profiler``.  The idle share comes from the profiled steps
-    alone: 1 - device busy time / their wall time; a busy time above the
-    wall time is a counting fault and fails the run."""
+    """Where a full-batch decode step's time goes, replayed (the engine's
+    path on the card) and eager (its private ``_replay`` off): 8 fresh
+    requests are prefilled, then for each mode ``n_steps`` decode steps run
+    on the host clock (the host sieve pass timed on its own), then
+    ``n_steps`` more under ``torch.profiler``.  The idle share comes from
+    the profiled steps alone: 1 - device busy time / their wall time; a
+    busy time above the wall time is a counting fault and fails the run.
+    For the replayed step, CUDA events also time the captured graph alone
+    on the card (``graph_span_ms``, the gaps between its kernels included):
+    a replay of the same inputs rewrites the same KV rows and outputs."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving import Request
 
     for _ in range(eng.cfg.n_slots):
         eng.submit(Request(
             prompt=[int(t) for t in rng.integers(0, arch.vocab_size, 256)],
-            max_new_tokens=2 * n_steps + 2,
+            max_new_tokens=4 * n_steps + 2,
         ))
-    eng.step()  # prefills every slot and decodes once
+    eng._graph = None  # captured anew, without the serving run's PathProbe counters
+    eng.step()  # prefills every slot, decodes once and captures the decode step
+    out = {}
+    for mode in ("replay", "eager"):
+        eng._replay = mode == "replay"
+        out[mode] = _profile_steps(eng, n_steps)
+        if mode == "replay":
+            out[mode]["graph_span_ms"] = _graph_span_ms(eng)
+        p = out[mode]
+        log(f"profile {mode}: full-batch decode step {p['plain_step_ms']:.1f} ms unprofiled (host "
+            f"sieve {p['host_sieve_ms']:.1f} ms); profiled {p['step_ms']:.1f} ms with the device busy "
+            f"{p['device_ms']:.1f} ms, idle share {p['idle_share']:.3f}; per step {p['kernels_per_step']} "
+            f"kernels on the device, {p['launches_per_step']} cudaLaunchKernel and "
+            f"{p['graph_launches_per_step']} cudaGraphLaunch calls"
+            + (f"; the graph alone {p['graph_span_ms']:.2f} ms" if "graph_span_ms" in p else ""))
+        for key, calls, ms in p["top_device"]:
+            log(f"  device {ms:8.3f} ms/step {calls:6d} calls  {key[:90]}")
+        for key, calls, ms in p["port_kernels"]:
+            log(f"  port kernel {key}: {ms:.3f} ms/step, {calls} calls")
+        for key, calls, ms in p["top_host"]:
+            log(f"  host   {ms:8.3f} ms/step {calls:6d} calls  {key[:90]} (profiled)")
+    eng._replay = True
+    while not eng.sched.idle:
+        eng.step()
+    return out
+
+
+def _graph_span_ms(eng, n: int = 10) -> float:
+    """Device time of one replay of the engine's captured decode step, by
+    CUDA events around ``n`` replays on the current stream."""
+    import torch
+
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        eng._graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def _profile_steps(eng, n_steps: int) -> dict:
+    """``n_steps`` decode steps on the host clock, then ``n_steps`` under
+    ``torch.profiler`` (see ``phase_profile``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     run_sieve, sieve_s = eng._run_sieve, [0.0]
 
     def timed_sieve(counts):
@@ -1207,11 +1280,16 @@ def phase_profile(eng, arch, rng, n_steps: int = 4) -> dict:
         fail(f"profile: device busy {device_ms:.2f} ms exceeds the profiled step {step_ms:.2f} ms")
     top_dev = sorted(on_device, key=dev_us, reverse=True)[:12]
     top_cpu = sorted(rows, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
-    launches_per_step = sum(e.count for e in rows if e.key == "cudaLaunchKernel") // n_steps
-    out = dict(
+
+    def host_calls(key):
+        return sum(e.count for e in rows if e.key == key) // n_steps
+
+    return dict(
         plain_step_ms=plain_step_ms, host_sieve_ms=sieve_ms,
         step_ms=step_ms, device_ms=device_ms,
-        launches_per_step=launches_per_step,
+        kernels_per_step=sum(e.count for e in on_device if not e.key.startswith("Mem")) // n_steps,
+        launches_per_step=host_calls("cudaLaunchKernel"),
+        graph_launches_per_step=host_calls("cudaGraphLaunch"),
         idle_share=1.0 - device_ms / step_ms,
         top_device=[(e.key, e.count // n_steps, dev_us(e) / 1e3 / n_steps) for e in top_dev],
         # the port's own kernels (they live in anonymous namespaces), top 12 or not
@@ -1219,18 +1297,6 @@ def phase_profile(eng, arch, rng, n_steps: int = 4) -> dict:
                       for e in on_device if e.key.startswith("(anonymous namespace)::")],
         top_host=[(e.key, e.count // n_steps, e.self_cpu_time_total / 1e3 / n_steps) for e in top_cpu],
     )
-    log(f"profile: full-batch decode step {plain_step_ms:.1f} ms unprofiled (host sieve "
-        f"{sieve_ms:.1f} ms); profiled {step_ms:.1f} ms with the device busy {device_ms:.1f} ms, "
-        f"idle share {out['idle_share']:.3f}, {launches_per_step} kernel launches per step")
-    for key, calls, ms in out["top_device"]:
-        log(f"  device {ms:8.3f} ms/step {calls:6d} calls  {key[:90]}")
-    for key, calls, ms in out["port_kernels"]:
-        log(f"  port kernel {key}: {ms:.3f} ms/step, {calls} calls")
-    for key, calls, ms in out["top_host"]:
-        log(f"  host   {ms:8.3f} ms/step {calls:6d} calls  {key[:90]} (profiled)")
-    while not eng.sched.idle:
-        eng.step()
-    return out
 
 
 def _to_cpu(tree):
@@ -1285,8 +1351,8 @@ def main() -> None:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-csrc", type=Path, default=None,
-                    help="the parent commit's kernels/csrc directory: time its fused head, paged "
-                         "and dense decode attention in turns beside the new ones (phase 3)")
+                    help="the parent commit's kernels/csrc directory: time its dense and split-KV "
+                         "decode attention in turns beside the new ones (phase 3)")
     args = ap.parse_args()
     card = phase_device()
     sys.path.insert(0, str(SRC))

@@ -33,12 +33,6 @@ namespace {
 
 using namespace decode_split;
 
-// Position t of kv head kvh of sequence b in a (B, T, Kv, DH) cache.
-struct DenseRows {
-  int b, T, Kv, kvh;
-  __device__ long long operator()(int t) const { return (((long long)b * T + t) * Kv + kvh) * DH; }
-};
-
 __global__ void __launch_bounds__(NT)
 decode_attention_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, DH)
                         const __nv_bfloat16* __restrict__ ck,  // (B, T, Kv, DH)

@@ -1,9 +1,9 @@
 // GQA flash-decode of one query per sequence, split over each sequence's
 // live length, for a KV cache whose rows a map addresses.  Shared by the
-// dense decode kernel (decode_attention.cu: rows of a (B, T, Kv, DH)
-// cache) and the paged one (decode_attention_paged.cu: rows of a block
-// pool through a block table); split-KV over max_seq keeps its own loop
-// (flash_decode.cuh).
+// dense decode kernel (decode_attention.cu) and the split-KV one
+// (decode_attention_split.cu), both on rows of a (B, T, Kv, DH) cache, and
+// the paged one (decode_attention_paged.cu: rows of a block pool through
+// a block table).
 //
 // For sequence b and query head h = kv * G + g:
 //   out[b, h] = softmax(q[b, h] . K[b, :len, kv] / sqrt(dh)) . V[b, :len, kv]
@@ -94,6 +94,12 @@ __device__ inline Split split_of(int len, int s, int S) {
   sp.nc = s < sp.n_splits ? min(cps, n_chunks - sp.c_begin) : 0;
   return sp;
 }
+
+// Position t of kv head kvh of sequence b in a (B, T, Kv, DH) cache.
+struct DenseRows {
+  int b, T, Kv, kvh;
+  __device__ long long operator()(int t) const { return (((long long)b * T + t) * Kv + kvh) * DH; }
+};
 
 __device__ inline void cp_async16(void* smem, const void* gmem, bool full) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));

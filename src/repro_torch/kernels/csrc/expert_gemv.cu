@@ -97,21 +97,31 @@ expert_gemv_kernel(const __nv_bfloat16* __restrict__ tok, long long tok_stride,
 
 }  // namespace
 
+// Once per device, before the first launch: raises the kernel's dynamic
+// shared-memory limit to the most a block may opt into (the kernel has no
+// static shared memory) and returns that limit.  Kept out of the launch,
+// which a CUDA graph may capture.
+extern "C" int expert_gemv_init(int* max_smem) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaFuncSetAttribute(expert_gemv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   *max_smem);
+}
+
 // Launches on `stream`; allocates nothing; returns cudaGetLastError().
 // Caller guarantees: bf16 weights (E, K, N) contiguous with a 16-byte
 // aligned base, bf16 tokens with unit stride along K, N % 64 == 0, int32
-// expert ids and valid flags.
+// expert ids and valid flags, and a prior expert_gemv_init on this device
+// (a K whose shared memory passes its limit fails to launch).
 extern "C" int expert_gemv(const void* tok, long long tok_stride, const void* w,
                            const int* expert_ids, const int* valid, void* out, int S, int K,
                            int N, void* stream) {
   if (N % BN != 0) return (int)cudaErrorInvalidValue;
   if (S == 0 || N == 0) return (int)cudaGetLastError();
   const size_t smem = sizeof(float) * (K + KSLICES * BN);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        expert_gemv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
   expert_gemv_kernel<<<dim3(S, N / BN), NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(tok), tok_stride, static_cast<const __nv_bfloat16*>(w),
       expert_ids, valid, static_cast<__nv_bfloat16*>(out), K, N);

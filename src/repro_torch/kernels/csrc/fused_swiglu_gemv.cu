@@ -150,10 +150,26 @@ swiglu_gemv_reduce(const float* __restrict__ partial, const int* __restrict__ va
 
 }  // namespace
 
+// Once per device, before the first launch: raises the first pass's
+// dynamic shared-memory limit to the most a block may opt into (it has no
+// static shared memory) and returns that limit.  Kept out of the launch,
+// which a CUDA graph may capture.
+extern "C" int fused_swiglu_gemv_init(int* max_smem) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaFuncSetAttribute(swiglu_gemv_partial, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   *max_smem);
+}
+
 // Launches both passes on `stream`; allocates nothing (`partial` is the
 // caller's (F / 64, S, N) float32 scratch); returns cudaGetLastError().
 // Caller guarantees: bf16 weights and tokens, unit stride along K,
-// F % 64 == 0, N % 8 == 0, 16-byte aligned weight bases, int32 tables.
+// F % 64 == 0, N % 8 == 0, 16-byte aligned weight bases, int32 tables,
+// and a prior fused_swiglu_gemv_init on this device (a K whose shared
+// memory passes its limit fails to launch).
 extern "C" int fused_swiglu_gemv(const void* tok, long long tok_stride,
                                  const void* wg, const void* wu, const void* wd,
                                  const int* expert_ids, const int* valid,
@@ -163,11 +179,6 @@ extern "C" int fused_swiglu_gemv(const void* tok, long long tok_stride,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_splits = F / FC;
   const size_t smem = sizeof(float) * (K + 2 * KSLICES * FC + FC);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        swiglu_gemv_partial, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
   swiglu_gemv_partial<<<dim3(S, n_splits), NTHREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(tok), tok_stride,
       static_cast<const __nv_bfloat16*>(wg), static_cast<const __nv_bfloat16*>(wu),

@@ -8,10 +8,18 @@ allocates the outputs and scratch, launches its kernel on the current
 stream and raises if the launch failed: it never falls back to the plain
 version.  ``LAUNCHES`` counts each wrapper's kernel launches, so a run
 can show that its path went through the kernels.
+
+The wrappers may be captured into a CUDA graph (the serving engine's
+compiled decode step).  The state they keep across calls (each library's
+init, ticket counters, scratch buffers) is created by a first call made
+outside any capture; creating it inside one raises.  A capture launches
+nothing, so :func:`recording_launches` keeps the calls it makes out of
+``LAUNCHES`` and :func:`add_launches` counts them once per replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Dict, Optional, Tuple
 
@@ -34,8 +42,7 @@ _ARGTYPES = {
     "fused_swiglu_gmm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "fused_swiglu_gemv": [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "decode_attention_split": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _F, _P],
+    "decode_attention_split": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "decode_attention_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _F, _P],
     "grouped_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -49,15 +56,24 @@ _HELPERS = {
         "fused_swiglu_gmm_scratch": ([_I, _I, _I, _I, _LLP, _LLP, _IP], None),
     },
     "decode_attention": {"decode_attention_splits": ([_I], ctypes.c_int)},
+    "decode_attention_split": {"decode_attention_splits": ([_I], ctypes.c_int)},
     "decode_attention_paged": {"decode_attention_splits": ([_I], ctypes.c_int)},
     "grouped_gemm": {
         "grouped_gemm_init": ([_IP, _IP], ctypes.c_int),
         "grouped_gemm_scratch": ([_I, _I, _I, _I, _I, _LLP, _LLP, _IP], None),
     },
+    "fused_swiglu_gemv": {"fused_swiglu_gemv_init": ([_IP], ctypes.c_int)},
+    "expert_gemv": {"expert_gemv_init": ([_IP], ctypes.c_int)},
 }
 # kernels whose library exports ``<name>_init(int* ...)``, run once per
-# device when the library is first used there: the ints it returns
-_INIT_OUTS = {"fused_swiglu_gmm": ("n_sm", "max_smem"), "grouped_gemm": ("n_sm", "max_smem")}
+# device when the library is first used there (never inside a launch,
+# which a CUDA graph may capture): the ints it returns
+_INIT_OUTS = {
+    "fused_swiglu_gmm": ("n_sm", "max_smem"),
+    "grouped_gemm": ("n_sm", "max_smem"),
+    "fused_swiglu_gemv": ("max_smem",),
+    "expert_gemv": ("max_smem",),
+}
 _INIT: Dict[Tuple[str, int], Dict[str, int]] = {}
 # zeroed int32 ticket counters, one buffer per (kernel, device, size); each
 # launch leaves its counters at zero again.  One buffer per device assumes
@@ -75,7 +91,36 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _kernel(name: str, device: Optional[torch.device] = None):
+@contextlib.contextmanager
+def recording_launches(into: Dict[str, int]):
+    """Around a CUDA graph capture: the wrapper calls made inside the block
+    are written to ``into`` by kernel, and ``LAUNCHES`` is left as it was
+    (a capture launches nothing)."""
+    before = dict(LAUNCHES)
+    try:
+        yield into
+    finally:
+        for k, n in before.items():
+            into[k] = LAUNCHES[k] - n
+            LAUNCHES[k] = n
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count one replay of a graph whose capture recorded ``counts``."""
+    for k, n in counts.items():
+        LAUNCHES[k] += n
+
+
+def _not_capturing(what: str) -> None:
+    """State kept across launches must not live in a graph's memory pool,
+    which the next replay overwrites: create it by a call outside any
+    capture first."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what} first created during a CUDA graph capture; "
+                           "run the step once outside the capture first")
+
+
+def _kernel(name: str, device: torch.device):
     """The loaded library and launch function of kernel ``name``; on the
     first use on ``device`` it also runs the library's init entry point
     (``_INIT_OUTS``), whose results ``_INIT`` keeps."""
@@ -88,6 +133,7 @@ def _kernel(name: str, device: Optional[torch.device] = None):
             getattr(lib, helper).argtypes = argtypes
             getattr(lib, helper).restype = restype
     if name in _INIT_OUTS and (name, device.index) not in _INIT:
+        _not_capturing(f"{name}_init")
         outs = [ctypes.c_int() for _ in _INIT_OUTS[name]]
         with torch.cuda.device(device):
             rc = getattr(lib, f"{name}_init")(*(ctypes.byref(o) for o in outs))
@@ -100,6 +146,7 @@ def _tickets(name: str, device: torch.device, n: int) -> torch.Tensor:
     key = (name, device.index, n)
     buf = _TICKETS.get(key)
     if buf is None:
+        _not_capturing(f"the {name} tickets")
         buf = _TICKETS[key] = torch.zeros((n,), dtype=torch.int32, device=device)
     return buf
 
@@ -108,6 +155,7 @@ def _buffer(name: str, device: torch.device, shape: Tuple[int, ...], dtype: torc
     key = (name, device.index, shape, dtype)
     buf = _BUFFERS.get(key)
     if buf is None:
+        _not_capturing(f"the {name} scratch")
         buf = _BUFFERS[key] = torch.empty(shape, dtype=dtype, device=device)
     return buf
 
@@ -243,8 +291,9 @@ def swiglu_gemv(
     _require(F % 64 == 0 and N % 8 == 0, f"swiglu_gemv needs F % 64, N % 8 == 0; got {F}, {N}")
     _check_i32("expert_ids", expert_ids, S)
     _check_i32("valid", valid, S)
-    lib, fn = _kernel("fused_swiglu_gemv")
-    partial = torch.empty((F // 64, S, N), dtype=torch.float32, device=tokens.device)
+    lib, fn = _kernel("fused_swiglu_gemv", tokens.device)
+    # the float32 partials of the F / 64 column splits, summed by the second pass
+    partial = _buffer("fused_swiglu_gemv", tokens.device, (F // 64, S, N), torch.float32)
     out = torch.empty((S, N), dtype=tokens.dtype, device=tokens.device)
     rc = fn(_ptr(tokens), tokens.stride(0), _ptr(wg), _ptr(wu), _ptr(wd),
             _ptr(expert_ids), _ptr(valid), _ptr(partial), _ptr(out),
@@ -319,7 +368,7 @@ def expert_gemv(
     _require(N % 64 == 0, f"expert_gemv needs N % 64 == 0; got {N}")
     _check_i32("expert_ids", expert_ids, S)
     _check_i32("valid", valid, S)
-    lib, fn = _kernel("expert_gemv")
+    lib, fn = _kernel("expert_gemv", tokens.device)
     out = torch.empty((S, N), dtype=tokens.dtype, device=tokens.device)
     rc = fn(_ptr(tokens), tokens.stride(0), _ptr(weights), _ptr(expert_ids), _ptr(valid),
             _ptr(out), S, K, N, _stream(tokens))
@@ -348,9 +397,13 @@ def decode_attention(
     """Flash-decode over a dense per-slot cache -> (B, H, dh); positions at
     or past ``lengths[b]`` are masked and length-0 rows are zero.
 
-    ``n_splits > 1`` partitions the KV axis into that many contiguous
-    ranges of whole tiles (clamped to the tile count), each giving a
-    float32 partial and its log-sum-exp, combined afterwards."""
+    ``n_splits > 1`` takes the split-KV kernel.  Its plain version
+    partitions the KV axis into that many contiguous ranges of whole tiles
+    (clamped to the tile count), each giving a float32 partial and its
+    log-sum-exp, combined afterwards, as the TPU kernel does; on the card
+    the splits follow each sequence's live length instead
+    (``csrc/decode_attention_split.cu``), so the two agree within the bf16
+    tolerance, not bit for bit."""
     if _on_cpu(q, cache_k, cache_v, lengths):
         if n_splits > 1:
             return ref.decode_attention_split_ref(q, cache_k, cache_v, lengths, n_splits)
@@ -360,23 +413,13 @@ def decode_attention(
     _check_attention(q, cache_k, cache_v, lengths, B, Kv)
     _require(cache_k.shape[0] == B, "cache batch does not match q")
     out = torch.empty_like(q)
-    G = H // Kv
-    if n_splits > 1:
-        S, span = ref.split_span(T, n_splits)
-        part = torch.empty((B, Kv, S, G, dh), dtype=torch.float32, device=q.device)
-        lse = torch.empty((B, Kv, S, G), dtype=torch.float32, device=q.device)
-        lib, fn = _kernel("decode_attention_split")
-        rc = fn(_ptr(q), _ptr(cache_k), _ptr(cache_v), _ptr(lengths), _ptr(part), _ptr(lse),
-                _ptr(out), B, T, Kv, G, dh, S, span, 1.0 / dh**0.5, _stream(q))
-        _raise_on(lib, rc, "decode_attention_split")
-        LAUNCHES["decode_attention_split"] += 1
-        return out
-    lib, fn = _kernel("decode_attention")
-    part, lse, tickets = _split_scratch("decode_attention", lib, T, q, Kv)
+    name = "decode_attention_split" if n_splits > 1 else "decode_attention"
+    lib, fn = _kernel(name, q.device)
+    part, lse, tickets = _split_scratch(name, lib, T, q, Kv)
     rc = fn(_ptr(q), _ptr(cache_k), _ptr(cache_v), _ptr(lengths), _ptr(part), _ptr(lse),
-            _ptr(tickets), _ptr(out), B, T, Kv, G, dh, 1.0 / dh**0.5, _stream(q))
-    _raise_on(lib, rc, "decode_attention")
-    LAUNCHES["decode_attention"] += 1
+            _ptr(tickets), _ptr(out), B, T, Kv, H // Kv, dh, 1.0 / dh**0.5, _stream(q))
+    _raise_on(lib, rc, name)
+    LAUNCHES[name] += 1
     return out
 
 
@@ -398,7 +441,7 @@ def decode_attention_paged(
              and block_tables.dim() == 2 and block_tables.shape[0] == B,
              f"block_tables must be a contiguous int32 ({B}, max_blocks)")
     max_blocks = block_tables.shape[1]
-    lib, fn = _kernel("decode_attention_paged")
+    lib, fn = _kernel("decode_attention_paged", q.device)
     part, lse, tickets = _split_scratch("decode_attention_paged", lib, max_blocks * page, q, Kv)
     out = torch.empty_like(q)
     rc = fn(_ptr(q), _ptr(pool_k), _ptr(pool_v), _ptr(block_tables), _ptr(lengths), _ptr(part),

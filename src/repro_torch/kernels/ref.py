@@ -22,9 +22,11 @@ import torch
 import torch.nn.functional as F
 
 NEG_INF = -1e30
-# KV positions per tile of the split-KV kernel: ``n_splits`` is clamped to
-# the tile count and each split covers whole tiles, as the TPU kernel
-# clamps to its ``bt`` tiles (decode_attention.py:244-245)
+# KV positions per tile of the TPU's split-KV partition, which the plain
+# version keeps: ``n_splits`` is clamped to the tile count and each split
+# covers whole tiles, as the TPU kernel clamps to its ``bt`` tiles
+# (decode_attention.py:244-245).  The CUDA kernel splits over each live
+# length instead (``csrc/decode_attention_split.cu``).
 SPLIT_TILE = 64
 
 
@@ -119,7 +121,7 @@ def expert_gemv_ref(
 
 
 def split_span(T: int, n_splits: int):
-    """(splits, positions per split) of the split-KV kernel over a cache of
+    """(splits, positions per split) of the TPU's split-KV partition over a cache of
     ``T`` positions: whole ``SPLIT_TILE`` tiles, the last split ragged or
     empty."""
     n_tiles = -(-T // SPLIT_TILE)

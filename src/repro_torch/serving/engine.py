@@ -10,7 +10,13 @@ device-resident ``SieveState`` every ``sieve_refresh_every`` steps.
 
 Where the JAX engine relies on buffer donation and a no-recompile state
 swap, this one updates the KV cache in place and refreshes the
-``SieveState`` by ``copy_`` into the same device tensors.  With
+``SieveState`` by ``copy_`` into the same device tensors.  The decode
+step's inputs are device buffers at fixed addresses, filled by ``copy_``
+each step.  On the card, the counterpart of the JAX engine's compiled
+step (``jax.jit(lm.decode_step, donate_argnums=(2,))``) is one CUDA graph
+of ``LM.decode_step``, captured after the first decode step has run
+eagerly and replayed by every later one (:meth:`ServingEngine._decode`).
+Prefill runs eagerly: its shape changes with each prompt.  With
 ``BatchingConfig(paged=True)`` the cache is a shared block pool indexed
 through host-side block tables (``PagedKVCache``): blocks are allocated
 at prefill and as decode grows a slot, and freed when it retires.  The
@@ -31,6 +37,7 @@ from repro_torch.core.cost_model import CostModel, MoELayerSpec, SystemSpec, b20
 from repro_torch.core.cost_table import CostTable
 from repro_torch.core.scheduler import schedule
 from repro_torch.core.scheduler_torch import SieveParams, SieveState, export_cost_table
+from repro_torch.kernels import ops
 from repro_torch.models.model import LM
 from repro_torch.sim.dram import PimGemvModel
 from .batching import BatchingConfig, PagedKVCache, SlotScheduler
@@ -95,6 +102,14 @@ class ServingEngine:
             self.cache = lm.init_paged_cache(self.paged.n_pool, self.paged.page)
         else:
             self.cache = lm.init_cache(batching.n_slots, batching.max_seq)
+        self._host_in, self._decode_in = self._decode_buffers()
+        # the compiled decode step: on the card, a CUDA graph captured on the
+        # first decode step; ``_replay = False`` runs the eager step there
+        # instead (for comparisons only)
+        self._replay = self.device.type == "cuda"
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._graph_out = None
+        self._graph_launches: Dict[str, int] = {}
 
         arch = lm.arch
         self.is_moe = arch.moe is not None
@@ -124,6 +139,63 @@ class ServingEngine:
                 self._refresh_sieve_state(step=0)
 
     # ------------------------------------------------------------------
+    def _decode_buffers(self):
+        """The decode step's inputs on the device, allocated once, and their
+        host staging buffers (pinned on the card, so the fill is an
+        asynchronous copy): tokens and positions, and for a paged cache the
+        block tables, pool owners and block positions."""
+        B = self.cfg.n_slots
+        shapes = {"tokens": (B, 1), "position": (B,)}
+        if self.paged is not None:
+            shapes.update(block_tables=self.paged.block_table.shape,
+                          pool_owner=(self.paged.n_pool,), pool_pos=(self.paged.n_pool,))
+        pin = self.device.type == "cuda"
+        host, dev = {}, {}
+        for name, shape in shapes.items():
+            dtype = torch.int64 if name == "tokens" else torch.int32
+            host[name] = torch.zeros(shape, dtype=dtype, pin_memory=pin)
+            dev[name] = torch.zeros(shape, dtype=dtype, device=self.device)
+        return host, dev
+
+    def _fill_decode_inputs(self, **arrays: np.ndarray) -> Dict[str, torch.Tensor]:
+        """Copy this step's host arrays into the fixed-address inputs.  The
+        staging buffers are free to overwrite: the previous step's copies
+        finished before its logits reached the host."""
+        for name, a in arrays.items():
+            self._host_in[name].numpy()[...] = a
+            self._decode_in[name].copy_(self._host_in[name], non_blocking=True)
+        return dict(self._decode_in)
+
+    def _decode(self, batch: Dict[str, Any]):
+        """One decode step over the fixed-address inputs -> (logits, aux).
+
+        On the card the first call runs ``LM.decode_step`` eagerly, which
+        also creates every kernel wrapper's kept state (library init,
+        tickets, scratch) outside any graph, then captures the step as one
+        CUDA graph; every later call replays it and counts the captured
+        kernel launches in ``ops.LAUNCHES``.  The decode batch is always
+        ``n_slots`` rows, so one graph serves the engine.  A capture or
+        replay that fails raises: nothing falls back to the eager step.
+        On the CPU, where there are no CUDA graphs, every step is eager."""
+        if self._graph is None or not self._replay:
+            logits, self.cache, aux = self.lm.decode_step(self.params, batch, self.cache)
+            if self._replay:
+                self._capture(batch)
+            return logits, aux
+        self._graph.replay()
+        ops.add_launches(self._graph_launches)
+        return self._graph_out
+
+    def _capture(self, batch: Dict[str, Any]) -> None:
+        graph = torch.cuda.CUDAGraph()
+        launches: Dict[str, int] = {}
+        # torch.cuda.graph captures on a side stream after synchronising
+        # the device; the capture runs nothing, and replays launch on the
+        # current stream, in order with the eager prefill
+        with ops.recording_launches(launches), torch.cuda.graph(graph):
+            logits, _, aux = self.lm.decode_step(self.params, batch, self.cache)
+        self._graph, self._graph_out, self._graph_launches = graph, (logits, aux), launches
+
     def _refresh_sieve_state(self, step: int) -> None:
         """Re-export (CostTable, CostModel) into the device ``SieveState``.
 
@@ -265,21 +337,18 @@ class ServingEngine:
                 # generated[-1] was sampled but not yet written: it lands
                 # one before the request's next-write cursor
                 position[r.slot] = r.position - 1 if r.generated else r.position
-            db = {
-                "tokens": torch.as_tensor(tokens, device=self.device),
-                "position": torch.as_tensor(position, device=self.device),
-            }
+            inputs = {"tokens": tokens, "position": position}
             if self.paged is not None:
                 # grow block lists to cover this step's KV write, then send
                 # the fixed-shape indexing state with the batch
                 for r in batch_reqs:
                     self.paged.ensure(r.slot, int(position[r.slot]) + 1)
-                db["block_tables"] = torch.as_tensor(self.paged.block_table, device=self.device)
-                db["pool_owner"] = torch.as_tensor(self.paged.owner, device=self.device)
-                db["pool_pos"] = torch.as_tensor(self.paged.block_pos, device=self.device)
+                inputs.update(block_tables=self.paged.block_table, pool_owner=self.paged.owner,
+                              pool_pos=self.paged.block_pos)
+            db = self._fill_decode_inputs(**inputs)
             if self.uses_cost_split:
                 db["sieve"] = self._sieve_state
-            logits, self.cache, aux = self.lm.decode_step(self.params, db, self.cache)
+            logits, aux = self._decode(db)
             logits = self._host_logits(logits)
             toks = self._sample(logits[:, 0])
             for r in batch_reqs:

@@ -291,6 +291,26 @@ class TestDecodeAttention:
         _close(got, ref.decode_attention_ref(q, ck, cv, L))
         assert (got[0] == 0).all()
 
+    @pytest.mark.parametrize("n_splits", [2, 3, 4, 8])
+    def test_split_over_live_length(self, cuda, n_splits):
+        """The split-KV kernel splits each sequence over its own live length
+        whatever ``n_splits``: against the plain version, which keeps the
+        TPU's partition over T (whole splits of it empty here), three times
+        on the same buffers, bitwise equal from call to call, and the
+        ticket counters back at zero."""
+        g = torch.Generator(device=cuda).manual_seed(40 + n_splits)
+        B, T, Kv, G, dh = 8, 4100, 4, 8, 128
+        q = _rnd(g, (B, Kv * G, dh), cuda)
+        ck, cv = (_rnd(g, (B, T, Kv, dh), cuda) for _ in range(2))
+        L = torch.tensor([0, 1, 32, 64, 65, T - 1, 1000, 2049], dtype=torch.int32, device=cuda)
+        want = ref.decode_attention_split_ref(q, ck, cv, L, n_splits)
+        ops.reset_launches()
+        _three_launches(lambda: ops.decode_attention(q, ck, cv, L, n_splits=n_splits), want, L == 0)
+        assert ops.LAUNCHES["decode_attention_split"] == 3 and ops.LAUNCHES["decode_attention"] == 0
+        _close(ops.decode_attention(q, ck, cv, L, n_splits=n_splits), ref.decode_attention_ref(q, ck, cv, L))
+        torch.cuda.synchronize()
+        assert not ops._TICKETS[("decode_attention_split", q.device.index, B * Kv)].any()
+
     @pytest.mark.parametrize("page", [8, 16, 32, 64])
     def test_paged(self, cuda, page):
         """Shuffled pool blocks, trash cells past each length, an idle slot
@@ -379,3 +399,151 @@ class TestRouterTies:
         r = moe.route(x, w, cfg)
         assert r.expert_idx[0].tolist() == list(range(8))
         assert r.expert_idx[1, :2].tolist() == [5, 77]
+
+
+def _card_proxy():
+    """The qwen3-moe proxy of the CPU tests with the head dim the attention
+    kernels take (128; the proxy's 32 is refused on the card)."""
+    import dataclasses
+
+    from _torch_port import proxy_arch
+    from repro_torch.configs import get_arch
+
+    arch = proxy_arch(get_arch)
+    return dataclasses.replace(arch, attn=dataclasses.replace(arch.attn, d_head=128))
+
+
+def _full_width_slice():
+    """qwen3-moe-30b-a3b at full width, cut to two layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch("qwen3-moe-30b-a3b"), n_layers=2)
+
+
+# (arch, prompt lengths, new tokens per request) of the compiled-step cases:
+# three requests on two slots, so a slot retires and is re-admitted while
+# the graph replays; the paged runs cross a page boundary mid-decode
+_STEP_CASES = {
+    "proxy": (_card_proxy, (14, 9, 21), (4, 12, 9)),
+    "full_width_2_layers": (_full_width_slice, (30, 17, 45), (4, 12, 9)),
+}
+
+
+@pytest.mark.cuda
+class TestCompiledDecodeStep:
+    @pytest.mark.parametrize("model", list(_STEP_CASES))
+    @pytest.mark.parametrize("path", ["dense_fused", "paged_three_call"])
+    def test_replay_matches_eager(self, cuda, monkeypatch, model, path):
+        """Two engines on the same weights and requests, one replaying the
+        captured decode step and one eager (``_replay`` off), stepped side
+        by side: the same greedy tokens, per-layer counts, drops and head and
+        tail rows at every decode step; logits and KV caches within the bf16
+        tolerance (and whether also bitwise equal, printed).  Midway both
+        cost tables are pushed to a slow PIM, and the next ``SieveState``
+        refresh between two replays must move every tail row to the head,
+        as it does eagerly."""
+        from repro_torch.models import LM, moe
+        from repro_torch.serving import BatchingConfig, Request, ServingEngine
+
+        monkeypatch.setenv("REPRO_FUSED_SWIGLU", "1" if path == "dense_fused" else "0")
+        make_arch, prompt_lens, new_tokens = _STEP_CASES[model]
+        arch = make_arch()
+        batching = BatchingConfig(n_slots=2, max_seq=128, paged=path == "paged_three_call",
+                                  page_size=16 if model == "full_width_2_layers" else 8)
+        lm = LM(arch, dtype=BF, device="cuda")
+        params = lm.init(seed=0)
+        engines = [ServingEngine(lm, params, batching, sieve_refresh_every=2) for _ in range(2)]
+        engines[0]._replay = False
+
+        # head and tail rows per engine, summed on the card: the adds of the
+        # replaying engine are captured into its graph and run on replay
+        rows = torch.zeros((2, 2), dtype=torch.int64, device=cuda)
+        cur = [0]
+        head, tail = moe.head_stage, moe.tail_stage
+
+        def head_stage(slab, wg, wu, wd, sizes):
+            rows[cur[0], 0] += sizes.sum()
+            return head(slab, wg, wu, wd, sizes)
+
+        def tail_stage(toks, wg, wu, wd, eids, valid):
+            rows[cur[0], 1] += valid.sum()
+            return tail(toks, wg, wu, wd, eids, valid)
+
+        monkeypatch.setattr(moe, "head_stage", head_stage)
+        monkeypatch.setattr(moe, "tail_stage", tail_stage)
+        steps = [[], []]  # per decode call: logits, counts, dropped, head/tail rows
+
+        def recorded(i, fn):
+            def run(batch):
+                before = rows[i].clone()
+                logits, aux = fn(batch)
+                steps[i].append((logits.float().cpu(), aux.counts.cpu(), int(aux.dropped),
+                                 (rows[i] - before).tolist()))
+                return logits, aux
+            return run
+
+        for i, eng in enumerate(engines):
+            eng._decode = recorded(i, eng._decode)
+            for n, m in zip(prompt_lens, new_tokens):
+                prompt = torch.randint(0, arch.vocab_size, (n,), generator=torch.Generator().manual_seed(n))
+                eng.submit(Request(prompt=prompt.tolist(), max_new_tokens=m))
+        forced_at = None
+        caches_bitwise = logits_bitwise = True
+        while not all(e.sched.idle for e in engines):
+            n_decoded = len(steps[1])
+            if forced_at is None and n_decoded >= 4:  # the graph has replayed
+                forced_at = n_decoded
+                for eng in engines:
+                    for c in range(1, eng._sieve_max_count + 1):
+                        eng.cost_table.update(c, 1.0)  # a PIM slower than any head
+            for i, eng in enumerate(engines):
+                cur[0] = i
+                eng.step()
+            for a, b in zip(engines[0].cache["blocks"], engines[1].cache["blocks"]):
+                _close(b, a)
+                caches_bitwise &= torch.equal(a, b)
+        assert forced_at is not None and engines[1]._graph is not None
+        assert len(steps[0]) == len(steps[1]) >= forced_at + 4
+        for (le, ce, de, re), (lr, cr, dr, rr) in zip(*steps):
+            assert torch.allclose(lr, le, **TOL), float((lr - le).abs().max())
+            logits_bitwise &= torch.equal(lr, le)
+            assert torch.equal(cr, ce) and dr == de and rr == re
+        # the forced refresh lands at the next boundary, between replays
+        assert engines[0].sieve_refreshes == engines[1].sieve_refreshes
+        assert any(r[1] > 0 for *_, r in steps[1][:forced_at]), "no tail rows before the refresh"
+        assert all(r[1] == 0 for *_, r in steps[1][forced_at + 2:]), "tail rows after the refresh"
+        tokens = [[r.generated for r in sorted(e.sched.finished, key=lambda r: r.req_id)] for e in engines]
+        assert tokens[0] == tokens[1] and [len(g) for g in tokens[1]] == list(new_tokens)
+        if batching.paged:
+            assert all(e.paged.n_free == e.paged.n_pool - 1 for e in engines)
+        kernels = {"dense_fused": ("swiglu_gmm_capacity", "swiglu_gemv", "decode_attention"),
+                   "paged_three_call": ("gmm_capacity", "expert_gemv", "decode_attention_paged")}[path]
+        captured = engines[1]._graph_launches
+        assert all(captured[k] > 0 for k in kernels)
+        assert all(n == 0 for k, n in captured.items() if k not in kernels)
+        print(f"\n{model} {path}: replayed against eager over {len(steps[1])} decode steps: "
+              f"logits bitwise equal {logits_bitwise}, KV caches bitwise equal {caches_bitwise}")
+
+    def test_replays_count_captured_launches(self, cuda):
+        """A replay adds the captured launches to ``ops.LAUNCHES``; the
+        capture itself adds none."""
+        from repro_torch.models import LM
+        from repro_torch.serving import BatchingConfig, Request, ServingEngine
+
+        arch = _card_proxy()
+        lm = LM(arch, dtype=BF, device="cuda")
+        eng = ServingEngine(lm, lm.init(seed=0), BatchingConfig(n_slots=2, max_seq=64))
+        eng.submit(Request(prompt=list(range(1, 11)), max_new_tokens=5))
+        ops.reset_launches()
+        eng.step()  # prefill, then the eager decode step and the capture
+        after_first = dict(ops.LAUNCHES)
+        assert eng._graph is not None
+        for k, n in eng._graph_launches.items():
+            assert 0 <= n <= after_first[k]
+        eng.step()
+        eng.step()
+        for k, n in eng._graph_launches.items():
+            assert ops.LAUNCHES[k] == after_first[k] + 2 * n
+        assert eng._graph_launches["decode_attention"] == arch.n_layers

@@ -1,6 +1,8 @@
 """The port's ServingEngine against the JAX engine on the qwen3-moe proxy:
 same weights (through the bridge), same requests, same greedy tokens."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -166,3 +168,100 @@ def test_unported_features_raise():
             call()
     with pytest.raises(ValueError, match="max_seq"):
         eng.submit(Request(prompt=[1] * 17))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_run(paged: bool):
+    """The JAX engine's greedy tokens on the proxy (dense or paged, page 8),
+    with the torch LM and bridged weights of the same run, shared by the
+    tests below so the JAX engine runs once per layout."""
+    kw = dict(paged=True, page_size=8) if paged else {}
+    je, te = _engines("dual_path_cost", **kw)
+    return _tokens(je.run_until_done()), te.lm, te.params
+
+
+def _fresh_engine(paged: bool) -> ServingEngine:
+    """A torch engine as ``_engines`` builds it, with the prompts submitted."""
+    _, lm, params = _jax_run(paged)
+    kw = dict(paged=True, page_size=8) if paged else {}
+    te = ServingEngine(lm, params, BatchingConfig(n_slots=2, max_seq=48, **kw), sieve_refresh_every=2)
+    for p in PROMPTS:
+        te.submit(Request(prompt=list(p), max_new_tokens=MAX_NEW))
+    return te
+
+
+def _decode_calls(te):
+    """Wrap ``te._decode``: each call's input tensors (by name) are kept."""
+    calls = []
+    decode = te._decode
+
+    def run(batch):
+        calls.append({k: v for k, v in batch.items() if torch.is_tensor(v)})
+        return decode(batch)
+
+    te._decode = run
+    return calls
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_decode_inputs_keep_their_address(paged):
+    """The decode step reads its inputs from buffers allocated once: every
+    step, through admits into a retired slot, page growth (page 8, prompts
+    of 12 growing past 16) and retires, passes the same tensors at the same
+    addresses, filled with that step's values.  Tokens still equal the JAX
+    engine's."""
+    te = _fresh_engine(paged)
+    calls = _decode_calls(te)
+    assert _tokens(te.run_until_done()) == _jax_run(paged)[0]
+    names = {"tokens", "position"} | ({"block_tables", "pool_owner", "pool_pos"} if paged else set())
+    assert len(calls) >= MAX_NEW + 2 and all(set(c) == names for c in calls)
+    for name in names:
+        assert len({c[name].data_ptr() for c in calls}) == 1
+        assert all(c[name] is calls[0][name] for c in calls)
+    assert te.sched.idle and len(te.sched.finished) == len(PROMPTS)
+    if paged:
+        assert int(calls[0]["block_tables"].max()) > 0  # blocks were mapped through the buffer
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_replay_reads_the_refilled_inputs(monkeypatch, paged):
+    """The engine's replay branch on the CPU, with a stand-in for the CUDA
+    graph that re-runs the captured call on the tensors it was captured
+    with, into the captured outputs: tokens equal the JAX engine's only if
+    every step refills those same tensors.  Each replay adds the launches
+    the capture recorded, and the capture adds none."""
+    from repro_torch.kernels import ops
+
+    class Replay:
+        """Re-runs ``LM.decode_step`` on the captured batch dict."""
+
+        def __init__(self, eng, batch):
+            self.eng, self.batch = eng, batch
+            self.replays = 0
+
+        def run(self):
+            logits, _, aux = self.eng.lm.decode_step(self.eng.params, self.batch, self.eng.cache)
+            return logits, aux
+
+        def replay(self):
+            self.replays += 1
+            logits, aux = self.run()
+            self.eng._graph_out[0].copy_(logits)
+            for dst, src in zip(self.eng._graph_out[1], aux):
+                dst.copy_(src)
+
+    def capture(self, batch):
+        graph = Replay(self, batch)
+        with ops.recording_launches(self._graph_launches):
+            ops.LAUNCHES["decode_attention"] += 1  # as a wrapper call inside a capture
+            # rewriting the step's K/V rows with the same values changes nothing
+            self._graph_out = graph.run()
+        self._graph = graph
+
+    monkeypatch.setattr(ServingEngine, "_capture", capture)
+    te = _fresh_engine(paged)
+    te._replay = True
+    ops.reset_launches()
+    assert _tokens(te.run_until_done()) == _jax_run(paged)[0]
+    assert te._graph_launches == {k: int(k == "decode_attention") for k in ops.LAUNCHES}
+    assert te._graph.replays >= MAX_NEW and ops.LAUNCHES["decode_attention"] == te._graph.replays
