@@ -48,7 +48,22 @@ Phases, each fatal on failure:
    the plain path on the CPU, with the router's discrete choices shared
    between the two devices.  Last, full-batch decode steps of the two
    paths, eager and replayed, are timed in turns, and the eager and
-   replayed engines must give the same tokens.
+   replayed engines must give the same tokens;
+5. runtime: on each path, after its serving run, the engine's runtime loop
+   at full width and depth.  A measured engine (``cost_source="measured"``,
+   telemetry on, the 12 requests of phase 4) probes the path's head, tail
+   and attention kernels at every refresh boundary, timed with CUDA events
+   on the replay's stream; it must keep one graph capture and launch only
+   its path's kernels, and its trace goes to ``chiprun_out/``.  A second
+   measured engine has its sentinel tail probe slowed 16x over a window of
+   steps: it must be quarantined within one refresh cadence, put no tail
+   rows on the PIM side while the split is GPU-only, and be healthy again
+   after the window; then brownout stage 2 and back, stage 3 sheds a batch
+   request and stage 1 clamps one, all with one capture.  Two engines with
+   ``greedy=False, seed=7`` must give the same tokens.  Last, an engine
+   snapshotted mid-run and restored into a fresh engine and into its own
+   captured graph must continue with the same tokens, last logits and KV
+   cache bit for bit, with one capture each.
 
 It prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -94,6 +109,7 @@ SOURCES = {
 DENSE_FUSED_PATH = ("swiglu_gmm_capacity", "swiglu_gemv", "decode_attention")
 PAGED_UNFUSED_PATH = ("gmm_capacity", "expert_gemv", "decode_attention_paged")
 SPLIT_KV_SPLITS = 4  # n_splits of the split-KV entry-point drive
+RUNTIME_REFRESH = 4  # sieve_refresh_every of the runtime phase's engines
 
 
 def fail(msg: str) -> None:
@@ -786,47 +802,65 @@ def phase_kernels(arch, parent=None) -> dict:
 # ---------------------------------------------------------------------------
 
 
-class PathProbe:
-    """What the serving run's MoE path did, split by phase (0 prefill, 1
-    decode): live head rows and valid tail rows (summed on the card, no
-    sync), tokens routed and dropped, and the host time of the sieve pass.
+class RowCounter:
+    """Live head rows and valid tail rows of the MoE path, summed on the card
+    (no sync) into ``rows[slot]`` for the ``slot`` set at the call.  It
+    wraps ``moe.head_stage``/``moe.tail_stage`` until :meth:`remove`.  The
+    adds made while a decode step is captured are captured with it (into
+    the slot set then) and run on every replay."""
 
-    It wraps ``moe.head_stage``/``moe.tail_stage`` and the engine's
-    ``lm.prefill``/``_decode``/``_run_sieve``; the kernels' launch counters
-    are untouched.  The engine captures its decode step as a CUDA graph on
-    the first decode step, in phase 1: the row counters' adds are captured
-    with it (into phase 1's row) and run on every replay, and the routed
-    and dropped tokens are read from what ``_decode`` returns, eager or
-    replayed."""
-
-    def __init__(self, eng):
+    def __init__(self, n_slots: int):
         import torch
 
         from repro_torch.models import moe
 
-        self.eng, self.moe = eng, moe
-        self.phase = 0
-        self.rows = torch.zeros(2, 2, dtype=torch.int64, device="cuda")  # [phase, head/tail]
-        self.routed, self.dropped = [0, 0], [0, 0]
-        self.sieve_s = 0.0
-        self.decode_calls, self.replays = 0, 0
-        self._orig = (moe.head_stage, moe.tail_stage, eng.lm.prefill, eng._decode, eng._run_sieve)
-
-    def install(self) -> None:
-        head, tail, prefill, decode, run_sieve = self._orig
+        self.moe, self.orig = moe, (moe.head_stage, moe.tail_stage)
+        self.rows = torch.zeros((n_slots, 2), dtype=torch.int64, device="cuda")  # [slot, head/tail]
+        self.slot = 0
+        head, tail = self.orig
         rows = self.rows
 
         def head_stage(slab, wg, wu, wd, sizes):
-            rows[self.phase, 0] += sizes.sum()
+            rows[self.slot, 0] += sizes.sum()
             return head(slab, wg, wu, wd, sizes)
 
         def tail_stage(toks, wg, wu, wd, eids, valid):
-            rows[self.phase, 1] += valid.sum()
+            rows[self.slot, 1] += valid.sum()
             return tail(toks, wg, wu, wd, eids, valid)
+
+        moe.head_stage, moe.tail_stage = head_stage, tail_stage
+
+    def remove(self) -> None:
+        self.moe.head_stage, self.moe.tail_stage = self.orig
+
+
+class PathProbe:
+    """What the serving run's MoE path did, split by phase (0 prefill, 1
+    decode): live head rows and valid tail rows (``RowCounter``), tokens
+    routed and dropped, and the host time of the sieve pass.
+
+    It wraps the engine's ``lm.prefill``/``_decode``/``_run_sieve``; the
+    kernels' launch counters are untouched.  The engine captures its decode
+    step as a CUDA graph on the first decode step, in phase 1: the row
+    counters' adds are captured with it (into phase 1's row) and run on
+    every replay, and the routed and dropped tokens are read from what
+    ``_decode`` returns, eager or replayed."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.counter = None
+        self.routed, self.dropped = [0, 0], [0, 0]
+        self.sieve_s = 0.0
+        self.decode_calls, self.replays = 0, 0
+        self._orig = (eng.lm.prefill, eng._decode, eng._run_sieve)
+
+    def install(self) -> None:
+        prefill, decode, run_sieve = self._orig
+        self.counter = RowCounter(2)
 
         def counted(phase, fn, aux_at):
             def run(*args):
-                self.phase = phase
+                self.counter.slot = phase
                 self.decode_calls += phase
                 self.replays += phase and self.eng._graph is not None
                 out = fn(*args)
@@ -841,16 +875,15 @@ class PathProbe:
             run_sieve(counts)
             self.sieve_s += time.perf_counter() - t
 
-        self.moe.head_stage, self.moe.tail_stage = head_stage, tail_stage
         self.eng.lm.prefill, self.eng._decode = counted(0, prefill, 2), counted(1, decode, 1)
         self.eng._run_sieve = timed_sieve
 
     def remove(self) -> None:
-        self.moe.head_stage, self.moe.tail_stage = self._orig[:2]
+        self.counter.remove()
         del self.eng.lm.prefill, self.eng._decode, self.eng._run_sieve
 
     def summary(self) -> dict:
-        rows = self.rows.tolist()
+        rows = self.counter.rows.tolist()
         out = {}
         for phase, name in enumerate(("prefill", "decode")):
             out[name] = dict(
@@ -1344,6 +1377,343 @@ def _prefill_decode(lm, params, prompt, tok, paged: bool):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the runtime loop
+# ---------------------------------------------------------------------------
+
+
+def _serving_requests(arch, seed: int, n: int, prompt=(128, 513), new=(16, 33)):
+    import numpy as np
+
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(prompt=[int(t) for t in rng.integers(0, arch.vocab_size, int(rng.integers(*prompt)))],
+                    max_new_tokens=int(rng.integers(*new))) for _ in range(n)]
+
+
+def _check_tokens(what: str, reqs, vocab: int) -> None:
+    for r in reqs:
+        if len(r.generated) != r.max_new_tokens or not all(0 <= t < vocab for t in r.generated):
+            fail(f"{what}: request {r.req_id} finished with {len(r.generated)} of {r.max_new_tokens} "
+                 "tokens or a token outside the vocabulary")
+
+
+def _finished_tokens(eng) -> list:
+    return [r.generated for r in sorted(eng.sched.finished, key=lambda r: r.req_id)]
+
+
+def _runtime_measured(lm, params, batching, path_kernels, kernel_ms, run: str) -> dict:
+    """The measured engine on the 12 requests of phase 4: launches by path
+    and by probes, probe times, boundary cost, one capture, the trace."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ServingEngine
+    from repro_torch.telemetry import Telemetry, write_trace
+
+    arch = lm.arch
+    tel = Telemetry()
+    eng = ServingEngine(lm, params, batching, telemetry=tel, cost_source="measured",
+                        sieve_refresh_every=RUNTIME_REFRESH)
+    probe_launches = {k: 0 for k in ops.LAUNCHES}
+    run_probes, decode = eng._run_probes, eng._decode
+    calls = {"decode": 0, "replays": 0}
+
+    def counted_probes():
+        before = dict(ops.LAUNCHES)
+        run_probes()
+        for k in probe_launches:
+            probe_launches[k] += ops.LAUNCHES[k] - before[k]
+
+    def counted_decode(batch):
+        calls["decode"] += 1
+        calls["replays"] += eng._graph is not None
+        return decode(batch)
+
+    eng._run_probes, eng._decode = counted_probes, counted_decode
+    reqs = _serving_requests(arch, 0, 12)
+    ops.reset_launches()  # counts from here on are this run's
+    t_start = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    steps = []  # (step, boundary, decode only, ms)
+    while not eng.sched.idle:
+        k, p0 = eng.stats.steps, eng.stats.prefill_tokens
+        t0 = time.perf_counter()
+        eng.step()
+        steps.append((k, (k + 1) % RUNTIME_REFRESH == 0, eng.stats.prefill_tokens == p0,
+                      1e3 * (time.perf_counter() - t0)))
+        if eng.stats.steps > 2000:
+            fail(f"runtime {run}: the measured engine did not finish in 2000 steps")
+    wall = time.perf_counter() - t_start
+    launches = dict(ops.LAUNCHES)
+    _check_tokens(f"runtime {run} measured", reqs, arch.vocab_size)
+    if eng.n_captures != 1 or calls["replays"] != calls["decode"] - 1:
+        fail(f"runtime {run}: {eng.n_captures} captures, {calls['replays']} of {calls['decode']} decode "
+             "steps replayed; one capture and every later step replayed are required")
+    for name, n in launches.items():
+        if (name in path_kernels) != (n > 0) or (name in path_kernels) != (probe_launches[name] > 0):
+            fail(f"runtime {run}: kernel {name} launched {n} times, {probe_launches[name]} by the probes; "
+                 f"the path's kernels {path_kernels} and no other must launch, probes included")
+    feed, probes = eng._timing_feed, eng._probes
+    if feed.n_fed <= 0 or probes.n_probes <= 0 or len(eng.sieve_refreshes) < 2:
+        fail(f"runtime {run}: the measured loop fed {feed.n_fed} cells from {probes.n_probes} probes "
+             f"with {len(eng.sieve_refreshes)} refreshes")
+    spans = {}
+    for e in tel.events():
+        if e["kind"] == "span":
+            spans.setdefault(e["name"], []).append((e["value"], e["dur_ns"] / 1e6))
+    tail_by_n = {}
+    for n, ms in spans.get("stage/tail_gemv", []):
+        tail_by_n.setdefault(int(n), []).append(ms)
+
+    def med(name):
+        v = [ms for _, ms in spans.get(name, [])]
+        return float(np.median(v)) if v else None
+
+    probe_ms = [ms for _, ms in spans["engine/probe"]]
+    boundary = [ms for _, b, only, ms in steps if b and only]
+    other = [ms for k, b, only, ms in steps if not b and only and k > 0]
+    out_dir = ROOT / "chiprun_out"
+    trace = write_trace(tel, str(out_dir / f"trace_measured_{run}.json"))
+    out = dict(
+        requests=len(reqs), steps=eng.stats.steps, wall_s=wall, captures=eng.n_captures,
+        decode_calls=calls["decode"], replays=calls["replays"], launches=launches,
+        probe_launches={k: n for k, n in probe_launches.items() if n},
+        probes=probes.n_probes, fed=feed.n_fed, rejected=feed.n_rejected, refreshes=len(eng.sieve_refreshes),
+        pim_healthy=eng.pim_healthy,
+        tail_probe_ms={n: float(np.median(v)) for n, v in sorted(tail_by_n.items())},
+        tail_model_ms={n: 1e3 * eng._pim.expert_time(eng.layer_spec, n) for n in sorted(tail_by_n)},
+        head_probe_ms=med("stage/head_gmm"), attention_probe_ms=med("stage/attention"),
+        dispatch_probe_ms=med("stage/dispatch"),
+        kernel_ms={k: kernel_ms[k] for k in path_kernels},
+        probe_pass_ms=spread(probe_ms), refresh_ms=med("engine/sieve_refresh"),
+        boundary_step_ms=spread(boundary) if boundary else None,
+        other_decode_step_ms=spread(other) if other else None,
+        trace=str(Path(trace).relative_to(ROOT)),
+    )
+    log(f"runtime {run} measured: {len(reqs)} requests, {out['steps']} steps in {wall:.2f} s; "
+        f"{calls['replays']} of {calls['decode']} decode steps replayed ({eng.n_captures} capture); "
+        f"{probes.n_probes} probes, {feed.n_fed} cells fed ({feed.n_rejected} rejected), "
+        f"{out['refreshes']} refreshes; probe launches {out['probe_launches']}; trace {out['trace']}")
+    log(f"runtime {run} probes (median device ms): tail by tokens "
+        + ", ".join(f"{n}: {ms:.4f} (PIM model {out['tail_model_ms'][n]:.4f})"
+                    for n, ms in out["tail_probe_ms"].items())
+        + f"; head {out['head_probe_ms']:.4f}; attention {out['attention_probe_ms']:.4f}; "
+        f"dispatch {out['dispatch_probe_ms']:.4f}; phase 3 kernels "
+        + ", ".join(f"{k} {v:.4f}" for k, v in out["kernel_ms"].items()))
+    b, o, pp = out["boundary_step_ms"], out["other_decode_step_ms"], out["probe_pass_ms"]
+    log(f"runtime {run} boundary: probe pass {pp['median']:.2f} ms per boundary ({pp['min']:.2f}-"
+        f"{pp['max']:.2f}, {pp['n']} boundaries), refresh {out['refresh_ms']:.3f} ms; decode-only steps: "
+        + (f"boundary {b['median']:.1f} ms ({b['min']:.1f}-{b['max']:.1f}, {b['n']})" if b else "no boundary")
+        + (f" against {o['median']:.1f} ms ({o['min']:.1f}-{o['max']:.1f}, {o['n']}) for the others"
+           if o else ""))
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _runtime_health(lm, params, batching, run: str) -> dict:
+    """The sentinel tail probe 16x slower over a window of steps, then
+    brownout stage 2 and back, a shed and a clamped batch request."""
+    import torch
+
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.telemetry import Telemetry
+    from repro_torch.telemetry.probes import TAIL_SPAN
+
+    arch = lm.arch
+    window = range(12, 28)
+    stages = {40: 2, 44: 3, 46: 1, 48: 0}
+
+    def slow_sentinel(name, value, dt):
+        return dt * 16 if name == TAIL_SPAN and value == 1 else dt
+
+    counter = RowCounter(2)  # slot 0 the engine's steps, slot 1 the probes
+    try:
+        eng = ServingEngine(lm, params, batching, telemetry=Telemetry(), cost_source="measured",
+                            sieve_refresh_every=RUNTIME_REFRESH)
+        run_probes = eng._run_probes
+
+        def probes_apart():
+            counter.slot = 1
+            try:
+                run_probes()
+            finally:
+                counter.slot = 0
+
+        eng._run_probes = probes_apart
+        reqs = _serving_requests(arch, 1, 8, prompt=(128, 129), new=(56, 57))
+        for r in reqs:
+            eng.submit(r)
+        traj, admitted = [], {}
+        while not eng.sched.idle:
+            k = eng.stats.steps
+            eng._probes.corrupt = slow_sentinel if k in window else None
+            if k in stages:
+                eng.set_brownout_stage(stages[k])
+                if stages[k] in (1, 3):
+                    batch_req = Request(prompt=list(reqs[0].prompt), max_new_tokens=30, priority="batch")
+                    admitted[stages[k]] = (batch_req, eng.submit(batch_req))
+            gpu_only, rows = eng._sieve_gpu_only, counter.rows[0].tolist()
+            eng.step()
+            after = counter.rows[0].tolist()
+            traj.append(dict(step=k, gpu_only=gpu_only, healthy=eng.pim_healthy, stage=eng.brownout_stage,
+                             head=after[0] - rows[0], tail=after[1] - rows[1]))
+            if eng.stats.steps > 2000:
+                fail(f"runtime {run} health: the engine did not finish in 2000 steps")
+    finally:
+        counter.remove()
+    detect = next((t["step"] for t in traj if t["step"] >= window.start and not t["healthy"]), None)
+    recover = next((t["step"] for t in traj if t["step"] >= window.stop and t["healthy"]
+                    and t["step"] > (detect or 0)), None)
+    gpu_steps = [t for t in traj if t["gpu_only"]]
+    by_cause = {"fault": sum(t["step"] < min(stages) for t in gpu_steps)}
+    by_cause["brownout"] = len(gpu_steps) - by_cause["fault"]
+    if detect is None or detect - window.start >= RUNTIME_REFRESH:
+        fail(f"runtime {run} health: not quarantined within one refresh cadence of the fault (step {detect})")
+    if recover is None:
+        fail(f"runtime {run} health: not healthy again after the fault cleared")
+    if any(t["tail"] for t in gpu_steps):
+        fail(f"runtime {run} health: a GPU-only step put tail rows on the PIM side: "
+             f"{[t for t in gpu_steps if t['tail']]}")
+    if not all(t["gpu_only"] for t in traj if t["step"] in (41, 42, 43, 44, 45)) or by_cause["brownout"] < 4:
+        fail(f"runtime {run} brownout: stage 2 and 3 did not clamp the split to GPU-only")
+    if traj[-1]["gpu_only"] or not traj[-1]["healthy"]:
+        fail(f"runtime {run}: the run ended GPU-only or unhealthy")
+    shed_req, shed_ok = admitted[3]
+    clamp_req, clamp_ok = admitted[1]
+    if shed_ok or eng.stats.shed_requests != 1 or shed_req.generated:
+        fail(f"runtime {run} brownout: stage 3 did not shed the batch request")
+    if not clamp_ok or clamp_req.max_new_tokens != eng.brownout_batch_max_new \
+            or len(clamp_req.generated) != eng.brownout_batch_max_new:
+        fail(f"runtime {run} brownout: stage 1 did not clamp the batch request to "
+             f"{eng.brownout_batch_max_new} tokens")
+    _check_tokens(f"runtime {run} health", reqs + [clamp_req], arch.vocab_size)
+    if eng.n_captures != 1:
+        fail(f"runtime {run} health: {eng.n_captures} captures; one is required")
+    tail_rows_open = sum(t["tail"] for t in traj if not t["gpu_only"])
+    out = dict(window=[window.start, window.stop], detect_step=detect, recover_step=recover,
+               gpu_only_steps=by_cause, tail_rows_other=tail_rows_open,
+               shed=eng.stats.shed_requests, clamped_to=clamp_req.max_new_tokens, captures=eng.n_captures,
+               transitions=[(t.t, t.target, t.new) for t in eng.health.transitions], trajectory=traj)
+    log(f"runtime {run} health: sentinel 16x slower over steps {window.start}-{window.stop - 1}: quarantined "
+        f"at step {detect}, healthy at step {recover}; {len(gpu_steps)} GPU-only steps {by_cause} put "
+        f"no tail rows on the PIM side (other steps: {tail_rows_open} tail rows); brownout 2 and back, "
+        f"stage 3 shed {out['shed']}, stage 1 clamped a batch request to {out['clamped_to']} tokens; "
+        f"{eng.n_captures} capture throughout")
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _runtime_sampling(lm, params, batching, run: str) -> dict:
+    """Two engines with ``greedy=False, seed=7`` on the same requests."""
+    import torch
+
+    from repro_torch.serving import ServingEngine
+
+    tokens = []
+    for _ in range(2):
+        eng = ServingEngine(lm, params, batching, greedy=False, seed=7)
+        reqs = _serving_requests(lm.arch, 2, 3, prompt=(64, 65), new=(8, 9))
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_done()
+        _check_tokens(f"runtime {run} sampling", reqs, lm.arch.vocab_size)
+        tokens.append([r.generated for r in reqs])
+        del eng
+    if tokens[0] != tokens[1]:
+        fail(f"runtime {run}: two engines with greedy=False, seed=7 gave other tokens")
+    log(f"runtime {run} sampling: two engines with greedy=False, seed=7 gave the same "
+        f"{sum(map(len, tokens[0]))} tokens")
+    torch.cuda.empty_cache()
+    return dict(tokens=sum(map(len, tokens[0])), same=True)
+
+
+def _runtime_snapshot(lm, params, batching, run: str) -> dict:
+    """Snapshot a measured engine (deterministic probe times) mid-run; it
+    finishes, then is restored into its own captured graph and into a fresh
+    engine, and both must finish as it did, bit for bit."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.serving import ServingEngine
+    from repro_torch.telemetry import Telemetry
+
+    def probe_time(name, value, dt):  # pure in span name and value
+        return 1e-4 * (1 + 0.1 * (value - 1)) if name == "stage/tail_gemv" else 1e-4
+
+    def engine():
+        eng = ServingEngine(lm, params, batching, telemetry=Telemetry(), cost_source="measured",
+                            sieve_refresh_every=RUNTIME_REFRESH)
+        eng._probes.corrupt = probe_time
+        decode = eng._decode
+
+        def recorded(batch):
+            out = decode(batch)
+            eng.last_logits = out[0].float().cpu()
+            return out
+
+        eng._decode = recorded
+        return eng
+
+    def finish(eng):
+        eng.run_until_done()
+        return _finished_tokens(eng), eng.last_logits, [t.clone() for t in eng.cache["blocks"]]
+
+    def same(a, b):
+        return a[0] == b[0] and torch.equal(a[1], b[1]) and all(torch.equal(x, y) for x, y in zip(a[2], b[2]))
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_snap_") as snap_dir:
+        a = engine()
+        for r in _serving_requests(lm.arch, 3, 8, prompt=(128, 257), new=(20, 25)):
+            a.submit(r)
+        while a.stats.steps < 10:
+            a.step()
+        t0 = time.perf_counter()
+        path = a.snapshot(snap_dir)
+        save_s = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in Path(path).iterdir())
+        want = finish(a)
+        t0 = time.perf_counter()
+        a.restore(snap_dir)
+        restore_captured_s = time.perf_counter() - t0
+        again = finish(a)
+        b = engine()
+        t0 = time.perf_counter()
+        b.restore(snap_dir)
+        restore_fresh_s = time.perf_counter() - t0
+        fresh = finish(b)
+    if not same(again, want) or not same(fresh, want):
+        fail(f"runtime {run} snapshot: a restored engine did not continue bit for bit "
+             f"(captured {same(again, want)}, fresh {same(fresh, want)})")
+    if a.n_captures != 1 or b.n_captures != 1:
+        fail(f"runtime {run} snapshot: captures {a.n_captures} / {b.n_captures}; one each is required")
+    out = dict(bytes=size, save_s=save_s, restore_fresh_s=restore_fresh_s,
+               restore_captured_s=restore_captured_s, captures=[a.n_captures, b.n_captures], bitwise=True)
+    log(f"runtime {run} snapshot: {size / 1e9:.3f} GB at step 10, save {save_s:.2f} s, restore "
+        f"{restore_fresh_s:.2f} s into a fresh engine and {restore_captured_s:.2f} s into the captured one; "
+        "both continued with the same tokens, last logits and KV cache bit for bit, one capture each")
+    del a, b, want, again, fresh
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_runtime(lm, params, batching, path_kernels, kernels) -> dict:
+    run = "paged" if batching.paged else "dense"
+    kernel_ms = {k: v["ms"] for k, v in kernels.items()}
+    return dict(
+        measured=_runtime_measured(lm, params, batching, path_kernels, kernel_ms, run),
+        health=_runtime_health(lm, params, batching, run),
+        sampling=_runtime_sampling(lm, params, batching, run),
+        snapshot=_runtime_snapshot(lm, params, batching, run),
+    )
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> None:
@@ -1372,12 +1742,13 @@ def main() -> None:
         serve["dense"] = phase_serve(lm, params, BatchingConfig(n_slots=8, max_seq=1024),
                                      DENSE_FUSED_PATH)
         serve["dense"].update(phase_reference(lm, params, paged=False))
+        serve["dense"]["runtime"] = phase_runtime(lm, params, BatchingConfig(n_slots=8, max_seq=1024),
+                                                  DENSE_FUSED_PATH, kernels)
     with fused_swiglu("0"):
-        serve["paged"] = phase_serve(
-            lm, params, BatchingConfig(n_slots=8, max_seq=1024, paged=True, page_size=16),
-            PAGED_UNFUSED_PATH,
-        )
+        paged = BatchingConfig(n_slots=8, max_seq=1024, paged=True, page_size=16)
+        serve["paged"] = phase_serve(lm, params, paged, PAGED_UNFUSED_PATH)
         serve["paged"].update(phase_reference(lm, params, paged=True))
+        serve["paged"]["runtime"] = phase_runtime(lm, params, paged, PAGED_UNFUSED_PATH, kernels)
     serve["in_turns"] = phase_ab(lm, params)
 
     # each kernel's launches come from the run of its own path

@@ -1,13 +1,12 @@
 """Continuous batching over a fixed pool of KV slots, and the block
 allocator of the paged KV cache (port's copy of
-``repro.serving.batching``; ``PagedKVCache.state_dict`` waits for engine
-snapshots)."""
+``repro.serving.batching``)."""
 
 from __future__ import annotations
 
 from collections import deque
 from dataclasses import dataclass
-from typing import Deque, List, Optional
+from typing import Any, Deque, Dict, List, Optional
 
 import numpy as np
 
@@ -108,6 +107,35 @@ class PagedKVCache:
             self.free_blocks.append(b)
             self.block_table[slot, j] = self.TRASH
         self.slot_blocks[slot] = 0
+
+    # ---- snapshot (de)serialization ----------------------------------
+    def state_dict(self) -> Dict[str, Any]:
+        return {
+            "page": self.page,
+            "n_pool": self.n_pool,
+            "block_table": self.block_table.tolist(),
+            "owner": self.owner.tolist(),
+            "block_pos": self.block_pos.tolist(),
+            "free_blocks": list(self.free_blocks),
+            "slot_blocks": self.slot_blocks.tolist(),
+        }
+
+    def check_state(self, d: Dict[str, Any]) -> None:
+        """Raise unless ``d`` was saved from a pool of this geometry."""
+        if int(d["page"]) != self.page or int(d["n_pool"]) != self.n_pool:
+            raise ValueError(
+                "paged KV geometry mismatch: snapshot "
+                f"(page={d['page']}, n_pool={d['n_pool']}) vs engine "
+                f"(page={self.page}, n_pool={self.n_pool})"
+            )
+
+    def load_state_dict(self, d: Dict[str, Any]) -> None:
+        self.check_state(d)
+        self.block_table = np.asarray(d["block_table"], np.int32)
+        self.owner = np.asarray(d["owner"], np.int32)
+        self.block_pos = np.asarray(d["block_pos"], np.int32)
+        self.free_blocks = [int(b) for b in d["free_blocks"]]
+        self.slot_blocks = np.asarray(d["slot_blocks"], np.int32)
 
 
 class SlotScheduler:

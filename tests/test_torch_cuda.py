@@ -547,3 +547,115 @@ class TestCompiledDecodeStep:
         for k, n in eng._graph_launches.items():
             assert ops.LAUNCHES[k] == after_first[k] + 2 * n
         assert eng._graph_launches["decode_attention"] == arch.n_layers
+
+
+def _card_probe_time(slow: bool):
+    """A deterministic probe "measurement" (pure in span name and value), so
+    two engines on the card feed the same cost tables; ``slow``: every tail
+    probe 16x slower (a PIM brownout)."""
+
+    def hook(name, value, dt):
+        if name == "stage/tail_gemv":
+            return 1e-4 * (1 + 0.1 * (value - 1)) * (16 if slow else 1)
+        return 1e-4
+
+    return hook
+
+
+_FAULT_STEPS = range(4, 10)  # the tail brownout
+_BROWNOUT = {12: 2, 15: 0}  # step -> stage
+_SNAP_AT, _RESTORE_AT = 8, 11
+_RUNTIME_NEW_TOKENS = (6, 20, 12)  # three requests on two slots: about 20 steps
+
+
+@pytest.mark.cuda
+class TestRuntimeLoop:
+    @pytest.mark.parametrize("path", ["dense_fused", "paged_three_call"])
+    def test_fault_brownout_and_restore_keep_one_capture(self, cuda, monkeypatch, tmp_path, path):
+        """Two measured engines on the 2-layer full-width slice run the same
+        script: a tail brownout over steps 4-9 (quarantine, a GPU-only
+        split, recovery), brownout stage 2 at step 12 and back at 15.  The
+        second one snapshots at step 8, runs on to step 11 and restores the
+        snapshot into its captured graph, then finishes: from step 8 on its
+        logits equal the uninterrupted twin's bit for bit, and so do the
+        final KV caches and tokens.  Each engine captured one graph, and the
+        probes launched the path's head, tail and attention kernels."""
+        from repro_torch.models import LM
+        from repro_torch.serving import BatchingConfig, Request, ServingEngine
+        from repro_torch.telemetry import Telemetry
+
+        monkeypatch.setenv("REPRO_FUSED_SWIGLU", "1" if path == "dense_fused" else "0")
+        kernels = {"dense_fused": ("swiglu_gmm_capacity", "swiglu_gemv", "decode_attention"),
+                   "paged_three_call": ("gmm_capacity", "expert_gemv", "decode_attention_paged")}[path]
+        arch = _full_width_slice()
+        lm = LM(arch, dtype=BF, device="cuda")
+        params = lm.init(seed=0)
+        batching = BatchingConfig(n_slots=2, max_seq=128, paged=path == "paged_three_call", page_size=16)
+        engines = [ServingEngine(lm, params, batching, sieve_refresh_every=2, cost_source="measured",
+                                 telemetry=Telemetry(clock=lambda: 0)) for _ in range(2)]
+        logits = [[], []]  # (step, logits) per decode call
+        probe_launches = {k: 0 for k in ops.LAUNCHES}
+        for i, eng in enumerate(engines):
+            decode, run_probes = eng._decode, eng._run_probes
+
+            def recorded(batch, i=i, eng=eng, decode=decode):
+                out = decode(batch)
+                logits[i].append((eng.stats.steps, out[0].float().cpu()))
+                return out
+
+            def counted(run_probes=run_probes):
+                before = dict(ops.LAUNCHES)
+                run_probes()
+                for k in probe_launches:
+                    probe_launches[k] += ops.LAUNCHES[k] - before[k]
+
+            eng._decode, eng._run_probes = recorded, counted
+            for n, m in zip((30, 17, 45), _RUNTIME_NEW_TOKENS):
+                prompt = torch.randint(0, arch.vocab_size, (n,), generator=torch.Generator().manual_seed(n))
+                eng.submit(Request(prompt=prompt.tolist(), max_new_tokens=m))
+        trajectory = [[], []]
+
+        def scripted_step(i):
+            eng = engines[i]
+            k = eng.stats.steps
+            eng._probes.corrupt = _card_probe_time(k in _FAULT_STEPS)
+            if k in _BROWNOUT:
+                eng.set_brownout_stage(_BROWNOUT[k])
+            eng.step()
+            trajectory[i].append((k, eng.pim_healthy, eng._sieve_gpu_only))
+
+        while not engines[0].sched.idle:
+            scripted_step(0)
+        twin, eng = engines
+        while eng.stats.steps < _RESTORE_AT:
+            scripted_step(1)
+            if eng.stats.steps == _SNAP_AT:
+                eng.snapshot(str(tmp_path))
+        assert eng._graph is not None and eng.restore(str(tmp_path)) == _SNAP_AT
+        restored_at = len(logits[1])
+        while not eng.sched.idle:
+            scripted_step(1)
+
+        healthy = {k: h for k, h, _ in trajectory[0]}
+        gpu_only = {k for k, _, g in trajectory[0] if g}
+        last = max(healthy)
+        assert not all(healthy[k] for k in _FAULT_STEPS) and healthy[last]
+        assert set(range(12, 15)) <= gpu_only and last >= 16 and last not in gpu_only
+        assert trajectory[1][_RESTORE_AT:] == trajectory[0][_SNAP_AT:]
+        want = [(k, x) for k, x in logits[0] if k >= _SNAP_AT]
+        got = logits[1][restored_at:]
+        assert [k for k, _ in got] == [k for k, _ in want]
+        assert all(torch.equal(x, y) for (_, x), (_, y) in zip(got, want))
+        for a, b in zip(twin.cache["blocks"], eng.cache["blocks"]):
+            assert torch.equal(a, b)
+
+        def tokens(e):
+            return [r.generated for r in sorted(e.sched.finished, key=lambda r: r.req_id)]
+
+        assert tokens(eng) == tokens(twin) and [len(g) for g in tokens(twin)] == list(_RUNTIME_NEW_TOKENS)
+        assert twin.n_captures == eng.n_captures == 1
+        assert all(probe_launches[k] > 0 for k in kernels), probe_launches
+        assert all(n == 0 for k, n in probe_launches.items() if k not in kernels), probe_launches
+        print(f"\n{path}: fault at steps 4-9 GPU-only at {sorted(gpu_only)}; restored at step "
+              f"{_RESTORE_AT} to {_SNAP_AT}, {len(got)} decode steps bitwise equal to the twin; "
+              f"probe launches {probe_launches}")

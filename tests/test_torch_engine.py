@@ -150,22 +150,23 @@ def test_kv_cache_updated_in_place():
 
 
 def test_unported_features_raise():
+    """What the port refuses raises loudly; the runtime loop, once refused
+    here, is ported: a measured engine, brownout and snapshots work, and
+    bad arguments raise as in the JAX engine."""
     tlm = TLM(proxy_arch(tget), dtype=torch.float32, device="cpu")
     p = tlm.init(seed=0)
-    with pytest.raises(NotImplementedError):
-        ServingEngine(tlm, p, BatchingConfig(n_slots=2, max_seq=16), cost_source="measured")
+    with pytest.raises(ValueError, match="cost_source"):
+        ServingEngine(tlm, p, BatchingConfig(n_slots=2, max_seq=16), cost_source="bogus")
     # the paged KV cache is ported: it builds and serves a request
     paged = ServingEngine(tlm, p, BatchingConfig(n_slots=2, max_seq=16, paged=True, page_size=4))
     paged.submit(Request(prompt=[1, 2, 3, 4, 5], max_new_tokens=3))
     (done,) = paged.run_until_done()
     assert len(done.generated) == 3 and paged.paged.n_free == paged.paged.n_pool - 1
-    for kw in ({"telemetry": object()}, {"health": object()}):
-        with pytest.raises(NotImplementedError):
-            ServingEngine(tlm, p, BatchingConfig(n_slots=2, max_seq=16), **kw)
-    eng = ServingEngine(tlm, p, BatchingConfig(n_slots=2, max_seq=16))
-    for call in (lambda: eng.set_brownout_stage(2), lambda: eng.snapshot("x"), lambda: eng.restore("x")):
-        with pytest.raises(NotImplementedError):
-            call()
+    eng = ServingEngine(tlm, p, BatchingConfig(n_slots=2, max_seq=16), cost_source="measured")
+    eng.set_brownout_stage(2)
+    assert eng._sieve_gpu_only
+    with pytest.raises(FileNotFoundError):
+        eng.restore("no-such-snapshot-dir")
     with pytest.raises(ValueError, match="max_seq"):
         eng.submit(Request(prompt=[1] * 17))
 

@@ -1,5 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or anything of the JAX package ``repro``."""
+``chip_smoke.py`` imports JAX or anything of the JAX package ``repro``, nor
+``msgpack`` or ``ml_dtypes`` (the JAX package's snapshot codec needs them;
+the machine with the card has neither)."""
 
 import ast
 from pathlib import Path
@@ -12,7 +14,7 @@ pin_threads()
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack", "ml_dtypes")
 
 
 def _imported_roots(path: Path):
@@ -33,4 +35,5 @@ def test_no_jax_or_repro_imports(path):
 
 def test_the_check_sees_the_whole_port():
     names = {p.name for p in PORT_FILES}
-    assert {"engine.py", "moe.py", "ops.py", "scheduler_torch.py", "chip_smoke.py"} <= names
+    assert {"engine.py", "moe.py", "ops.py", "scheduler_torch.py", "chip_smoke.py", "codec.py",
+            "snapshot.py", "probes.py", "health.py", "timing_feed.py"} <= names
