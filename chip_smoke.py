@@ -8,8 +8,9 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each fatal on failure:
 
 1. device: requires CUDA and prints the card's name and power limit;
-2. build: compiles the seven CUDA kernels from ``src/repro_torch/kernels/csrc``
-   with nvcc (one process per source, all at once) and prints the time;
+2. build: compiles the seven CUDA kernel libraries from
+   ``src/repro_torch/kernels/csrc`` with nvcc (one process per source, all
+   at once) and prints the time;
 3. kernels: holds each kernel against its plain PyTorch version on the card
    at the main path's shapes plus edge cases (bf16 tolerance rtol = atol =
    2e-2; exact zeros on dead rows and length-0 rows; empty KV splits; trash
@@ -23,12 +24,21 @@ Phases, each fatal on failure:
    with CUDA events (median and min-max of 20 launches; the head at its
    prefill shape too), and each wrapper's host time per call.  The split-KV
    kernel has no model caller: its path is its entry point, driven once
-   per layer of a decode step with the counts zeroed.  With
+   per layer of a decode step with the counts zeroed.  Then the rows
+   beyond qwen3-moe's shapes, each held and timed the same way: dense,
+   split-KV and paged attention at granite-3-2b's decode shape (the dh-64
+   instance), at zamba2-7b's shared-attention shape (the dh-112
+   instance) and with a 32-head query group at dh 128 (the last two on
+   their entry points), and
+   ``gmm_ragged`` at the decode gate call's routing; the rows without a
+   model caller are driven as one decode step would drive them.  The
+   attention kernels are also held (not timed) at the decode shape of each
+   family that phase 6 serves, on each KV layout it is served on.  With
    ``--parent-csrc DIR`` (the parent commit's
    ``src/repro_torch/kernels/csrc``, unpacked) it also builds the parent's
-   dense and split-KV attention, times them in turns beside the new ones
-   on the same inputs, and requires the dense kernel's output to equal the
-   parent's bit for bit;
+   dense, split-KV and paged attention, times them in turns beside the new
+   ones on the same inputs, and requires the outputs of all three to equal
+   the parent's bit for bit at dh 128;
 4. serving: builds qwen3-moe-30b-a3b at full width and depth in bf16 with
    seeded random weights and serves the same 12 requests twice through
    ``ServingEngine``: a dense KV cache with the fused SwiGLU kernels, then
@@ -63,7 +73,20 @@ Phases, each fatal on failure:
    ``greedy=False, seed=7`` must give the same tokens.  Last, an engine
    snapshotted mid-run and restored into a fresh engine and into its own
    captured graph must continue with the same tokens, last logits and KV
-   cache bit for bit, with one capture each.
+   cache bit for bit, with one capture each;
+6. families: qwen3-moe's weights are freed, then the dense and VLM
+   families are built at full width with seeded random weights and each
+   serves 12 seeded requests as phase 4 does (one capture, every later
+   decode step replayed, all tokens, one attention launch per layer and
+   decode step and no other kernel): granite-3-2b (40 layers, dh 64) on
+   the dense KV cache and on the paged pool, qwen1.5-0.5b (24 layers, dh
+   64, MHA, QKV bias), qwen2-vl-7b (28 layers, M-RoPE positions at prefill
+   and decode), and two-layer slices of granite-3-8b and
+   deepseek-coder-33b; the full-depth runs are profiled as phase 4's
+   are.  Each run's 2-layer slice agrees with the CPU plain
+   path under the phase-4 rule (qwen2-vl-7b's on the vision-patch stub with
+   distinct t/h/w positions), and qwen2-vl-7b prefills 256 stub
+   embeddings at full depth.
 
 It prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -74,6 +97,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import gc
 import json
 import os
 import subprocess
@@ -102,6 +127,8 @@ SOURCES = {
                                "src/repro/kernels/decode_attention.py:338"),
     "gmm_capacity": ("src/repro_torch/kernels/csrc/grouped_gemm.cu",
                      "src/repro/kernels/grouped_gemm.py:85"),
+    # the same pallas_call through the ragged layout's wrapper
+    "gmm_ragged": ("src/repro_torch/kernels/csrc/grouped_gemm.cu", "src/repro/kernels/ops.py:130"),
     "expert_gemv": ("src/repro_torch/kernels/csrc/expert_gemv.cu",
                     "src/repro/kernels/expert_gemv.py:64"),
 }
@@ -236,11 +263,11 @@ def in_turns(parent_fn, new_fn, flush_by: str = "write") -> dict:
 
 
 def load_parent(csrc: Path) -> dict:
-    """The parent commit's dense and split-KV decode attention, built from
-    its ``csrc`` directory (an unpacked ``git archive`` of the parent) with
-    the port's nvcc flags into a temporary directory, and bound under the
-    parent's C interface (as of commit 9511965): launch functions by kernel
-    name, plus the dense kernel's split count."""
+    """The parent commit's dense, split-KV and paged decode attention,
+    built from its ``csrc`` directory (an unpacked ``git archive`` of the
+    parent) with the port's nvcc flags into a temporary directory, and
+    bound under the parent's C interface (as of commit 91c1063): launch
+    functions by kernel name, plus the split count of each."""
     import ctypes
     import tempfile
 
@@ -248,9 +275,12 @@ def load_parent(csrc: Path) -> dict:
 
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     argtypes = {
+        # q, k, v, lengths, part, lse, tickets, out, B, T, Kv, G, dh, scale, stream
         "decode_attention": [P] * 8 + [I] * 5 + [F, P],
-        # q, k, v, lengths, part, lse, out, B, T, Kv, G, dh, S, span, scale, stream
-        "decode_attention_split": [P] * 7 + [I] * 7 + [F, P],
+        "decode_attention_split": [P] * 8 + [I] * 5 + [F, P],
+        # q, pool_k, pool_v, tables, lengths, part, lse, tickets, out, B, n_pool,
+        # page, Kv, G, dh, max_blocks, scale, stream
+        "decode_attention_paged": [P] * 9 + [I] * 7 + [F, P],
     }
     tmp = tempfile.TemporaryDirectory(prefix="parent_kernels_")
     procs = {
@@ -268,25 +298,30 @@ def load_parent(csrc: Path) -> dict:
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes[name], ctypes.c_int
         fns[name] = fn
-        if name == "decode_attention":
-            lib.decode_attention_splits.argtypes, lib.decode_attention_splits.restype = [I], ctypes.c_int
-            fns["decode_attention_splits"] = lib.decode_attention_splits
+        lib.decode_attention_splits.argtypes, lib.decode_attention_splits.restype = [I], ctypes.c_int
+        fns[f"{name}_splits"] = lib.decode_attention_splits
     log(f"parent kernels built from {csrc}")
     return fns
 
 
-def _kernels_per_call(call) -> list:
+def _kernels_per_call(call, traces: int = 3) -> list:
     """The device kernels one ``call`` runs, by name, from a
-    ``torch.profiler`` trace of that call alone."""
+    ``torch.profiler`` trace of that call alone.  A trace that recorded no
+    device event at all (the profiler missed the device, as it did once in
+    six runs on the card) is taken again, up to ``traces`` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     call()  # built and initialised outside the trace
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")]
+        if names:
+            break
+        log("kernels per call: the profiler recorded no device event; tracing again")
     return sorted(n.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
                   .split("::")[-1] for n in names)
 
@@ -559,19 +594,36 @@ def phase_kernels(arch, parent=None) -> dict:
     G = H // Kv
     stream = torch.cuda.current_stream().cuda_stream
     if parent is not None:
-        parent_tickets = torch.zeros((B * Kv,), dtype=torch.int32, device=dev)
+        parent_tickets = {k: torch.zeros((B * Kv,), dtype=torch.int32, device=dev)
+                          for k in ("decode_attention", "decode_attention_split", "decode_attention_paged")}
 
-        def parent_attn(q, ck, cv, L):
+        def parent_scratch(name, T):
+            S = parent[f"{name}_splits"](T)
+            return (torch.empty((B * Kv, S, G, dh), dtype=torch.float32, device=dev),
+                    torch.empty((B * Kv, S, G), dtype=torch.float32, device=dev))
+
+        def parent_attn(q, ck, cv, L, name="decode_attention"):
             T = ck.shape[1]
-            S = parent["decode_attention_splits"](T)
-            part = torch.empty((B * Kv, S, G, dh), dtype=torch.float32, device=dev)
-            lse = torch.empty((B * Kv, S, G), dtype=torch.float32, device=dev)
+            part, lse = parent_scratch(name, T)
             out = torch.empty_like(q)
-            rc = parent["decode_attention"](q.data_ptr(), ck.data_ptr(), cv.data_ptr(), L.data_ptr(),
-                                            part.data_ptr(), lse.data_ptr(), parent_tickets.data_ptr(),
-                                            out.data_ptr(), B, T, Kv, G, dh, 1.0 / dh**0.5, stream)
+            rc = parent[name](q.data_ptr(), ck.data_ptr(), cv.data_ptr(), L.data_ptr(),
+                              part.data_ptr(), lse.data_ptr(), parent_tickets[name].data_ptr(),
+                              out.data_ptr(), B, T, Kv, G, dh, 1.0 / dh**0.5, stream)
             if rc != 0:
-                fail(f"parent decode_attention failed to launch ({rc})")
+                fail(f"parent {name} failed to launch ({rc})")
+            return out
+
+        def parent_paged(q, pk, pv, tab, L):
+            n_pool, pg = pk.shape[:2]
+            nb = tab.shape[1]
+            part, lse = parent_scratch("decode_attention_paged", nb * pg)
+            out = torch.empty_like(q)
+            rc = parent["decode_attention_paged"](
+                q.data_ptr(), pk.data_ptr(), pv.data_ptr(), tab.data_ptr(), L.data_ptr(), part.data_ptr(),
+                lse.data_ptr(), parent_tickets["decode_attention_paged"].data_ptr(), out.data_ptr(), B,
+                n_pool, pg, Kv, G, dh, nb, 1.0 / dh**0.5, stream)
+            if rc != 0:
+                fail(f"parent decode_attention_paged failed to launch ({rc})")
             return out
 
     rng = np.random.default_rng(3)
@@ -590,7 +642,7 @@ def phase_kernels(arch, parent=None) -> dict:
         errs.append(_repeat_compare(f"decode_attention T={T} lengths {lens.tolist()}",
                                     lambda: ops.decode_attention(q, ck, cv, L), want,
                                     zero_rows=L == 0))
-        # the dense kernel's loop moved into decode_split.cuh: same bits as the parent's
+        # the dh-128 instance of the templated loop: the same bits as the parent's
         if parent is not None and not torch.equal(parent_attn(q, ck, cv, L),
                                                   ops.decode_attention(q, ck, cv, L)):
             fail(f"decode_attention T={T} lengths {lens.tolist()}: not bitwise equal to the parent's")
@@ -647,6 +699,10 @@ def phase_kernels(arch, parent=None) -> dict:
         errs.append(_repeat_compare(f"decode_attention_split T={T} S={n_splits} lengths {lens_e.tolist()}",
                                     lambda: ops.decode_attention(qe, cke, cve, Le, n_splits=n_splits),
                                     want, zero_rows=Le == 0))
+        if parent is not None and not torch.equal(
+                parent_attn(qe, cke, cve, Le, "decode_attention_split"),
+                ops.decode_attention(qe, cke, cve, Le, n_splits=n_splits)):
+            fail(f"decode_attention_split T={T} lengths {lens_e.tolist()}: not bitwise equal to the parent's")
     results["decode_attention_split"] = dict(
         max_abs_err=max(errs),
         host_us=host_us(lambda: ops.decode_attention(q, ck, cv, L, n_splits=SPLIT_KV_SPLITS)),
@@ -657,31 +713,16 @@ def phase_kernels(arch, parent=None) -> dict:
         shape=f"as decode_attention, n_splits={SPLIT_KV_SPLITS}",
     )
     if parent is not None:
-        def parent_split():
-            # the parent's two launches over S ranges of T, partials per call
-            S, span = ref.split_span(max_seq, SPLIT_KV_SPLITS)
-            part = torch.empty((B, Kv, S, G, dh), dtype=torch.float32, device=dev)
-            lse = torch.empty((B, Kv, S, G), dtype=torch.float32, device=dev)
-            out = torch.empty_like(q)
-            rc = parent["decode_attention_split"](q.data_ptr(), ck.data_ptr(), cv.data_ptr(), L.data_ptr(),
-                                                  part.data_ptr(), lse.data_ptr(), out.data_ptr(), B,
-                                                  max_seq, Kv, G, dh, S, span, 1.0 / dh**0.5, stream)
-            if rc != 0:
-                fail(f"parent decode_attention_split failed to launch ({rc})")
-            return out
-
-        _compare("parent decode_attention_split", parent_split(),
-                 ref.decode_attention_split_ref(q, ck, cv, L, SPLIT_KV_SPLITS))
         results["decode_attention_split"]["parent"] = dict(
-            serving=in_turns(parent_split, lambda: ops.decode_attention(q, ck, cv, L, n_splits=SPLIT_KV_SPLITS)),
+            serving=in_turns(lambda: parent_attn(q, ck, cv, L, "decode_attention_split"),
+                             lambda: ops.decode_attention(q, ck, cv, L, n_splits=SPLIT_KV_SPLITS)),
+            bitwise_equal=True,
         )
     # its path: the kernel entry point (no model caller), driven once per
-    # layer of a decode step at the serving shape, counts zeroed just before
-    ops.reset_launches()
-    for _ in range(arch.n_layers):
-        ops.decode_attention(q, ck, cv, L, n_splits=SPLIT_KV_SPLITS)
-    torch.cuda.synchronize()
-    results["decode_attention_split"]["path_launches"] = ops.LAUNCHES["decode_attention_split"]
+    # layer of a decode step at the serving shape
+    results["decode_attention_split"]["path_launches"] = _entry_point_launches(
+        lambda: ops.decode_attention(q, ck, cv, L, n_splits=SPLIT_KV_SPLITS), arch.n_layers,
+    )["decode_attention_split"]
 
     # ---- kernel 5: paged decode attention ----
     # split over each live length through the block table: each case three
@@ -740,6 +781,8 @@ def phase_kernels(arch, parent=None) -> dict:
         errs.append(_repeat_compare(f"decode_attention_paged page={pg} ({what})",
                                     lambda: ops.decode_attention_paged(*args), want,
                                     zero_rows=args[4] == 0))
+        if parent is not None and not torch.equal(parent_paged(*args), ops.decode_attention_paged(*args)):
+            fail(f"decode_attention_paged page={pg} ({what}): not bitwise equal to the parent's")
     pk, pv = rnd((n_pool, page, Kv, dh)), rnd((n_pool, page, Kv, dh))
     perm = torch.randperm(n_pool - 1, generator=gen, device=dev).add(1)
     blocks = [-(-int(n) // page) for n in lens]
@@ -766,18 +809,17 @@ def phase_kernels(arch, parent=None) -> dict:
         shape=f"q ({B},{H},{dh}), pool ({n_pool},{page},{Kv},{dh}), tables ({B},{max_blocks}), "
               f"lengths {lens.tolist()}",
     )
+    if parent is not None:
+        results["decode_attention_paged"]["parent"] = dict(
+            serving=in_turns(lambda: parent_paged(q, pk, pv, tab, L),
+                             lambda: ops.decode_attention_paged(q, pk, pv, tab, L)),
+            bitwise_equal=True,
+        )
     small = rnd((B, H * dh))
     log(f"host time of one small PyTorch op (SiLU of a ({B},{H * dh}) tensor): "
         f"{host_us(lambda: F.silu(small)):.1f} us/call")
     for name, r in results.items():
-        r["bound_ms"] = max(r["bytes"] / PEAK_HBM_BYTES, r["flops"] / PEAK_BF16_FLOPS) * 1e3
-        r["bound_by"] = "bytes" if r["bytes"] / PEAK_HBM_BYTES >= r["flops"] / PEAK_BF16_FLOPS else "operations"
-        sp = r["ms_spread"]
-        log(f"kernel {name}: max|err| {r['max_abs_err']:.3g}  kernel {r['ms']:.4f} ms "
-            f"(median of {sp['n']}, {sp['min']:.4f}-{sp['max']:.4f})  "
-            f"plain {r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
-            f"host {r['host_us']:.1f} us/call  "
-            f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})  [{r['shape']}]")
+        _log_row(name, r)
     r = results["swiglu_gmm_capacity"]
     log(f"kernel swiglu_gmm_capacity prefill [{r['prefill_shape']}]: {r['prefill_ms']:.4f} ms "
         f"({r['prefill_ms_spread']['min']:.4f}-{r['prefill_ms_spread']['max']:.4f}), "
@@ -795,6 +837,253 @@ def phase_kernels(arch, parent=None) -> dict:
                     f"({t['new']['min']:.4f}-{t['new']['max']:.4f}), new/parent {t['new_over_parent']:.3f}")
     torch.cuda.empty_cache()
     return results
+
+
+def _log_row(name: str, r: dict) -> None:
+    """Set a kernel row's bound from its bytes and flops, and print it."""
+    r["bound_ms"] = max(r["bytes"] / PEAK_HBM_BYTES, r["flops"] / PEAK_BF16_FLOPS) * 1e3
+    r["bound_by"] = "bytes" if r["bytes"] / PEAK_HBM_BYTES >= r["flops"] / PEAK_BF16_FLOPS else "operations"
+    sp = r["ms_spread"]
+    lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+    log(f"kernel {name}: max|err| {r['max_abs_err']:.3g}  kernel {r['ms']:.4f} ms "
+        f"(median of {sp['n']}, {sp['min']:.4f}-{sp['max']:.4f})  "
+        f"plain {r['plain_ms']:.4f} ms  library {lib}  "
+        f"host {r['host_us']:.1f} us/call  "
+        f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})  [{r['shape']}]")
+
+
+def _entry_point_launches(call, n: int) -> int:
+    """A kernel with no model caller: its path is its entry point, driven
+    ``n`` times with the counts zeroed just before; its launches."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    for _ in range(n):
+        call()
+    torch.cuda.synchronize()
+    return dict(ops.LAUNCHES)
+
+
+def _attention_instance(tag: str, B: int, H: int, Kv: int, dh: int, kinds, seed: int,
+                        timed: bool = True) -> dict:
+    """Rows of the attention kernels at one head dim and group size: each
+    of ``kinds`` ("dense", "split", "paged") held against its plain version
+    at the serving lengths and at edge lengths (three launches on the same
+    buffers, bitwise equal, exact zeros on length-0 rows), then timed
+    beside the plain version and SDPA (over the gathered pool for paged).
+    ``timed=False``: held only, each kernel's row its largest error."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    G, T, page = H // Kv, 1024, 16
+    max_blocks, n_pool = T // page, B * (T // page) + 1
+
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    rng = np.random.default_rng(seed)
+    serving = rng.integers(129, 545, B)
+    edges = np.r_[0, 1, 63, 64, 65, T, T - 1, 500][:B]
+    q = rnd((B, H, dh))
+    ck, cv = rnd((B, T, Kv, dh)), rnd((B, T, Kv, dh))
+    pk, pv = rnd((n_pool, page, Kv, dh)), rnd((n_pool, page, Kv, dh))
+
+    def table(lens):
+        tab = torch.zeros((B, max_blocks), dtype=torch.int32, device=dev)
+        perm = torch.randperm(n_pool - 1, generator=gen, device=dev).add(1).to(torch.int32)
+        nxt = 0
+        for b, n in enumerate(lens):
+            k = -(-int(n) // page)
+            tab[b, :k] = perm[nxt:nxt + k]
+            nxt += k
+        return tab
+
+    calls = {
+        "dense": (lambda L, tab: ops.decode_attention(q, ck, cv, L),
+                  lambda L, tab: ref.decode_attention_ref(q, ck, cv, L)),
+        "split": (lambda L, tab: ops.decode_attention(q, ck, cv, L, n_splits=SPLIT_KV_SPLITS),
+                  lambda L, tab: ref.decode_attention_split_ref(q, ck, cv, L, SPLIT_KV_SPLITS)),
+        "paged": (lambda L, tab: ops.decode_attention_paged(q, pk, pv, tab, L),
+                  lambda L, tab: ref.decode_attention_paged_ref(q, pk, pv, tab, L)),
+    }
+    name_of = {"dense": "decode_attention", "split": "decode_attention_split", "paged": "decode_attention_paged"}
+    L = torch.as_tensor(serving, dtype=torch.int32, device=dev)
+    tab = table(serving)
+    mask = (torch.arange(T, device=dev)[None, :] < L[:, None])[:, None, None, :]
+
+    def sdpa(k, v):  # the G query heads of a kv head are G query rows of one SDPA head
+        return F.scaled_dot_product_attention(q.view(B, Kv, G, dh), k.transpose(1, 2), v.transpose(1, 2),
+                                              attn_mask=mask)
+
+    library = {
+        "dense": lambda: sdpa(ck, cv),
+        "split": lambda: sdpa(ck, cv),
+        "paged": lambda: sdpa(pk[tab.long()].reshape(B, T, Kv, dh), pv[tab.long()].reshape(B, T, Kv, dh)),
+    }
+    lens_sum = int(serving.sum())
+    attn_bytes = lens_sum * Kv * dh * 2 * 2 + 2 * B * H * dh * 2 + B * 4
+    out = {}
+    for kind in kinds:
+        call, plain = calls[kind]
+        errs = []
+        for what, lens in (("serving", serving), ("edges", edges)):
+            Le = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+            te = table(lens)
+            errs.append(_repeat_compare(f"{name_of[kind]} {tag} ({what} lengths {lens.tolist()})",
+                                        lambda: call(Le, te), plain(Le, te), zero_rows=Le == 0))
+        if not timed:
+            out[f"{name_of[kind]}_{tag}"] = max(errs)
+            continue
+        blocks = int(sum(-(-int(n) // page) for n in serving)) if kind == "paged" else 0
+        out[f"{name_of[kind]}_{tag}"] = dict(
+            kernel=name_of[kind],
+            max_abs_err=max(errs),
+            host_us=host_us(lambda: call(L, tab)),
+            **timings(ms=lambda: call(L, tab), plain_ms=lambda: plain(L, tab), library_ms=library[kind]),
+            bytes=attn_bytes + blocks * 4, flops=4 * lens_sum * H * dh,
+            shape=f"q ({B},{H},{dh}), " + (f"pool ({n_pool},{page},{Kv},{dh})" if kind == "paged"
+                                          else f"cache ({B},{T},{Kv},{dh})")
+                  + (f", n_splits={SPLIT_KV_SPLITS}" if kind == "split" else "")
+                  + f", lengths {serving.tolist()}",
+            entry=lambda c=call: c(L, tab),
+        )
+    return out
+
+
+def _ragged_row(arch) -> dict:
+    """gmm_ragged at the decode gate call's routing (the head split of
+    ``_decode_routing``: groups of two or more rows, bm 8), held against
+    its plain version (three launches bitwise, exact zeros on padding rows;
+    plus a prefill-like case with bm 128 and rows past the spans) and
+    timed beside the plain version and ``torch._grouped_mm`` where it runs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    E, K, N = arch.moe.n_experts, arch.d_model, arch.moe.d_expert
+    counts = _decode_routing(E, arch.moe.top_k, 8, seed=1)
+    head = np.where(counts >= 2, counts, 0)
+
+    def case(sizes, bm, extra_tiles=0):
+        spans = -(-sizes // bm) * bm
+        M = int(spans.sum()) + extra_tiles * bm
+        live = torch.zeros((M,), dtype=torch.bool, device=dev)
+        for s0, n in zip(np.cumsum(spans) - spans, sizes):
+            live[int(s0):int(s0) + int(n)] = True
+        # dispatch zero-fills the padding rows: one grouped library product
+        # over the spans then computes the same function
+        lhs = (torch.randn((M, K), generator=gen, device=dev) * live[:, None]).to(torch.bfloat16)
+        gs = torch.as_tensor(sizes, dtype=torch.int32, device=dev)
+        return lhs, gs, ~live, spans
+
+    rhs = (torch.randn((E, K, N), generator=gen, device=dev) * K**-0.5).to(torch.bfloat16)
+    errs = []
+    for what, sizes, bm, extra in (("decode gate call", head, 8, 0),
+                                   ("prefill-like", np.random.default_rng(5).integers(0, 41, E) * 3, 128, 2)):
+        lhs, gs, dead, _ = case(sizes, bm, extra)
+        errs.append(_repeat_compare(f"gmm_ragged {what}, bm {bm}", lambda: ops.gmm_ragged(lhs, rhs, gs, bm),
+                                    ref.gmm_ragged_ref(lhs, rhs, gs, bm), zero_rows=dead))
+    lhs, gs, _, spans = case(head, 8)
+    offs = torch.as_tensor(np.cumsum(spans), dtype=torch.int32, device=dev)
+    library, note = None, "torch._grouped_mm over the spans"
+    grouped_mm = getattr(torch, "_grouped_mm", None)
+    try:
+        if grouped_mm is None:
+            raise RuntimeError("torch has no _grouped_mm")
+        _compare("torch._grouped_mm", grouped_mm(lhs, rhs, offs=offs), ref.gmm_ragged_ref(lhs, rhs, gs, 8))
+        library = lambda: grouped_mm(lhs, rhs, offs=offs)  # noqa: E731
+    except Exception as e:  # the library call is a yardstick only: null where it does not run
+        note = f"no library time: torch._grouped_mm did not run here ({type(e).__name__}: {str(e)[:160]})"
+        log(f"gmm_ragged: {note}")
+    live_rows, n_live = int(head.sum()), int((head > 0).sum())
+    M = lhs.shape[0]
+    row = dict(
+        max_abs_err=max(errs),
+        host_us=host_us(lambda: ops.gmm_ragged(lhs, rhs, gs, 8)),
+        **timings(ms=lambda: ops.gmm_ragged(lhs, rhs, gs, 8), plain_ms=lambda: ref.gmm_ragged_ref(lhs, rhs, gs, 8)),
+        library_note=note,
+        bytes=n_live * K * N * 2 + live_rows * K * 2 + M * N * 2 + E * 4,
+        flops=2 * live_rows * K * N,
+        shape=f"lhs ({M},{K}) x ({E},{K},{N}), bm 8, {n_live} live groups, {live_rows} live rows",
+        entry=lambda: ops.gmm_ragged(lhs, rhs, gs, 8),
+    )
+    if library is not None:
+        row.update({k.replace("ms", "library_ms", 1): v for k, v in timings(ms=library).items()})
+    else:
+        row["library_ms"] = None
+    return {"gmm_ragged": row}
+
+
+def phase_kernel_instances(arch) -> dict:
+    """Phase 3's rows beyond the qwen3-moe path's kernels: the attention
+    kernels (dense, split-KV, paged) at granite-3-2b's decode shape (dh
+    64, 4 query heads per kv head), at zamba2-7b's shared-attention shape
+    (the dh-112 instance, 32 heads on 32 kv heads) and with a 32-head
+    group at dh 128 (two head groups of the grid), the last two on their
+    entry points, and gmm_ragged.  The entry-point-only rows are then driven as one decode
+    step would drive them, counts zeroed just before."""
+    import torch
+
+    rows = {}
+    rows.update(_attention_instance("dh64", 8, 32, 8, 64, ("dense", "split", "paged"), seed=64))
+    rows.update(_attention_instance("dh112", 8, 32, 32, 112, ("dense", "split", "paged"), seed=112))
+    rows.update(_attention_instance("g32", 8, 32, 1, 128, ("dense", "split", "paged"), seed=32))
+    rows.update(_ragged_row(arch))
+    # (row, launches of one decode step): the split-KV kernel per layer of
+    # granite-3-2b (40), zamba2-7b's 13 shared-attention applications, the
+    # 32-head group per layer of granite-3-8b (40, its width: 32 heads of
+    # 128), gmm_ragged per layer of qwen3-moe (48)
+    for name, n, counter in (("decode_attention_split_dh64", 40, "decode_attention_split"),
+                             ("decode_attention_dh112", 13, "decode_attention"),
+                             ("decode_attention_split_dh112", 13, "decode_attention_split"),
+                             ("decode_attention_paged_dh112", 13, "decode_attention_paged"),
+                             ("decode_attention_split_g32", 40, "decode_attention_split"),
+                             ("decode_attention_paged_g32", 40, "decode_attention_paged"),
+                             ("decode_attention_g32", 40, "decode_attention"),
+                             ("gmm_ragged", arch.n_layers, "gmm_ragged")):
+        launches = _entry_point_launches(rows[name]["entry"], n)
+        if launches[counter] != n or sum(launches.values()) != n:
+            fail(f"{name}: its entry point launched {launches}, not {n} x {counter}")
+        rows[name]["path_launches"] = n
+    for name, r in rows.items():
+        del r["entry"]
+        _log_row(name, r)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_family_shapes() -> dict:
+    """The attention kernels at the decode shape of each family of
+    ``FAMILIES`` (8 slots, 1024 positions, its heads, kv heads and head
+    dim), on each KV layout it is served on, held against their plain
+    versions as the timed rows are (three launches, bitwise, bf16
+    tolerance); no timing."""
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    held = {}
+    for i, (name, _, layouts) in enumerate(FAMILIES):
+        a = get_arch(name).attn
+        held.update(_attention_instance(name, 8, a.n_heads, a.n_kv_heads, a.d_head, layouts,
+                                        seed=1000 + i, timed=False))
+        log(f"held {name}'s decode attention (q (8,{a.n_heads},{a.d_head}), kv heads {a.n_kv_heads}, "
+            f"{'/'.join(layouts)}): max |err| "
+            + ", ".join(f"{k} {v:.3g}" for k, v in held.items() if k.endswith(f"_{name}")))
+    torch.cuda.empty_cache()
+    return held
 
 
 # ---------------------------------------------------------------------------
@@ -895,8 +1184,9 @@ class PathProbe:
 
 
 def build_model(arch):
-    """The full-width model with seeded random weights, shared by both
-    serving runs (61 GB of the card's 80 GB cannot be held twice)."""
+    """The full-width model with seeded random weights, shared by all its
+    serving runs (qwen3-moe's 61 GB of the card's 80 GB cannot be held
+    twice)."""
     import torch
 
     from repro_torch.models import LM
@@ -1325,11 +1615,31 @@ def _profile_steps(eng, n_steps: int) -> dict:
         graph_launches_per_step=host_calls("cudaGraphLaunch"),
         idle_share=1.0 - device_ms / step_ms,
         top_device=[(e.key, e.count // n_steps, dev_us(e) / 1e3 / n_steps) for e in top_dev],
-        # the port's own kernels (they live in anonymous namespaces), top 12 or not
-        port_kernels=[(e.key.split("(")[1].split("::")[-1], e.count // n_steps, dev_us(e) / 1e3 / n_steps)
-                      for e in on_device if e.key.startswith("(anonymous namespace)::")],
+        # the port's own kernels (the __global__ functions of SOURCES, a
+        # template's instance by its arguments), top 12 or not
+        port_kernels=[(name, e.count // n_steps, dev_us(e) / 1e3 / n_steps)
+                      for e, name in ((e, _port_kernel_of(e.key)) for e in on_device) if name],
         top_host=[(e.key, e.count // n_steps, e.self_cpu_time_total / 1e3 / n_steps) for e in top_cpu],
     )
+
+
+@functools.lru_cache(maxsize=None)
+def _port_kernel_names() -> frozenset:
+    """The ``__global__`` functions of the sources in ``SOURCES``."""
+    import re
+
+    return frozenset(name for f in {src for src, _ in SOURCES.values()}
+                     for name in re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+                                            (ROOT / f).read_text()))
+
+
+def _port_kernel_of(key: str):
+    """The port kernel (with its template arguments) that a profiler row
+    of a device kernel names, or None for any other kernel."""
+    import re
+
+    m = re.search(r"(\w+)(<[^<>()]*>)?\(", key)
+    return m.group(1) + (m.group(2) or "") if m and m.group(1) in _port_kernel_names() else None
 
 
 def _to_cpu(tree):
@@ -1340,17 +1650,26 @@ def _to_cpu(tree):
     return tree.cpu()
 
 
-def _prefill_decode(lm, params, prompt, tok, paged: bool):
+def _prefill_decode(lm, params, prompt, tok, paged: bool, stub=None):
     """Prefill logits and the logits of one decode step that feeds token
     ``tok`` (1, 1) at position P.  Paged: the prompt's K/V is
     padded to whole pages and written over pool blocks taken in reverse
-    order (block 0 is the trash block), as the engine does."""
+    order (block 0 is the trash block), as the engine does.  ``stub``
+    (the vision-patch stub's ``embeds`` and ``mrope_positions``) takes the
+    prompt's place, and the decode step then carries M-RoPE positions
+    whose streams differ too."""
     import torch
 
     dev = lm.device
-    logits_p, req_cache, _ = lm.prefill(params, {"tokens": prompt.to(dev)})
-    P = prompt.shape[1]
+    if stub is None:
+        logits_p, req_cache, _ = lm.prefill(params, {"tokens": prompt.to(dev)})
+        P = prompt.shape[1]
+    else:
+        logits_p, req_cache, _ = lm.prefill(params, {k: v.to(dev) for k, v in stub.items()})
+        P = stub["embeds"].shape[1]
     batch = {"tokens": tok.to(dev), "position": torch.tensor([P], dtype=torch.int32, device=dev)}
+    if stub is not None:
+        batch["mrope_positions"] = torch.tensor([[[P]], [[P + 3]], [[P + 7]]], dtype=torch.int32, device=dev)
     if not paged:
         cache = lm.init_cache(1, 64)
         for dst, src in zip(cache["blocks"], req_cache["blocks"]):
@@ -1714,6 +2033,195 @@ def phase_runtime(lm, params, batching, path_kernels, kernels) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the dense and VLM families
+# ---------------------------------------------------------------------------
+
+# (config, layers served (None: full depth), KV layouts) of each family run
+FAMILIES = (
+    ("granite-3-2b", None, ("dense", "paged")),
+    ("qwen1.5-0.5b", None, ("dense",)),
+    ("qwen2-vl-7b", None, ("dense",)),
+    ("granite-3-8b", 2, ("dense",)),
+    ("deepseek-coder-33b", 2, ("dense",)),
+)
+
+
+def _serve_family(lm, params, batching, profile: bool) -> dict:
+    """12 seeded requests (as phase 4) through ``ServingEngine``: every
+    token delivered, one capture, every decode step after the first
+    replayed, one launch of the layout's attention kernel per layer and
+    decode step (counted through the replays) and no other kernel; with
+    ``profile``, then ``phase_profile``'s split of a full-batch step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ServingEngine
+
+    arch = lm.arch
+    run = f"{arch.name} {'paged' if batching.paged else 'dense'}"
+    eng = ServingEngine(lm, params, batching)
+    decode, calls = eng._decode, {"decode": 0, "replays": 0}
+
+    def counted(batch):
+        calls["decode"] += 1
+        calls["replays"] += eng._graph is not None
+        return decode(batch)
+
+    eng._decode = counted
+    reqs = _serving_requests(arch, 0, 12)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()  # counts from here on are this run's
+    t_start = time.perf_counter()
+    for r in reqs:
+        r.arrival_time = t_start
+        eng.submit(r)
+    decode_steps = []  # steps that ran no prefill: (decode tokens, ms)
+    while not eng.sched.idle:
+        p0, d0 = eng.stats.prefill_tokens, eng.stats.decode_tokens
+        ts = time.perf_counter()
+        eng.step()
+        if eng.stats.prefill_tokens == p0:
+            decode_steps.append((eng.stats.decode_tokens - d0, 1e3 * (time.perf_counter() - ts)))
+        if eng.stats.steps > 2000:
+            fail(f"{run}: serving did not finish in 2000 steps")
+    wall = time.perf_counter() - t_start
+    launches = {k: n for k, n in ops.LAUNCHES.items() if n}
+    _check_tokens(run, reqs, arch.vocab_size)
+    attn = "decode_attention_paged" if batching.paged else "decode_attention"
+    if eng.n_captures != 1 or calls["replays"] != calls["decode"] - 1:
+        fail(f"{run}: {eng.n_captures} captures, {calls['replays']} of {calls['decode']} decode steps "
+             "replayed; one capture and every later step replayed are required")
+    if launches != {attn: arch.n_layers * calls["decode"]}:
+        fail(f"{run}: launches {launches}; {arch.n_layers} x {calls['decode']} of {attn} and no other "
+             "kernel are required")
+    if eng.paged is not None and eng.paged.n_free != eng.paged.n_pool - 1:
+        fail(f"{run}: {eng.paged.n_free} of {eng.paged.n_pool - 1} pool blocks free after the run")
+    ttft = sorted(r.first_token_time - r.arrival_time for r in reqs)
+    tpot = sorted((r.finish_time - r.first_token_time) / (len(r.generated) - 1) for r in reqs)
+    dec_tok = sum(n for n, _ in decode_steps)
+    dec_ms = sum(ms for _, ms in decode_steps)
+    full = [ms for n, ms in decode_steps if n == batching.n_slots]
+    out = dict(
+        requests=len(reqs), prompt_tokens=eng.stats.prefill_tokens, decode_tokens=eng.stats.decode_tokens,
+        steps=eng.stats.steps, wall_s=wall,
+        decode_tok_per_s=1e3 * dec_tok / dec_ms if dec_ms else 0.0,
+        full_batch_step_ms=float(np.median(full)) if full else None, full_batch_steps=len(full),
+        ttft_p50_s=ttft[len(ttft) // 2], ttft_max_s=ttft[-1],
+        tpot_p50_s=tpot[len(tpot) // 2], tpot_max_s=tpot[-1],
+        captures=eng.n_captures, decode_calls=calls["decode"], replays=calls["replays"],
+        launches=launches, launches_per_decode_step=launches[attn] / calls["decode"],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+    )
+    log(f"serve {run}: {len(reqs)} requests, {out['prompt_tokens']} prompt + {out['decode_tokens']} decode "
+        f"tokens in {wall:.2f} s ({out['steps']} steps); decode {out['decode_tok_per_s']:.1f} tok/s, "
+        f"full-batch step median {out['full_batch_step_ms'] or 0.0:.2f} ms over {len(full)}; "
+        f"TTFT p50 {out['ttft_p50_s'] * 1e3:.1f} ms "
+        f"max {out['ttft_max_s'] * 1e3:.1f} ms; TPOT p50 {out['tpot_p50_s'] * 1e3:.2f} ms; "
+        f"{calls['replays']} of {calls['decode']} decode steps replayed, {eng.n_captures} capture; "
+        f"launches {launches} ({out['launches_per_decode_step']:.0f} per decode step)")
+    if profile:
+        out["profile"] = phase_profile(eng, arch, np.random.default_rng(0))
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _family_reference(lm, params, paged: bool) -> dict:
+    """A 2-layer slice of the served weights on the card against the plain
+    path on the CPU (the phase-4 rule: max |err| at most 5% of the largest
+    logit, cosine at least 0.999): prefill and one decode step, the VLM's
+    prefill on the vision-patch stub with distinct t/h/w positions."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import LM
+
+    arch = lm.arch
+    run = f"{arch.name} {'paged' if paged else 'dense'}"
+    small = dataclasses.replace(arch, n_layers=2)
+    gp = {k: v for k, v in params.items() if k != "blocks"}
+    gp["blocks"] = params["blocks"][:2]
+    rng = np.random.default_rng(1)
+    prompt = torch.as_tensor(rng.integers(0, arch.vocab_size, (1, 32)))
+    tok = torch.as_tensor(rng.integers(0, arch.vocab_size, (1, 1)))
+    card, cpu = LM(small, torch.bfloat16, "cuda"), LM(small, torch.bfloat16, "cpu")
+    stub = card.stub_inputs(1, 32, seed=3) if arch.modality_stub == "vision_patches" else None
+    got = _prefill_decode(card, gp, prompt, tok, paged, stub)
+    want = _prefill_decode(cpu, _to_cpu(gp), prompt, tok, paged,
+                           None if stub is None else {k: v.cpu() for k, v in stub.items()})
+    out = {}
+    for stage, g, w in zip(("prefill", "decode"), got, want):
+        g, w = g.float().cpu()[..., : arch.vocab_size], w.float()[..., : arch.vocab_size]
+        if not torch.isfinite(g).all():
+            fail(f"{run} {stage} logits are not finite")
+        err, scale = float((g - w).abs().max()), float(w.abs().max())
+        cos = float(torch.nn.functional.cosine_similarity(g.flatten(), w.flatten(), dim=0))
+        out[f"ref_{stage}_max_abs_err"], out[f"ref_{stage}_cosine"] = err, cos
+        log(f"reference {run}: 2-layer {stage} logits{' (vision-patch stub)' if stub is not None else ''}, "
+            f"card vs CPU plain path: max |err| {err:.4g} (max |logit| {scale:.3g}), cosine {cos:.6f}")
+        if err > 5e-2 * scale or cos < 0.999:
+            fail(f"{run} {stage} logits of the card disagree with the CPU plain path")
+    return out
+
+
+def _vision_prefill(lm, params) -> dict:
+    """One prefill of the full model on 256 seeded vision-patch embeddings
+    with distinct t/h/w positions: finite logits of the expected shape, a
+    cache of the prompt's K/V, and logits other than the same embeddings'
+    with text positions (the positions reach the rotation)."""
+    import torch
+
+    stub = lm.stub_inputs(1, 256, seed=5)
+    t0 = time.perf_counter()
+    logits, cache, _ = lm.prefill(params, stub)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    a = lm.arch
+    if tuple(logits.shape) != (1, 1, lm.vocab_padded) or not torch.isfinite(logits[..., : a.vocab_size]).all():
+        fail(f"{a.name} stub prefill: logits {tuple(logits.shape)}, finite "
+             f"{bool(torch.isfinite(logits[..., : a.vocab_size]).all())}")
+    if tuple(cache["blocks"][0].shape) != (a.n_layers, 1, 256, a.attn.n_kv_heads, a.attn.d_head):
+        fail(f"{a.name} stub prefill: cache {tuple(cache['blocks'][0].shape)}")
+    text = dict(stub, mrope_positions=stub["mrope_positions"][0].expand(3, -1, -1))
+    moved = float((lm.prefill(params, text)[0] - logits).float().abs().max())
+    if moved == 0.0:
+        fail(f"{a.name} stub prefill: the t/h/w positions did not change the logits")
+    log(f"{a.name}: prefill of 256 vision-patch embeddings with distinct t/h/w positions in {seconds:.2f} s: "
+        f"finite logits {tuple(logits.shape)}; text positions move them by up to {moved:.3g}")
+    return dict(seconds=seconds, logits_moved_by_positions=moved)
+
+
+def phase_families() -> dict:
+    """Each family of ``FAMILIES`` at full width with seeded random
+    weights: served on each KV layout, then its 2-layer slice against the
+    CPU plain path (and the VLM's stub prefill); the weights are freed
+    before the next family is built."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.serving import BatchingConfig
+
+    out = {}
+    for name, layers, layouts in FAMILIES:
+        arch = get_arch(name)
+        if layers is not None:
+            arch = dataclasses.replace(arch, n_layers=layers)
+        lm, params = build_model(arch)
+        fam = out[name] = dict(n_layers=arch.n_layers, weights_gb=torch.cuda.memory_allocated() / 1e9)
+        for layout in layouts:
+            batching = BatchingConfig(n_slots=8, max_seq=1024, paged=layout == "paged", page_size=16)
+            fam[layout] = _serve_family(lm, params, batching, profile=layers is None)
+            fam[layout].update(_family_reference(lm, params, paged=layout == "paged"))
+        if arch.modality_stub == "vision_patches":
+            fam["vision_prefill"] = _vision_prefill(lm, params)
+        del lm, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> None:
@@ -1721,8 +2229,8 @@ def main() -> None:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-csrc", type=Path, default=None,
-                    help="the parent commit's kernels/csrc directory: time its dense and split-KV "
-                         "decode attention in turns beside the new ones (phase 3)")
+                    help="the parent commit's kernels/csrc directory: time its dense, split-KV and "
+                         "paged decode attention in turns beside the new ones (phase 3)")
     args = ap.parse_args()
     card = phase_device()
     sys.path.insert(0, str(SRC))
@@ -1736,6 +2244,8 @@ def main() -> None:
     build_info = phase_build()
     parent = load_parent(args.parent_csrc) if args.parent_csrc else None
     kernels = phase_kernels(arch, parent)
+    kernels.update(phase_kernel_instances(arch))
+    held = phase_family_shapes()
     lm, params = build_model(arch)
     serve = {}
     with fused_swiglu("1"):
@@ -1750,14 +2260,25 @@ def main() -> None:
         serve["paged"].update(phase_reference(lm, params, paged=True))
         serve["paged"]["runtime"] = phase_runtime(lm, params, paged, PAGED_UNFUSED_PATH, kernels)
     serve["in_turns"] = phase_ab(lm, params)
+    # qwen3's 61.2 GB of weights go before any other model is built
+    del lm, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"qwen3-moe weights freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
+    families = phase_families()
 
     # each kernel's launches come from the run of its own path
     launches = {k: serve["dense"]["launches"][k] for k in DENSE_FUSED_PATH}
     launches.update({k: serve["paged"]["launches"][k] for k in PAGED_UNFUSED_PATH})
-    launches["decode_attention_split"] = kernels["decode_attention_split"]["path_launches"]
+    granite = families["granite-3-2b"]
+    launches["decode_attention_dh64"] = granite["dense"]["launches"]["decode_attention"]
+    launches["decode_attention_paged_dh64"] = granite["paged"]["launches"]["decode_attention_paged"]
+    for name, r in kernels.items():
+        if "path_launches" in r:
+            launches[name] = r["path_launches"]
     rows = []
     for name, r in kernels.items():
-        source, replaces = SOURCES[name]
+        source, replaces = SOURCES[r.get("kernel", name)]
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches[name], max_abs_err=r["max_abs_err"],
@@ -1768,7 +2289,7 @@ def main() -> None:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
-        card=card, device=kind, build=build_info, kernels=kernels, serve=serve,
+        card=card, device=kind, build=build_info, kernels=kernels, held=held, serve=serve, families=families,
     ), indent=1, default=str))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -1,8 +1,9 @@
 """Architecture configuration schema and registry (port's copy).
 
 Counterpart of ``repro.configs.base``, cut to what the port serves: the
-decoder-only ``moe`` family with GQA attention.  MLA, SSM, the encoder-
-decoder and multimodal fields join when those families are ported.
+decoder-only ``moe``, ``dense`` and ``vlm`` families with GQA attention
+(M-RoPE and the vision-patch stub included).  MLA, SSM and the encoder-
+decoder fields join when those families are ported.
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -21,6 +22,8 @@ class AttnConfig:
     d_head: int = 0
     qkv_bias: bool = False
     rope_theta: float = 1e6
+    # Qwen2-VL M-RoPE: head-dim split across (temporal, height, width)
+    mrope_sections: Optional[Tuple[int, int, int]] = None
 
 
 @dataclass(frozen=True)
@@ -47,7 +50,7 @@ class MoEConfig:
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # only "moe" (and its dense-MLP blocks) is ported
+    family: str  # "moe" | "dense" | "vlm" are ported
     n_layers: int
     d_model: int
     d_ff: int
@@ -56,8 +59,11 @@ class ArchConfig:
     moe: Optional[MoEConfig] = None
     norm: str = "rmsnorm"
     act: str = "swiglu"
-    pos: str = "rope"
+    pos: str = "rope"  # "rope" | "mrope"
     tie_embeddings: bool = False
+    # modality frontends are stubs: the model takes precomputed patch
+    # embeddings instead of raw pixels
+    modality_stub: Optional[str] = None  # "vision_patches"
     source: str = ""
     notes: str = ""
 
@@ -78,6 +84,7 @@ class ArchConfig:
                 n_heads=4,
                 n_kv_heads=min(max(self.attn.n_kv_heads, 1), 2),
                 d_head=16,
+                mrope_sections=(4, 2, 2) if self.attn.mrope_sections else None,
             ),
         )
         if self.moe is not None:
@@ -92,6 +99,11 @@ class ArchConfig:
 
 _MODULE_OF = {
     "qwen3-moe-30b-a3b": "qwen3_moe_30b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "granite-3-2b": "granite_3_2b",
+    "qwen1.5-0.5b": "qwen15_0_5b",
+    "granite-3-8b": "granite_3_8b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
 }
 
 

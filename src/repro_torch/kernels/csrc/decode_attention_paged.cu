@@ -23,9 +23,10 @@
 // by latency, as the dense kernel is.
 //
 // Design: the dense kernel's split over each live length
-// (decode_split.cuh), with rows addressed through the block table.  The
-// grid is (B * Kv, S) with S = min(32, ceil(max_blocks x page / 64)); split
-// s of a slot takes a run of its own live 32-position chunks.  Before its
+// (decode_split.cuh), with rows addressed through the block table, at the
+// instance of the head dim (64, 112 or 128).  The grid is (B * Kv * NG, S)
+// with S = min(32, ceil(max_blocks x page / 64)) and NG = ceil(G / 16) head
+// groups; split s of a slot takes a run of its own live 32-position chunks.  Before its
 // first load each split stages the table cells its positions span (a
 // 32-position chunk spans 32 / page pages for a page below 32, and lies in
 // one page otherwise) in shared memory, so the table costs one round trip
@@ -47,6 +48,7 @@ constexpr int TAB = 64;  // table cells a split stages (beyond: read from the ta
 
 // Position t of kv head kvh of one slot: its block from the staged cells
 // [p0, p0 + n_tab) or the slot's table row, -1 outside the pool.
+template <int DH>
 struct PagedRows {
   const int* table;  // the slot's row of the block table
   const int* tab;    // staged cells, from cell p0
@@ -59,20 +61,22 @@ struct PagedRows {
   }
 };
 
+template <int DH>
 __global__ void __launch_bounds__(NT)
 decode_attention_paged_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, DH)
                               const __nv_bfloat16* __restrict__ pk,  // (n_pool, page, Kv, DH)
                               const __nv_bfloat16* __restrict__ pv,  // (n_pool, page, Kv, DH)
                               const int* __restrict__ tables,        // (B, max_blocks)
                               const int* __restrict__ lengths,       // (B,)
-                              float* __restrict__ part,              // (B * Kv, S, G, DH)
-                              float* __restrict__ lse,               // (B * Kv, S, G)
-                              int* __restrict__ tickets,  // (B * Kv,), zero between launches
+                              float* __restrict__ part,              // (B * Kv * NG, S, Gs, DH)
+                              float* __restrict__ lse,               // (B * Kv * NG, S, Gs)
+                              int* __restrict__ tickets,  // (B * Kv * NG,), zero between launches
                               __nv_bfloat16* __restrict__ out,       // (B, H, DH)
                               int n_pool, int page, int Kv, int G, int max_blocks, float scale) {
-  __shared__ Smem sm;
+  __shared__ Smem<DH> sm;
   __shared__ int tab[TAB];
-  const int bk = blockIdx.x, b = bk / Kv, kvh = bk % Kv;
+  const int NG = head_groups(G), hg = blockIdx.x % NG, bk = blockIdx.x / NG;
+  const int b = bk / Kv, kvh = bk % Kv, g0 = hg * GMAX;
   const int len = max(0, min(lengths[b], max_blocks * page));
   const Split sp = split_of(len, blockIdx.y, gridDim.y);
   const int* trow = tables + (size_t)b * max_blocks;
@@ -84,38 +88,41 @@ decode_attention_paged_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D
     for (int i = threadIdx.x; i < n_tab; i += NT) tab[i] = trow[p0 + i];
     __syncthreads();
   }
-  attend_split(sm, q + (size_t)bk * G * DH, pk, pv,
-               PagedRows{trow, tab, p0, n_tab, n_pool, page, Kv, kvh}, sp, part, lse, tickets,
-               out + (size_t)bk * G * DH, G, scale);
+  const size_t head0 = ((size_t)bk * G + g0) * DH;  // query head kv * G + g0 of slot b
+  attend_split<DH>(sm, q + head0, pk, pv,
+                   PagedRows<DH>{trow, tab, p0, n_tab, n_pool, page, Kv, kvh}, sp, part, lse,
+                   tickets, out + head0, min(GMAX, G - g0), head_stride(G), scale);
 }
 
 }  // namespace
 
-// Splits per (b, kv) for a table of T = max_blocks x page positions: the
+// Splits per row for a table of T = max_blocks x page positions: the
 // partials' second axis.
 extern "C" int decode_attention_splits(int T) { return splits_for(T); }
 
 // Launches on `stream`; allocates nothing (`part`, `lse` are the caller's
-// float32 scratch of decode_attention_splits(max_blocks * page) splits,
-// `tickets` its B * Kv int32 counters, zero before the launch and left at
-// zero); returns cudaGetLastError().  Caller guarantees: bf16
-// contiguous q (B, H, dh) and pools (n_pool, page, Kv, dh) with dh == 128,
-// H == Kv * G with G <= 16, int32 contiguous tables (B, max_blocks) and
-// lengths (B,).
+// float32 scratch of decode_attention_splits(max_blocks * page) splits and
+// B * Kv * ceil(G / 16) rows of min(G, 16) heads, `tickets` its int32
+// counters, one per row, zero before the launch and left at zero); returns
+// cudaGetLastError().  Caller guarantees: bf16 contiguous q (B, H, dh) and
+// pools (n_pool, page, Kv, dh) with dh in {64, 112, 128}, H == Kv * G,
+// int32 contiguous tables (B, max_blocks) and lengths (B,).
 extern "C" int decode_attention_paged(const void* q, const void* pool_k, const void* pool_v,
                                       const int* tables, const int* lengths, float* part,
                                       float* lse, int* tickets, void* out, int B, int n_pool,
                                       int page, int Kv, int G, int dh, int max_blocks, float scale,
                                       void* stream) {
-  if (dh != DH || G < 1 || G > GMAX || page < 1 || max_blocks < 0)
-    return (int)cudaErrorInvalidValue;
-  if (B == 0 || Kv == 0) return (int)cudaGetLastError();
-  decode_attention_paged_kernel<<<dim3(B * Kv, splits_for(max_blocks * page)), NT, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(pool_k),
-      static_cast<const __nv_bfloat16*>(pool_v), tables, lengths, part, lse, tickets,
-      static_cast<__nv_bfloat16*>(out), n_pool, page, Kv, G, max_blocks, scale);
-  return (int)cudaGetLastError();
+  if (G < 1 || page < 1 || max_blocks < 0) return (int)cudaErrorInvalidValue;
+  return with_head_dim(dh, [&](auto c) {
+    constexpr int DH = decltype(c)::value;
+    if (B == 0 || Kv == 0) return (int)cudaGetLastError();
+    decode_attention_paged_kernel<DH><<<dim3(B * Kv * head_groups(G), splits_for(max_blocks * page)),
+                                        NT, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(pool_k),
+        static_cast<const __nv_bfloat16*>(pool_v), tables, lengths, part, lse, tickets,
+        static_cast<__nv_bfloat16*>(out), n_pool, page, Kv, G, max_blocks, scale);
+    return (int)cudaGetLastError();
+  });
 }
 
 extern "C" const char* kernel_error_string(int err) {

@@ -20,11 +20,12 @@
 // work, and how many dependent trips to memory each makes.
 //
 // Design: the split over each live length of decode_split.cuh, the loop
-// the dense kernel runs (grid (B * Kv, S), S = min(32, ceil(T / 64)); each
-// split a run of two or more of the sequence's own live 32-position
-// chunks; a two-chunk cp.async ring; scores and P . V on mma.sync; the
-// splits combined in the same launch by the block that takes the last
-// ticket of its (b, kv), which leaves the counter at zero).  On the card
+// the dense kernel runs (grid (B * Kv * NG, S), S = min(32, ceil(T / 64)),
+// NG = ceil(G / 16) head groups; each split a run of two or more of the
+// sequence's own live 32-position chunks; a two-chunk cp.async ring; scores
+// and P . V on mma.sync; the splits combined in the same launch by the
+// block that takes the last ticket of its row, which leaves the counter at
+// zero), at the instance of the head dim (64, 112 or 128).  On the card
 // the number of splits follows each live length, not the caller's
 // n_splits: the live-length split already gives the parallelism that
 // n_splits buys on the TPU, and splits over T (the TPU's partition) leave
@@ -42,47 +43,54 @@ namespace {
 
 using namespace decode_split;
 
+template <int DH>
 __global__ void __launch_bounds__(NT)
 decode_attention_split_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, DH)
                               const __nv_bfloat16* __restrict__ ck,  // (B, T, Kv, DH)
                               const __nv_bfloat16* __restrict__ cv,  // (B, T, Kv, DH)
                               const int* __restrict__ lengths,       // (B,)
-                              float* __restrict__ part,              // (B * Kv, S, G, DH)
-                              float* __restrict__ lse,               // (B * Kv, S, G)
-                              int* __restrict__ tickets,             // (B * Kv,), zero between launches
+                              float* __restrict__ part,              // (B * Kv * NG, S, Gs, DH)
+                              float* __restrict__ lse,               // (B * Kv * NG, S, Gs)
+                              int* __restrict__ tickets,  // (B * Kv * NG,), zero between launches
                               __nv_bfloat16* __restrict__ out,       // (B, H, DH)
                               int T, int Kv, int G, float scale) {
-  __shared__ Smem sm;
-  const int bk = blockIdx.x, b = bk / Kv, kvh = bk % Kv;
+  __shared__ Smem<DH> sm;
+  const int NG = head_groups(G), hg = blockIdx.x % NG, bk = blockIdx.x / NG;
+  const int b = bk / Kv, kvh = bk % Kv, g0 = hg * GMAX;
   const int len = max(0, min(lengths[b], T));
-  attend_split(sm, q + (size_t)bk * G * DH, ck, cv, DenseRows{b, T, Kv, kvh},
-               split_of(len, blockIdx.y, gridDim.y), part, lse, tickets,
-               out + (size_t)bk * G * DH, G, scale);
+  const size_t head0 = ((size_t)bk * G + g0) * DH;  // query head kv * G + g0 of sequence b
+  attend_split<DH>(sm, q + head0, ck, cv, DenseRows<DH>{b, T, Kv, kvh},
+                   split_of(len, blockIdx.y, gridDim.y), part, lse, tickets, out + head0,
+                   min(GMAX, G - g0), head_stride(G), scale);
 }
 
 }  // namespace
 
-// Splits per (b, kv) for a cache of T positions: the partials' second axis.
+// Splits per row for a cache of T positions: the partials' second axis.
 extern "C" int decode_attention_splits(int T) { return splits_for(T); }
 
 // Launches on `stream`; allocates nothing (`part`, `lse` are the caller's
-// float32 scratch of decode_attention_splits(T) splits, `tickets` its
-// B * Kv int32 counters, zero before the launch and left at zero);
+// float32 scratch of decode_attention_splits(T) splits and
+// B * Kv * ceil(G / 16) rows of min(G, 16) heads, `tickets` its int32
+// counters, one per row, zero before the launch and left at zero);
 // returns cudaGetLastError().  Caller guarantees: bf16 contiguous q (B, H,
-// dh), caches (B, T, Kv, dh) with dh == 128, H == Kv * G with G <= 16,
+// dh), caches (B, T, Kv, dh) with dh in {64, 112, 128}, H == Kv * G,
 // int32 lengths.
 extern "C" int decode_attention_split(const void* q, const void* k, const void* v,
                                       const int* lengths, float* part, float* lse, int* tickets,
                                       void* out, int B, int T, int Kv, int G, int dh, float scale,
                                       void* stream) {
-  if (dh != DH || G < 1 || G > GMAX) return (int)cudaErrorInvalidValue;
-  if (B == 0 || Kv == 0) return (int)cudaGetLastError();
-  decode_attention_split_kernel<<<dim3(B * Kv, splits_for(T)), NT, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), lengths, part, lse, tickets,
-      static_cast<__nv_bfloat16*>(out), T, Kv, G, scale);
-  return (int)cudaGetLastError();
+  if (G < 1) return (int)cudaErrorInvalidValue;
+  return with_head_dim(dh, [&](auto c) {
+    constexpr int DH = decltype(c)::value;
+    if (B == 0 || Kv == 0) return (int)cudaGetLastError();
+    decode_attention_split_kernel<DH><<<dim3(B * Kv * head_groups(G), splits_for(T)), NT, 0,
+                                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), lengths, part, lse, tickets,
+        static_cast<__nv_bfloat16*>(out), T, Kv, G, scale);
+    return (int)cudaGetLastError();
+  });
 }
 
 extern "C" const char* kernel_error_string(int err) {

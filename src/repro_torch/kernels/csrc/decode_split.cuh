@@ -10,8 +10,21 @@
 // computed by online softmax in float32.  A length-0 row gives exact
 // zeros, as the TPU kernel's masked-tile guard does (decode_attention.py:44).
 //
-// The grid is (B * Kv, S) with S = min(32, ceil(T / 64)) splits, T the
-// most positions a sequence can hold.  Split s of (b, kv) takes a
+// The loop is a template on the head dim DH, with an instance for each of
+// 64, 112 and 128 (HEAD_DIMS; the entry points pick it at launch).  Each
+// instance keeps K, V and q rows at a stride of DH + 8 bf16 in shared
+// memory (144, 240 and 272 bytes: an odd number of 16-byte units, so the
+// eight rows an ldmatrix reads fall in eight distinct bank groups), and
+// splits P . V over the four warps by 16-dim tiles: one each at 64, two
+// each at 128, and two, two, two and one at 112 (7 tiles).  The scores
+// walk DH / 16 k-steps two at a time, the odd last one of 112 alone.
+//
+// A block serves at most GMAX = 16 query heads of one kv head (two n = 8
+// tiles).  A larger group size G runs ceil(G / 16) head groups, a further
+// grid axis: each such block reads the same K/V chunks, the later ones
+// from L2.  Row r of the grid is (b, kv, head group): r = (b * Kv + kv) *
+// NG + hg.  The grid is (B * Kv * NG, S) with S = min(32, ceil(T / 64))
+// splits, T the most positions a sequence can hold.  Split s of a row takes a
 // contiguous run of that sequence's own live 32-position chunks, counted
 // on the device from its length: two chunks per split, more once a
 // sequence holds over 64 chunks, so the parallelism follows the live
@@ -21,14 +34,14 @@
 // one is used; each 16-byte vector of a row is addressed through the row
 // map, and a row the map sends to -1 is read as zeros.  The products run
 // on the tensor cores (mma.sync m16n8k16, bf16 in, float32 accumulate):
-// the scores K q^T with positions on the M side and the G query heads on
-// n = 8 (one or two head tiles), P . V as V^T P^T with the 128 head dims
-// on M (two 16-dim tiles per warp) and the heads on n.  The probabilities
+// the scores K q^T with positions on the M side and the block's query
+// heads on n = 8 (one or two head tiles), P . V as V^T P^T with the head
+// dims on M and the heads on n.  The probabilities
 // are rounded to bf16 for P . V (the TPU kernel multiplies in float32; the
 // rounding stays within the bf16 tolerance).  The online softmax takes one
 // warp per head, one lane per position.  A sequence with one live split
 // writes its output at once.  Otherwise each split writes a float32
-// partial and its log-sum-exp, then takes a ticket on the (b, kv) counter;
+// partial and its log-sum-exp, then takes a ticket on its row's counter;
 // the block with the last ticket sums the splits in split order (the same
 // bits whichever block finishes last) and resets the counter, so the next
 // launch finds it at zero.  Nothing is allocated on the card: partials and
@@ -40,23 +53,49 @@
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <type_traits>
 
 namespace decode_split {
 
-constexpr int DH = 128;            // head dim (the wrappers check)
-constexpr int GMAX = 16;           // query heads per kv head: two n = 8 tiles at most
+constexpr int GMAX = 16;           // query heads per block: two n = 8 tiles at most (ops.ATTENTION_HEAD_BLOCK)
 constexpr int CHUNK = 32;          // positions per chunk: one lane each in the softmax
-constexpr int SMAX = 32;           // most splits per (b, kv)
+constexpr int SMAX = 32;           // most splits per row
 constexpr int MIN_CPS = 2;         // fewest chunks per split
 constexpr int NT = 128;            // threads per block
 constexpr int NWARP = NT / 32;
-constexpr int VPR = DH / 8;        // 16-byte vectors per row
-constexpr int LD = DH + 8;         // q, K and V row stride in bf16: 272 B, conflict-free ldmatrix
 constexpr int PLD = CHUNK + 8;     // probability row stride in bf16: 80 B, conflict-free ldmatrix
-constexpr int TASKS = GMAX * VPR / NT;  // (head, 8 dims) tasks per thread in the combine
 static_assert(CHUNK == 32, "the softmax gives each position of a chunk one lane");
 static_assert(SMAX <= 32, "the combine gives each split one lane");
-static_assert(DH == 16 * 2 * NWARP, "P . V gives each warp two 16-dim tiles");
+
+// The shapes of the instance for head dim DH.
+template <int DH>
+struct Dims {
+  static constexpr int VPR = DH / 8;            // 16-byte vectors per row
+  static constexpr int LD = DH + 8;             // q, K and V row stride in bf16
+  static constexpr int KSTEPS = DH / 16;        // k-steps of the scores, 16 dims each
+  static constexpr int MTILES = DH / 16;        // 16-dim tiles of P . V
+  static constexpr int MTW = (MTILES + NWARP - 1) / NWARP;  // tiles per warp
+  static constexpr bool EVEN_M = MTILES == MTW * NWARP;       // every warp's tiles exist
+  static constexpr int TASKS = (GMAX * VPR + NT - 1) / NT;    // (head, 8 dims) combine tasks per thread
+  static_assert(DH % 16 == 0, "whole 16-dim tiles");
+  static_assert(LD * 2 / 16 % 2 == 1, "an odd row stride in 16-byte units: conflict-free ldmatrix");
+};
+
+// Calls f(std::integral_constant<int, DH>{}) for the instance of head dim
+// dh; cudaErrorInvalidValue for a head dim without one.
+template <class F>
+inline int with_head_dim(int dh, F&& f) {
+  switch (dh) {
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 112: return f(std::integral_constant<int, 112>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Head groups of GMAX query heads per kv head, and the partials' head stride.
+__host__ __device__ inline int head_groups(int G) { return (G + GMAX - 1) / GMAX; }
+__host__ __device__ inline int head_stride(int G) { return G < GMAX ? G : GMAX; }
 
 // Splits per (b, kv) for sequences of at most T positions: the partials'
 // second axis and the grid's.
@@ -67,8 +106,10 @@ __host__ __device__ inline int splits_for(int T) {
 
 // raw bf16 storage (unsigned short): shared arrays of the bf16 class type
 // would need its (trivial) constructor to be accepted by every toolkit
+template <int DH>
 struct Smem {
-  __align__(16) unsigned short qs[GMAX * LD];         // heads past G are zeros
+  static constexpr int LD = Dims<DH>::LD;
+  __align__(16) unsigned short qs[GMAX * LD];         // heads past the block's are zeros
   __align__(16) unsigned short ks[2][CHUNK * LD];     // ring of two chunks
   __align__(16) unsigned short vs[2][CHUNK * LD];
   __align__(16) unsigned short pb[GMAX * PLD];        // probabilities for P . V
@@ -96,6 +137,7 @@ __device__ inline Split split_of(int len, int s, int S) {
 }
 
 // Position t of kv head kvh of sequence b in a (B, T, Kv, DH) cache.
+template <int DH>
 struct DenseRows {
   int b, T, Kv, kvh;
   __device__ long long operator()(int t) const { return (((long long)b * T + t) * Kv + kvh) * DH; }
@@ -119,6 +161,13 @@ __device__ inline unsigned smem_addr(const void* p) {
 __device__ inline void ldmatrix_x4(unsigned* r, const void* smem) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(smem)));
+}
+
+// two 8x8 bf16 tiles (lanes 0-15 address them): b0, b1 of one k-step
+__device__ inline void ldmatrix_x2(unsigned* r, const void* smem) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_addr(smem)));
 }
 
@@ -157,18 +206,22 @@ __device__ inline void store8_bf16(__nv_bfloat16* dst, const float* v) {
   *reinterpret_cast<uint4*>(dst) = u;
 }
 
-// Split blockIdx.y of row blockIdx.x = b * Kv + kv.  `rows(t)` is the
-// element offset of live position t's K/V row (its kv head, dim 0) in
-// `ck`/`cv`, or -1 for a row read as zeros; `qrow` and `orow` point at
-// query head kv * G of sequence b; `sp` is split_of(len, s, S).  Every
-// thread of the block calls it (it synchronises the block).
-template <class Rows>
-__device__ inline void attend_split(Smem& sm, const __nv_bfloat16* __restrict__ qrow,
+// Split blockIdx.y of grid row blockIdx.x (the partials' and tickets'
+// row).  `rows(t)` is the element offset of live position t's K/V row (its
+// kv head, dim 0) in `ck`/`cv`, or -1 for a row read as zeros; `qrow` and
+// `orow` point at the block's first query head of sequence b; G is the
+// block's query heads (at most GMAX), Gs the partials' head stride; `sp`
+// is split_of(len, s, S).  Every thread of the block calls it (it
+// synchronises the block).
+template <int DH, class Rows>
+__device__ inline void attend_split(Smem<DH>& sm, const __nv_bfloat16* __restrict__ qrow,
                                     const __nv_bfloat16* __restrict__ ck,
                                     const __nv_bfloat16* __restrict__ cv, const Rows& rows,
                                     const Split& sp, float* __restrict__ part,
                                     float* __restrict__ lse, int* __restrict__ tickets,
-                                    __nv_bfloat16* __restrict__ orow, int G, float scale) {
+                                    __nv_bfloat16* __restrict__ orow, int G, int Gs, float scale) {
+  using D = Dims<DH>;
+  constexpr int VPR = D::VPR, LD = D::LD, KSTEPS = D::KSTEPS, MTW = D::MTW;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gid = lane / 4, t4 = lane % 4;  // a fragment's row and column pair
   const int bk = blockIdx.x, s = blockIdx.y, S = gridDim.y;
@@ -212,11 +265,12 @@ __device__ inline void attend_split(Smem& sm, const __nv_bfloat16* __restrict__ 
   }
   for (int i = tid; i < GMAX * PLD; i += NT) sm.pb[i] = 0;  // heads past G stay zero
 
-  // P . V accumulators: this warp's 16-dim tiles 2w, 2w + 1 by head tiles.
-  // Element i of a fragment is dim m0 + gid + 8 (i / 2), head n0 + 2 t4 + i % 2.
-  float o[2][2][4];
+  // P . V accumulators: this warp's 16-dim tiles MTW * warp + mt by head
+  // tiles.  Element i of a fragment is dim m0 + gid + 8 (i / 2), head
+  // n0 + 2 t4 + i % 2.
+  float o[MTW][2][4];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < MTW; ++mt)
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
@@ -234,13 +288,19 @@ __device__ inline void attend_split(Smem& sm, const __nv_bfloat16* __restrict__ 
       const unsigned short* qb = &sm.qs[(nb + lane % 8) * LD + (lane / 8) * 8];
       float sc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; kk += 2) {
+      for (int kk = 0; kk + 1 < KSTEPS; kk += 2) {
         unsigned a0[4], a1[4], bq[4];  // bq: b0, b1 of k-step kk, then of kk + 1
         ldmatrix_x4(a0, ka + kk * 16);
         ldmatrix_x4(a1, ka + (kk + 1) * 16);
         ldmatrix_x4(bq, qb + kk * 16);
         mma_bf16(sc, a0, bq[0], bq[1]);
         mma_bf16(sc, a1, bq[2], bq[3]);
+      }
+      if (KSTEPS % 2) {  // the odd last k-step (DH = 112)
+        unsigned a0[4], bq[2];
+        ldmatrix_x4(a0, ka + (KSTEPS - 1) * 16);
+        ldmatrix_x2(bq, qb + (KSTEPS - 1) * 16);
+        mma_bf16(sc, a0, bq[0], bq[1]);
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {  // element i: position tb + gid + 8 (i / 2),
@@ -267,8 +327,10 @@ __device__ inline void attend_split(Smem& sm, const __nv_bfloat16* __restrict__ 
     }
     __syncthreads();
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {  // O^T += V^T P^T over the chunk's two 16-position steps
-      const int m0 = (2 * warp + mt) * 16;
+    for (int mt = 0; mt < MTW; ++mt) {  // O^T += V^T P^T over the chunk's two 16-position steps
+      const int mtile = MTW * warp + mt;
+      if (!D::EVEN_M && mtile >= D::MTILES) continue;  // warp-uniform
+      const int m0 = mtile * 16;
       unsigned va[2][4];
 #pragma unroll
       for (int ks = 0; ks < 2; ++ks)
@@ -292,26 +354,28 @@ __device__ inline void attend_split(Smem& sm, const __nv_bfloat16* __restrict__ 
   cp_async_wait<0>();
 
   const bool single = n_splits == 1;
-  const size_t prow = (size_t)bk * S + s;  // (b, kv, s) row of the partials
+  const size_t prow = (size_t)bk * S + s;  // (row, s) of the partials
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
+  for (int mt = 0; mt < MTW; ++mt) {
+    const int mtile = MTW * warp + mt;
+    if (!D::EVEN_M && mtile >= D::MTILES) continue;
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int d = (2 * warp + mt) * 16 + gid + 8 * (i / 2), g = nt * 8 + 2 * t4 + i % 2;
+        const int d = mtile * 16 + gid + 8 * (i / 2), g = nt * 8 + 2 * t4 + i % 2;
         if (nt < ntn && g < G) {
           const float v = o[mt][nt][i] / sm.l[g];  // l > 0: every split holds a live position
           if (single) orow[g * DH + d] = __float2bfloat16(v);
-          else part[(prow * G + g) * DH + d] = v;
+          else part[(prow * Gs + g) * DH + d] = v;
         }
       }
     }
   }
-  if (!single && tid < G) lse[prow * G + tid] = sm.m[tid] + logf(sm.l[tid]);
+  if (!single && tid < G) lse[prow * Gs + tid] = sm.m[tid] + logf(sm.l[tid]);
   if (single) return;
 
-  // the last split of (b, kv) to finish combines them all
+  // the last split of the row to finish combines them all
   __syncthreads();  // every thread's partial is written ...
   if (tid == 0) {
     __threadfence();  // ... and visible (the fence is cumulative over the barrier)
@@ -321,7 +385,7 @@ __device__ inline void attend_split(Smem& sm, const __nv_bfloat16* __restrict__ 
   if (sm.ticket != n_splits - 1) return;
   __threadfence();
   for (int g = warp; g < G; g += NWARP) {  // split weights: one lane per split
-    const float l = lane < n_splits ? __ldcg(lse + ((size_t)bk * S + lane) * G + g) : -INFINITY;
+    const float l = lane < n_splits ? __ldcg(lse + ((size_t)bk * S + lane) * Gs + g) : -INFINITY;
     const float mx = warp_max(l);  // every lane shuffles: finite, split 0 is live
     const float w = lane < n_splits ? expf(l - mx) : 0.0f;
     const float den = warp_sum(w);  // a fixed butterfly: the same bits every launch
@@ -330,7 +394,7 @@ __device__ inline void attend_split(Smem& sm, const __nv_bfloat16* __restrict__ 
   }
   __syncthreads();
 #pragma unroll
-  for (int k = 0; k < TASKS; ++k) {
+  for (int k = 0; k < D::TASKS; ++k) {
     const int task = tid + k * NT;
     if (task < G * VPR) {
       const int g = task / VPR, v = task % VPR;
@@ -339,7 +403,7 @@ __device__ inline void attend_split(Smem& sm, const __nv_bfloat16* __restrict__ 
       for (int j = 0; j < n_splits; ++j) {  // split order: deterministic
         const float w = sm.ps[g][j];
         const float4* src =
-            reinterpret_cast<const float4*>(part + (((size_t)bk * S + j) * G + g) * DH + v * 8);
+            reinterpret_cast<const float4*>(part + (((size_t)bk * S + j) * Gs + g) * DH + v * 8);
         const float4 x = __ldcg(src), y = __ldcg(src + 1);
         o[0] = fmaf(w, x.x, o[0]);
         o[1] = fmaf(w, x.y, o[1]);

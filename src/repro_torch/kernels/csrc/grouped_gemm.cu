@@ -1,5 +1,6 @@
 // Ragged grouped matmul over the capacity slab: one call of the three-call
-// (unfused) head path of the sieve dual path.
+// (unfused) head path of the sieve dual path (grouped_gemm), and the same
+// function over the bm-aligned ragged layout (gmm_ragged, at the end).
 //
 // Replaces the TPU kernel repro/kernels/grouped_gemm.py:85 grouped_gemm
 // (pallas_call at :120; wrapper repro/kernels/ops.py:96 gmm_capacity).
@@ -434,8 +435,194 @@ grouped_gemm_kernel(const __grid_constant__ CUtensorMap wmap,  // rhs (E, K, N) 
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// gmm_ragged: the grouped matmul over the bm-aligned ragged layout.
+//
+// Replaces the TPU kernel repro/kernels/grouped_gemm.py:85 grouped_gemm
+// (pallas_call at :120) as reached through repro/kernels/ops.py:130
+// gmm_ragged.  Group g owns rows [start_g, start_g + round_up(size_g, bm))
+// of lhs (M, K), start_g the sum of the earlier groups' spans; for its rows
+//   out[r] = lhs[r] . rhs[g]   for the first size_g rows of the span
+//   out[r] = 0                 for the span's padding rows,
+// accumulated in float32 and rounded to bf16.  As on the TPU, bm-row tile
+// i belongs to the first group whose cumulative tile count passes i
+// (clamped to the last group), so rows past the spans' sum are zeros.
+// Sizes below zero count as zero.
+//
+// What bounds it on an H100: bytes, as for grouped_gemm: a live group
+// reads its K x N weights for 2 flops per weight and live row.
+//
+// Design (simple and right first): a block per (row block, 128-column
+// tile), the row block the largest multiple of 8 up to 64 rows that
+// divides bm, so that it lies in one bm tile and so in one group.  Each
+// block finds its group on the device: warp 0 scans the group sizes'
+// tile counts 32 at a time (shuffles) and takes the first group whose
+// cumulative count passes the block's tile; no host sync, so a caller may
+// capture it in a graph.  A block with no live row writes its zeros and
+// reads nothing.  Otherwise 256 threads stream 64-deep K chunks of the
+// weight tile (64 x 128) and of the live rows (zero-filled up to whole
+// 8-row fragments) by cp.async into a 4-stage ring, and eight warps run
+// mma.sync with the weight columns on M (16 per warp, ldmatrix.trans) and
+// the rows on n = 8, as grouped_gemm does.  Every output element comes
+// from one block in a fixed order: repeated launches give the same bits.
+// ---------------------------------------------------------------------------
+
+namespace {
+namespace ragged {
+
+constexpr int BN = 128;                // output columns per block: the mma's M side
+constexpr int BK = 64;                 // contraction depth per stage
+constexpr int RMAX = 64;               // rows per block at most: eight n = 8 fragments
+constexpr int NFRAG = RMAX / 8;
+constexpr int NSTAGE = 4;              // ring depth
+constexpr int NW = BN / 16;            // warps, one 16-column slice each
+constexpr int NT = NW * 32;
+constexpr int LDW = BN + 8;            // weight row stride in bf16: 272 B, conflict-free ldmatrix
+constexpr int LDX = BK + 8;            // lhs row stride in bf16: 144 B, conflict-free ldmatrix
+constexpr int W_BYTES = BK * LDW * 2;
+
+__host__ __device__ inline int stage_bytes(int rows) { return W_BYTES + rows * LDX * 2; }
+__host__ __device__ inline int smem_bytes(int rows) { return NSTAGE * stage_bytes(rows); }
+
+// rows per block for a bm-aligned layout: the largest multiple of 8 up to
+// RMAX that divides bm (bm is a multiple of 8)
+inline int block_rows(int bm) {
+  int rows = RMAX;
+  while (bm % rows) rows -= 8;
+  return rows;
+}
+
+__device__ inline void commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ inline void wait_groups() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
+__global__ void __launch_bounds__(NT)
+gmm_ragged_kernel(const __nv_bfloat16* __restrict__ lhs,  // (M, K)
+                  const __nv_bfloat16* __restrict__ rhs,  // (E, K, N)
+                  const int* __restrict__ group_sizes,    // (E,)
+                  __nv_bfloat16* __restrict__ out,        // (M, N)
+                  int E, int K, int N, int bm, int rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_group, s_live;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, t4 = lane % 4;
+  const int r0 = blockIdx.x * rows, n0 = blockIdx.y * BN, ncols = min(BN, N - n0);
+
+  if (warp == 0) {  // the group of bm tile r0 / bm, and this block's live rows
+    const int tile = r0 / bm;
+    int base = 0, g_hit = -1, start = 0;  // tiles before the chunk; the group and its first tile
+    for (int c0 = 0; c0 < E && g_hit < 0; c0 += 32) {
+      const int g = c0 + lane;
+      const int nt = g < E ? (max(group_sizes[g], 0) + bm - 1) / bm : 0;
+      int incl = nt;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
+      }
+      const unsigned hit = __ballot_sync(0xffffffffu, g < E && base + incl > tile);
+      if (hit) {
+        const int first = __ffs(hit) - 1;
+        g_hit = c0 + first;
+        start = base + __shfl_sync(0xffffffffu, incl - nt, first);
+      }
+      base += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    if (g_hit < 0) {  // past every span: the last group, whose rows end before this tile
+      g_hit = E - 1;
+      start = base - (max(group_sizes[E - 1], 0) + bm - 1) / bm;
+    }
+    if (lane == 0) {
+      const int row_in_group = (tile - start) * bm + r0 % bm;
+      s_group = g_hit;
+      s_live = max(0, min(rows, max(group_sizes[g_hit], 0) - row_in_group));
+    }
+  }
+  __syncthreads();
+  const int g = s_group, live = s_live;
+
+  // zeros on the rows past the group's size (all of them in a dead block)
+  for (int i = tid; i < (rows - live) * (ncols / 8); i += NT) {
+    const int r = live + i / (ncols / 8), v = i % (ncols / 8);
+    reinterpret_cast<uint4*>(out + (size_t)(r0 + r) * N + n0)[v] = make_uint4(0, 0, 0, 0);
+  }
+  if (live == 0) return;
+
+  const __nv_bfloat16* w = rhs + (size_t)g * K * N + n0;  // weight row k at w + k N
+  const __nv_bfloat16* x = lhs + (size_t)r0 * K;
+  const int nk = K / BK, xr = (live + 7) / 8 * 8, nfrag = xr / 8, sb = stage_bytes(rows);
+  // K chunk kc into stage kc % NSTAGE, one copy group, always committed
+  // (empty past the last chunk) to keep the group count
+  auto load = [&](int kc) {
+    if (kc < nk) {
+      const unsigned ws = smem_addr(smem + (kc % NSTAGE) * sb), xs = ws + W_BYTES;
+      const int k0 = kc * BK, wv = ncols / 8;
+      for (int i = tid; i < BK * wv; i += NT) {
+        const int r = i / wv, v = i % wv;
+        cp_async16(ws + (r * LDW + v * 8) * 2, w + (size_t)(k0 + r) * N + v * 8, true);
+      }
+      for (int i = tid; i < xr * (BK / 8); i += NT) {  // rows past the live count: zeros, no read
+        const int r = i / (BK / 8), v = i % (BK / 8);
+        cp_async16(xs + (r * LDX + v * 8) * 2, x + (size_t)(r < live ? r : 0) * K + k0 + v * 8,
+                   r < live);
+      }
+    }
+    commit();
+  };
+  for (int kc = 0; kc < NSTAGE - 1; ++kc) load(kc);
+
+  const int m0 = warp * 16;
+  float acc[NFRAG][4];
+#pragma unroll
+  for (int f = 0; f < NFRAG; ++f) acc[f][0] = acc[f][1] = acc[f][2] = acc[f][3] = 0.0f;
+  for (int kc = 0; kc < nk; ++kc) {
+    wait_groups<NSTAGE - 2>();  // chunk kc has landed
+    __syncthreads();            // ... for every thread, and chunk kc - 1's stage is free
+    load(kc + NSTAGE - 1);
+    if (m0 < ncols) {
+      const unsigned short* ws = reinterpret_cast<const unsigned short*>(smem + (kc % NSTAGE) * sb);
+      const unsigned short* xs = reinterpret_cast<const unsigned short*>(smem + (kc % NSTAGE) * sb + W_BYTES);
+      unsigned a[BK / 16][4];  // A = this warp's 16 weight columns, transposed, by k-step
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        ldmatrix_x4_trans(a[kk], ws + (kk * 16 + (lane / 16) * 8 + lane % 8) * LDW + m0 +
+                                     (lane / 8 % 2) * 8);
+#pragma unroll
+      for (int f = 0; f < NFRAG; ++f) {
+        if (f < nfrag) {
+          const unsigned short* brow = xs + (f * 8 + lane % 8) * LDX + (lane / 8) * 8;
+#pragma unroll
+          for (int h = 0; h < BK / 32; ++h) {
+            unsigned bf[4];  // b0, b1 of k-step 2h, then of k-step 2h + 1
+            ldmatrix_x4(bf, brow + h * 32);
+            mma_bf16(acc[f], a[2 * h], bf[0], bf[1]);
+            mma_bf16(acc[f], a[2 * h + 1], bf[2], bf[3]);
+          }
+        }
+      }
+    }
+  }
+  wait_groups<0>();
+  // element i of acc[f]: row f * 8 + 2 t4 + i % 2, column m0 + gid + 8 (i / 2)
+  if (m0 < ncols) {
+#pragma unroll
+    for (int f = 0; f < NFRAG; ++f) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = f * 8 + 2 * t4 + i % 2;
+        if (f < nfrag && r < live)
+          out[(size_t)(r0 + r) * N + n0 + m0 + gid + 8 * (i / 2)] = __float2bfloat16(acc[f][i]);
+      }
+    }
+  }
+}
+
+}  // namespace ragged
+}  // namespace
+
 // Once per device, before the first launch: raises the kernel's dynamic
-// shared-memory limit to the most a block may opt into, finds the
+// shared-memory limit to the most a block may opt into (and gmm_ragged's
+// to what its ring needs), finds the
 // driver's tensor-map encoder, and returns the SM count (the persistent
 // grid) and that limit.
 extern "C" int grouped_gemm_init(int* n_sm, int* max_smem) {
@@ -449,8 +636,13 @@ extern "C" int grouped_gemm_init(int* n_sm, int* max_smem) {
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, grouped_gemm_kernel);
   if (err != cudaSuccess) return (int)err;
   *max_smem = optin - (int)fa.sharedSizeBytes;
-  return (int)cudaFuncSetAttribute(grouped_gemm_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize, *max_smem);
+  err = cudaFuncSetAttribute(grouped_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             *max_smem);
+  if (err == cudaSuccess)  // gmm_ragged's ring at its largest row block
+    err = cudaFuncSetAttribute(ragged::gmm_ragged_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               ragged::smem_bytes(ragged::RMAX));
+  return (int)err;
 }
 
 // What a launch over (G, C, K, N) on `n_blocks` blocks needs from the
@@ -482,6 +674,28 @@ extern "C" int grouped_gemm(const void* x, const void* rhs, const int* group_siz
   grouped_gemm_kernel<<<n_blocks, NT, smem_bytes(G, C, K), st>>>(
       *wmap, static_cast<const __nv_bfloat16*>(x), group_sizes, rhs_of_group,
       static_cast<__nv_bfloat16*>(out), part, tickets, G, C, K, N);
+  return (int)cudaGetLastError();
+}
+
+// The ragged layout: lhs (M, K) and out (M, N) rows, group g's span
+// round_up(group_sizes[g], bm) rows from the sum of the earlier spans.
+// Launches on `stream`; allocates nothing; returns cudaGetLastError().
+// Caller guarantees: bf16 contiguous lhs, rhs (E, K, N) and out with
+// 16-byte aligned bases, int32 group_sizes (E,), E >= 1, bm a positive
+// multiple of 8 dividing M, K % 64 == 0, N % 64 == 0, and a prior
+// grouped_gemm_init on this device.
+extern "C" int gmm_ragged(const void* lhs, const void* rhs, const int* group_sizes, void* out,
+                          int M, int K, int N, int E, int bm, void* stream) {
+  if (bm < 8 || bm % 8 || M % bm || K % ragged::BK || N % 64 || E < 1)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0 || N == 0) return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K == 0) return (int)cudaMemsetAsync(out, 0, (size_t)M * N * 2, st);
+  const int rows = ragged::block_rows(bm);
+  ragged::gmm_ragged_kernel<<<dim3(M / rows, (N + ragged::BN - 1) / ragged::BN), ragged::NT,
+                              ragged::smem_bytes(rows), st>>>(
+      static_cast<const __nv_bfloat16*>(lhs), static_cast<const __nv_bfloat16*>(rhs), group_sizes,
+      static_cast<__nv_bfloat16*>(out), E, K, N, bm, rows);
   return (int)cudaGetLastError();
 }
 

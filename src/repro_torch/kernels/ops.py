@@ -34,8 +34,15 @@ LAUNCHES: Dict[str, int] = {
     "decode_attention_split": 0,
     "decode_attention_paged": 0,
     "gmm_capacity": 0,
+    "gmm_ragged": 0,
     "expert_gemv": 0,
 }
+# the head dims the decode-attention kernels have an instance for
+# (csrc/decode_split.cuh, with_head_dim)
+ATTENTION_HEAD_DIMS = (64, 112, 128)
+# query heads per block of those kernels (GMAX in csrc/decode_split.cuh):
+# a kv head's larger query groups take ceil(G / this) grid rows
+ATTENTION_HEAD_BLOCK = 16
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = {
@@ -61,6 +68,8 @@ _HELPERS = {
     "grouped_gemm": {
         "grouped_gemm_init": ([_IP, _IP], ctypes.c_int),
         "grouped_gemm_scratch": ([_I, _I, _I, _I, _I, _LLP, _LLP, _IP], None),
+        # the ragged layout's launch, in the same library
+        "gmm_ragged": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], ctypes.c_int),
     },
     "fused_swiglu_gemv": {"fused_swiglu_gemv_init": ([_IP], ctypes.c_int)},
     "expert_gemv": {"expert_gemv_init": ([_IP], ctypes.c_int)},
@@ -163,15 +172,21 @@ def _buffer(name: str, device: torch.device, shape: Tuple[int, ...], dtype: torc
 def _split_scratch(name: str, lib, T: int, q: torch.Tensor, Kv: int):
     """The float32 partials and log-sum-exps of a split decode kernel
     (``csrc/decode_split.cuh``) over sequences of at most ``T`` positions,
-    and its ticket counters."""
+    and its ticket counters.  A kv head's G query heads take ceil(G / HB)
+    grid rows of at most HB = ``ATTENTION_HEAD_BLOCK`` heads, so the
+    scratch has B * Kv * ceil(G / HB) rows of min(G, HB) heads.  The split
+    count depends on ``T`` alone (not on dh or the head groups); the
+    buffers are keyed by their shape."""
     B, H, dh = q.shape
+    G, HB = H // Kv, ATTENTION_HEAD_BLOCK
     key = (name, T)
     if key not in _SCRATCH:
         _SCRATCH[key] = (lib.decode_attention_splits(T),)
     (S,) = _SCRATCH[key]
-    part = _buffer(name, q.device, (B * Kv, S, H // Kv, dh), torch.float32)
-    lse = _buffer(name, q.device, (B * Kv, S, H // Kv), torch.float32)
-    return part, lse, _tickets(name, q.device, B * Kv)
+    rows, heads = B * Kv * -(-G // HB), min(G, HB)
+    part = _buffer(name, q.device, (rows, S, heads, dh), torch.float32)
+    lse = _buffer(name, q.device, (rows, S, heads), torch.float32)
+    return part, lse, _tickets(name, q.device, rows)
 
 
 def _raise_on(lib, rc: int, name: str) -> None:
@@ -347,6 +362,38 @@ def gmm_capacity(
     return out
 
 
+def gmm_ragged(
+    lhs: torch.Tensor,  # (M, K) group-major rows, group starts bm-aligned
+    rhs: torch.Tensor,  # (E, K, N)
+    group_sizes: torch.Tensor,  # (E,) live rows per group
+    bm: int = 128,
+) -> torch.Tensor:
+    """Grouped matmul over the bm-aligned ragged layout -> (M, N): group g
+    owns rows ``[start_g, start_g + round_up(size_g, bm))``, ``start_g``
+    the sum of the earlier spans (``bm = min(bm, M)``, a multiple of 8);
+    rows past a group's size, and past the spans' sum, are zero.  The
+    group starts are found on the device (no host sync)."""
+    M, K = lhs.shape
+    bm = min(bm, M)
+    _require(bm > 0 and bm % 8 == 0, f"gmm_ragged: bm={bm} is not a multiple of 8")
+    _require(M % bm == 0, f"gmm_ragged: M={M} is not a multiple of bm={bm}")
+    if _on_cpu(lhs, rhs, group_sizes):
+        return ref.gmm_ragged_ref(lhs, rhs, group_sizes, bm)
+    E, _, N = rhs.shape
+    _check_bf16("lhs", lhs)
+    _check_bf16("rhs", rhs)
+    _require(rhs.shape[1] == K and E > 0, f"rhs {tuple(rhs.shape)} does not match lhs {tuple(lhs.shape)}")
+    _require(K % 64 == 0 and N % 64 == 0, f"gmm_ragged needs K % 64, N % 64 == 0; got {K}, {N}")
+    _check_i32("group_sizes", group_sizes, E)
+    lib, _ = _kernel("grouped_gemm", lhs.device)  # the library's init covers both launches
+    out = torch.empty((M, N), dtype=lhs.dtype, device=lhs.device)
+    rc = lib.gmm_ragged(_ptr(lhs), _ptr(rhs), _ptr(group_sizes), _ptr(out), M, K, N, E, bm,
+                        _stream(lhs))
+    _raise_on(lib, rc, "gmm_ragged")
+    LAUNCHES["gmm_ragged"] += 1
+    return out
+
+
 def expert_gemv(
     tokens: torch.Tensor,  # (S, K), unit stride along K
     weights: torch.Tensor,  # (E, K, N)
@@ -382,8 +429,9 @@ def _check_attention(q, k, v, lengths, B: int, Kv: int) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_bf16(name, t)
     _require(v.shape == k.shape and k.shape[-1] == dh, "cache shapes do not match q")
-    _require(dh == 128 and H % Kv == 0 and H // Kv <= 16,
-             f"decode attention needs dh == 128 and H/Kv <= 16; got dh={dh}, H={H}, Kv={Kv}")
+    _require(dh in ATTENTION_HEAD_DIMS,
+             f"decode attention has CUDA instances for head dims {ATTENTION_HEAD_DIMS} only; got dh={dh}")
+    _require(Kv > 0 and H % Kv == 0, f"decode attention needs H % Kv == 0; got H={H}, Kv={Kv}")
     _check_i32("lengths", lengths, B)
 
 

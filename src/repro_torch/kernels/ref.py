@@ -2,7 +2,9 @@
 ``repro.kernels.ref``: ``fused_swiglu_gmm_ref``, ``fused_swiglu_gemv_ref``,
 ``gmm_ref``, ``decode_attention_ref`` and ``decode_attention_paged_ref``,
 plus the split-KV partials and LSE combine of
-``repro/kernels/decode_attention.py:132,178``).
+``repro/kernels/decode_attention.py:132,178`` and the ragged layout of
+``repro/kernels/ops.py:130 gmm_ragged``).  The attention versions take any
+head dim and any number of query heads per kv head.
 
 They compute what the CUDA kernels compute, in float32 from the inputs'
 values: the CPU path runs them, and ``chip_smoke.py`` holds each kernel
@@ -107,6 +109,29 @@ def gmm_ref(
     rows = torch.arange(buf.shape[1], device=buf.device)
     live = rows[None, :] < group_sizes.to(buf.device)[:, None]
     return torch.where(live[..., None], y, 0.0).to(buf.dtype)
+
+
+def gmm_ragged_ref(
+    lhs: torch.Tensor,  # (M, K) group-major rows, group starts bm-aligned
+    rhs: torch.Tensor,  # (E, K, N)
+    group_sizes: torch.Tensor,  # (E,) live rows per group
+    bm: int,
+) -> torch.Tensor:
+    """Grouped matmul over the bm-aligned ragged layout: bm-row tile i
+    belongs to the first group whose cumulative tile count passes i
+    (clamped to the last group, as the TPU wrapper's searchsorted is), and
+    its rows at or past that group's size are zero."""
+    M, K = lhs.shape
+    E = rhs.shape[0]
+    sizes = group_sizes.to(lhs.device).long().clamp(min=0)
+    tiles = (sizes + bm - 1) // bm
+    cum = torch.cumsum(tiles, 0)
+    tile = torch.arange(M // bm, device=lhs.device)
+    g = torch.searchsorted(cum, tile, right=True).clamp(max=E - 1)
+    first_row = (tile - (cum - tiles)[g]) * bm  # the tile's first row within its group
+    y = torch.bmm(lhs.reshape(M // bm, bm, K).float(), rhs[g].float())
+    live = first_row[:, None] + torch.arange(bm, device=lhs.device)[None, :] < sizes[g][:, None]
+    return torch.where(live[..., None], y, 0.0).reshape(M, -1).to(lhs.dtype)
 
 
 def expert_gemv_ref(

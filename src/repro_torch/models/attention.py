@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.configs.base import AttnConfig
 from repro_torch.kernels import ops, ref
-from .layers import apply_rope, he_init
+from .layers import apply_mrope, apply_rope, he_init
 
 NEG_INF = -1e30
 
@@ -94,11 +94,20 @@ def decode_attention_ref(
     return ref.decode_attention_ref(q[:, 0], cache_k, cache_v, length)[:, None]
 
 
+def _rope_or_mrope(x, positions, cfg: AttnConfig, mrope_positions):
+    if cfg.mrope_sections is not None and mrope_positions is not None:
+        return apply_mrope(x, mrope_positions, cfg.rope_theta, cfg.mrope_sections)
+    if positions is None:
+        return x
+    return apply_rope(x, positions, cfg.rope_theta)
+
+
 def gqa_project_qkv(
     params: dict,
     x: torch.Tensor,  # (B, S, d)
     positions: Optional[torch.Tensor],
     cfg: AttnConfig,
+    mrope_positions: Optional[torch.Tensor] = None,  # (3, B, S)
     use_rope: bool = True,
 ):
     B, S, _ = x.shape
@@ -113,9 +122,9 @@ def gqa_project_qkv(
     q = q.reshape(B, S, H, dh)
     k = k.reshape(B, S, K, dh)
     v = v.reshape(B, S, K, dh)
-    if use_rope and positions is not None:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        q = _rope_or_mrope(q, positions, cfg, mrope_positions)
+        k = _rope_or_mrope(k, positions, cfg, mrope_positions)
     return q, k, v
 
 
@@ -124,11 +133,12 @@ def gqa_prefill(
     x: torch.Tensor,
     positions: torch.Tensor,
     cfg: AttnConfig,
+    mrope_positions: Optional[torch.Tensor] = None,
     causal: bool = True,
     q_chunk: int = 1024,
     kv_chunk: int = 1024,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    q, k, v = gqa_project_qkv(params, x, positions, cfg)
+    q, k, v = gqa_project_qkv(params, x, positions, cfg, mrope_positions)
     o = flash_attention(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk)
     B, S = x.shape[:2]
     return o.reshape(B, S, -1) @ params["wo"], k, v
@@ -141,11 +151,12 @@ def gqa_decode(
     cache_k: torch.Tensor,  # (B, T, K, dh), updated in place
     cache_v: torch.Tensor,
     cfg: AttnConfig,
+    mrope_positions: Optional[torch.Tensor] = None,  # (3, B, 1)
 ) -> torch.Tensor:
     """One decode step.  Writes the new (k, v) row at ``position`` into the
     cache in place (the JAX engine gets the same effect from buffer
     donation) and returns the attention output."""
-    q, k1, v1 = gqa_project_qkv(params, x, position[:, None], cfg)
+    q, k1, v1 = gqa_project_qkv(params, x, position[:, None], cfg, mrope_positions)
     B = x.shape[0]
     rows = torch.arange(B, device=x.device)
     idx = position.long().clamp(0, cache_k.shape[1] - 1)  # JAX clamps the slice start
@@ -224,13 +235,14 @@ def gqa_decode_paged(
     pool_v: torch.Tensor,
     paged: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],  # (block_tables, owner, block_pos)
     cfg: AttnConfig,
+    mrope_positions: Optional[torch.Tensor] = None,  # (3, B, 1)
 ) -> torch.Tensor:
     """One paged decode step: write the new (k, v) row into the shared
     block pool in place, through the slot's block table, then attend over
     the slot's logical blocks only.  Idle slots resolve to the trash block
     (physical 0, owner -1), so their write never touches live data."""
     block_tables = paged[0]
-    q, k1, v1 = gqa_project_qkv(params, x, position[:, None], cfg)
+    q, k1, v1 = gqa_project_qkv(params, x, position[:, None], cfg, mrope_positions)
     B = x.shape[0]
     page = pool_k.shape[1]
     pos = position.long()

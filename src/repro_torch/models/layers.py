@@ -1,5 +1,5 @@
-"""Foundational layers: norms, dense MLP, embeddings, RoPE (counterpart of
-``repro.models.layers``).
+"""Foundational layers: norms, dense MLP, embeddings, RoPE and M-RoPE
+(counterpart of ``repro.models.layers``).
 
 Plain functions on tensors.  Compute runs in the activation dtype with
 float32 islands where the JAX reference has them (norm statistics, rotary
@@ -8,7 +8,7 @@ phases).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -75,6 +75,31 @@ def apply_rope(
     d = x.shape[-1]
     inv = rope_freqs(d, theta, x.device)
     ang = positions[..., None].float() * inv
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    xf1, xf2 = x[..., : d // 2].float(), x[..., d // 2:].float()
+    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1).to(x.dtype)
+
+
+def apply_mrope(
+    x: torch.Tensor,  # (batch, seq, heads, d_head)
+    positions: torch.Tensor,  # (3, batch, seq): temporal / height / width
+    theta: float,
+    sections: Tuple[int, int, int],
+) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: the d_head/2 frequency slots are split into
+    (temporal, height, width) sections, each rotated by its own position
+    stream.  Text tokens carry identical t/h/w positions, which reduces
+    M-RoPE to :func:`apply_rope` for them."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not cover d_head/2 = {d // 2}")
+    inv = rope_freqs(d, theta, x.device)
+    # section id per frequency slot, and each slot's position stream
+    sec = torch.cat([torch.full((s,), i, dtype=torch.long, device=x.device)
+                     for i, s in enumerate(sections)])
+    pos = positions.permute(1, 2, 0).float()[..., sec]  # (batch, seq, d/2)
+    ang = pos * inv
     cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
     xf1, xf2 = x[..., : d // 2].float(), x[..., d // 2:].float()

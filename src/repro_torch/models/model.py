@@ -1,6 +1,7 @@
 """LM facade: init / prefill / decode for the decoder-only families with
-GQA attention (counterpart of ``repro.models.model.LM``; ``moe`` is the
-family this slice serves, ``dense`` shares its blocks).
+GQA attention (counterpart of ``repro.models.model.LM``): ``moe``,
+``dense``, and ``vlm``, whose vision frontend is a stub (precomputed patch
+embeddings, :meth:`LM.stub_inputs`) and whose attention rotates by M-RoPE.
 
 Parameters are a dict like the JAX pytree, except that the scan-stacked
 ``p["blocks"]`` becomes a list of per-layer dicts and the ``lax.scan``
@@ -9,7 +10,9 @@ over layers a Python loop.  The KV cache is updated in place.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
 
 import torch
 
@@ -36,6 +39,10 @@ def _aggregate_aux(auxes: List[BlockAux]) -> StepAux:
     )
 
 
+# decoder-only families of GQA attention + MLP/MoE blocks
+PORTED_FAMILIES = ("moe", "dense", "vlm")
+
+
 class LM:
     def __init__(
         self,
@@ -45,10 +52,10 @@ class LM:
         q_chunk: int = 1024,
         kv_chunk: int = 1024,
     ):
-        if arch.family not in ("moe", "dense") or arch.attn.kind != "gqa":
+        if arch.family not in PORTED_FAMILIES or arch.attn.kind != "gqa":
             raise NotImplementedError(
                 f"family {arch.family!r} with {arch.attn.kind!r} attention is not "
-                "ported yet (moe/dense with gqa only)"
+                f"ported yet (ported: {', '.join(PORTED_FAMILIES)} with gqa attention)"
             )
         if arch.moe is not None and arch.moe.first_k_dense:
             raise NotImplementedError("dense prefix blocks (first_k_dense) are not ported yet")
@@ -117,12 +124,43 @@ class LM:
             logits = torch.where(live, logits, -1e30)
         return logits
 
+    def _embed_in(self, p, batch) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Token embeddings, or the modality stub's precomputed ``embeds``,
+        and the batch's M-RoPE positions (None without them)."""
+        if "embeds" in batch:
+            x = batch["embeds"].to(self.dtype)
+        else:
+            x = embed(p["embed"], batch["tokens"])
+        return x, batch.get("mrope_positions")
+
+    def stub_inputs(self, batch: int, seq: int, seed: int) -> Dict[str, torch.Tensor]:
+        """Seeded inputs of the vision-patch stub: ``embeds`` (batch, seq,
+        d_model) standing in for the vision tower's patch embeddings, and
+        ``mrope_positions`` (3, batch, seq) that walk the patches of two or
+        more frames row by row, so the temporal, height and width streams
+        differ (the counterpart of the ``vlm`` entries of
+        ``repro.models.model.LM.input_specs``)."""
+        if self.arch.modality_stub != "vision_patches":
+            raise ValueError(f"{self.arch.name} has no vision-patch stub")
+        rng = np.random.default_rng(seed)
+        emb = rng.standard_normal((batch, seq, self.arch.d_model)).astype(np.float32)
+        side = max(1, int(np.sqrt(seq / 2)))  # patches per row and column of a frame
+        s = np.arange(seq)
+        grid = np.stack([s // (side * side), s // side % side, s % side])  # t, h, w
+        pos = np.broadcast_to(grid[:, None, :], (3, batch, seq)).astype(np.int32)
+        return {
+            "embeds": torch.from_numpy(emb).to(device=self.device, dtype=self.dtype),
+            "mrope_positions": torch.from_numpy(np.ascontiguousarray(pos)).to(self.device),
+        }
+
     # ------------------------------------------------------------------
     def prefill(self, p, batch: Dict[str, Any]):
         """Forward over the prompt: (last-position logits, cache of the
-        prompt's K/V as ``(n_layers, B, S, Kv, dh)`` tensors, StepAux)."""
+        prompt's K/V as ``(n_layers, B, S, Kv, dh)`` tensors, StepAux).
+        batch: tokens (B, S) or the stub's ``embeds`` (B, S, d); for the
+        ``vlm`` family optionally ``mrope_positions`` (3, B, S)."""
         arch = self.arch
-        x = embed(p["embed"], batch["tokens"])
+        x, mrope = self._embed_in(p, batch)
         B, S = x.shape[:2]
         positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
         moe = arch.moe is not None
@@ -130,7 +168,7 @@ class LM:
         for blk in p["blocks"]:
             x, (k, v), aux = tf.attn_mlp_block_seq(
                 blk, x, positions, arch, moe, q_chunk=self.q_chunk,
-                kv_chunk=self.kv_chunk, sieve=batch.get("sieve"),
+                kv_chunk=self.kv_chunk, sieve=batch.get("sieve"), mrope_positions=mrope,
             )
             ks.append(k)
             vs.append(v)
@@ -141,11 +179,11 @@ class LM:
 
     def decode_step(self, p, batch: Dict[str, Any], cache: Dict[str, Any]):
         """One-token step.  batch: tokens (B, 1), position (B,), optional
-        sieve, and for a paged cache ``block_tables``/``pool_owner``/
-        ``pool_pos``.  Writes the step's K/V into ``cache`` in place and
-        returns ``(logits, cache, StepAux)``."""
+        sieve and ``mrope_positions`` (3, B, 1), and for a paged cache
+        ``block_tables``/``pool_owner``/``pool_pos``.  Writes the step's K/V
+        into ``cache`` in place and returns ``(logits, cache, StepAux)``."""
         arch = self.arch
-        x = embed(p["embed"], batch["tokens"])
+        x, mrope = self._embed_in(p, batch)
         position = batch["position"]
         moe = arch.moe is not None
         paged = None
@@ -156,7 +194,7 @@ class LM:
         for i, blk in enumerate(p["blocks"]):
             x, aux = tf.attn_mlp_block_decode(
                 blk, x, position, (ck[i], cv[i]), arch, moe, sieve=batch.get("sieve"),
-                paged=paged,
+                paged=paged, mrope_positions=mrope,
             )
             auxes.append(aux)
         h = apply_norm(p["final_norm"], x, arch.norm)

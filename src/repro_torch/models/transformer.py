@@ -61,11 +61,12 @@ def attn_mlp_block_seq(
     q_chunk: int = 1024,
     kv_chunk: int = 1024,
     sieve=None,
+    mrope_positions=None,  # (3, B, S): M-RoPE position streams (vlm)
 ):
     """Full-sequence block (prefill).  Returns (x, (k, v), aux)."""
     h = apply_norm(p["norm1"], x, arch.norm)
     a, k, v = attn_lib.gqa_prefill(
-        p["attn"], h, positions, arch.attn, causal=True,
+        p["attn"], h, positions, arch.attn, mrope_positions, causal=True,
         q_chunk=q_chunk, kv_chunk=kv_chunk,
     )
     x = x + a
@@ -83,13 +84,16 @@ def attn_mlp_block_decode(
     moe: bool,
     sieve=None,
     paged=None,  # (block_tables, owner, block_pos): the cache is a block pool
+    mrope_positions=None,  # (3, B, 1): M-RoPE position streams (vlm)
 ):
     """One-token block.  Returns (x, aux); the cache is written in place."""
     h = apply_norm(p["norm1"], x, arch.norm)
     if paged is not None:
-        a = attn_lib.gqa_decode_paged(p["attn"], h, position, cache[0], cache[1], paged, arch.attn)
+        a = attn_lib.gqa_decode_paged(p["attn"], h, position, cache[0], cache[1], paged, arch.attn,
+                                      mrope_positions)
     else:
-        a = attn_lib.gqa_decode(p["attn"], h, position, cache[0], cache[1], arch.attn)
+        a = attn_lib.gqa_decode(p["attn"], h, position, cache[0], cache[1], arch.attn,
+                                mrope_positions)
     x = x + a
     h = apply_norm(p["norm2"], x, arch.norm)
     return _ffn(p, x, h, arch, moe, sieve)

@@ -26,6 +26,9 @@ each step.  On the card, the counterpart of the JAX engine's compiled
 step (``jax.jit(lm.decode_step, donate_argnums=(2,))``) is one CUDA graph
 of ``LM.decode_step``, captured after the first decode step has run
 eagerly and replayed by every later one (:meth:`ServingEngine._decode`).
+For the ``vlm`` family the prompt's text tokens carry M-RoPE positions
+equal on the temporal, height and width streams, at prefill and as one
+more fixed-address decode input, so each engine still captures one graph.
 Prefill runs eagerly: its shape changes with each prompt.  With
 ``BatchingConfig(paged=True)`` the cache is a shared block pool indexed
 through host-side block tables (``PagedKVCache``): blocks are allocated
@@ -243,10 +246,13 @@ class ServingEngine:
     def _decode_buffers(self):
         """The decode step's inputs on the device, allocated once, and their
         host staging buffers (pinned on the card, so the fill is an
-        asynchronous copy): tokens and positions, and for a paged cache the
-        block tables, pool owners and block positions."""
+        asynchronous copy): tokens and positions, for the ``vlm`` family the
+        M-RoPE positions, and for a paged cache the block tables, pool
+        owners and block positions."""
         B = self.cfg.n_slots
         shapes = {"tokens": (B, 1), "position": (B,)}
+        if self.lm.arch.family == "vlm":
+            shapes["mrope_positions"] = (3, B, 1)
         if self.paged is not None:
             shapes.update(block_tables=self.paged.block_table.shape,
                           pool_owner=(self.paged.n_pool,), pool_pos=(self.paged.n_pool,))
@@ -540,6 +546,10 @@ class ServingEngine:
                 self.paged.ensure(req.slot, len(req.prompt))
             if self.uses_cost_split:
                 batch["sieve"] = self._sieve_state
+            if self.lm.arch.family == "vlm":
+                # text tokens: the same position on the t, h and w streams
+                pos = torch.arange(len(req.prompt), dtype=torch.int32, device=self.device)
+                batch["mrope_positions"] = pos.expand(3, 1, -1)
             with tel.span("engine/prefill", value=float(len(req.prompt))):
                 logits, req_cache, p_aux = self.lm.prefill(self.params, batch)
                 self._insert_prefill(req.slot, req_cache)
@@ -566,6 +576,8 @@ class ServingEngine:
                 # one before the request's next-write cursor
                 position[r.slot] = r.position - 1 if r.generated else r.position
             inputs = {"tokens": tokens, "position": position}
+            if self.lm.arch.family == "vlm":
+                inputs["mrope_positions"] = np.broadcast_to(position[None, :, None], (3, B, 1))
             if self.paged is not None:
                 # grow block lists to cover this step's KV write, then send
                 # the fixed-shape indexing state with the batch

@@ -343,14 +343,14 @@ class TestDecodeAttention:
         assert ops.LAUNCHES["decode_attention_paged"] == 3
 
 
-def _paged_case(dev, seed, page, lens, idle=(), bad=()):
+def _paged_case(dev, seed, page, lens, idle=(), bad=(), Kv=4, G=8, dh=128):
     """Inputs of one paged case and the plain version's output: each live
     slot's blocks drawn from a shuffled pool, cells past its length on the
     trash block 0, ``idle`` slots' rows all trash, the free blocks poisoned
     (a read of one shows); ``bad`` (slot, cell, "past" or "negative") cells
     point outside the pool, and the plain version reads a zero block there."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    B, Kv, G, dh, max_blocks = 8, 4, 8, 128, 1024 // page
+    B, max_blocks = 8, 1024 // page
     n_pool = B * max_blocks + 1
     q = _rnd(g, (B, Kv * G, dh), dev)
     pk, pv = (_rnd(g, (n_pool, page, Kv, dh), dev) for _ in range(2))
@@ -379,6 +379,128 @@ def _paged_case(dev, seed, page, lens, idle=(), bad=()):
     else:
         want = ref.decode_attention_paged_ref(q, pk, pv, tab, L)
     return (q, pk, pv, tab, L), want
+
+
+# (dh, Kv, G) of the head-dim instances and head groups beyond the
+# qwen3-moe shape (dh 128, G 8): granite-3-2b, zamba2-7b's shared
+# attention, qwen1.5-0.5b, qwen2-vl-7b, an MQA group of 32 heads (two head
+# groups) and one of 20 (a partial second group)
+_INSTANCES = {
+    "dh64_g4": (64, 8, 4),
+    "dh112_g1": (112, 32, 1),
+    "dh64_g1": (64, 16, 1),
+    "dh128_g7": (128, 4, 7),
+    "dh128_g32": (128, 1, 32),
+    "dh64_g20": (64, 2, 20),
+}
+
+
+@pytest.mark.cuda
+class TestAttentionInstances:
+    """Each head-dim instance and the head-group axis against the plain
+    versions: three launches on the same buffers (tickets back at zero),
+    bitwise equal, exact zeros on length-0 rows."""
+
+    @pytest.mark.parametrize("case", list(_INSTANCES))
+    @pytest.mark.parametrize("T,lens", [
+        (1024, [145, 387, 201, 330, 260, 178, 299, 356]),  # serving lengths
+        (1000, [0, 1, 63, 64, 65, 1000, 999, 500]),  # ragged tails, length 0, length T
+    ], ids=["serving", "edges"])
+    def test_dense(self, cuda, case, T, lens):
+        dh, Kv, G = _INSTANCES[case]
+        g = torch.Generator(device=cuda).manual_seed(dh + G + T)
+        B = len(lens)
+        q = _rnd(g, (B, Kv * G, dh), cuda)
+        ck, cv = (_rnd(g, (B, T, Kv, dh), cuda) for _ in range(2))
+        L = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        ops.reset_launches()
+        _three_launches(lambda: ops.decode_attention(q, ck, cv, L), ref.decode_attention_ref(q, ck, cv, L),
+                        L == 0)
+        assert ops.LAUNCHES["decode_attention"] == 3
+
+    @pytest.mark.parametrize("case", list(_INSTANCES))
+    def test_split(self, cuda, case):
+        dh, Kv, G = _INSTANCES[case]
+        g = torch.Generator(device=cuda).manual_seed(7 * dh + G)
+        B, T = 8, 4100
+        q = _rnd(g, (B, Kv * G, dh), cuda)
+        ck, cv = (_rnd(g, (B, T, Kv, dh), cuda) for _ in range(2))
+        L = torch.tensor([0, 1, 32, 64, 65, T - 1, 1000, 2049], dtype=torch.int32, device=cuda)
+        ops.reset_launches()
+        _three_launches(lambda: ops.decode_attention(q, ck, cv, L, n_splits=4),
+                        ref.decode_attention_split_ref(q, ck, cv, L, 4), L == 0)
+        assert ops.LAUNCHES["decode_attention_split"] == 3
+        torch.cuda.synchronize()
+        rows = B * Kv * -(-G // 16)
+        assert not ops._TICKETS[("decode_attention_split", q.device.index, rows)].any()
+
+    @pytest.mark.parametrize("case", list(_INSTANCES))
+    def test_paged(self, cuda, case):
+        dh, Kv, G = _INSTANCES[case]
+        lens = [1024, 0, 1, 17, 300, 16, 17, 640]
+        args, want = _paged_case(cuda, dh + G, 16, lens, idle=(2,), Kv=Kv, G=G, dh=dh)
+        ops.reset_launches()
+        _three_launches(lambda: ops.decode_attention_paged(*args), want, args[4] == 0)
+        assert ops.LAUNCHES["decode_attention_paged"] == 3
+
+    @pytest.mark.parametrize("dh", [32, 96, 256])
+    def test_other_head_dims_raise(self, cuda, dh):
+        q = torch.zeros((1, 4, dh), dtype=BF, device=cuda)
+        ck = torch.zeros((1, 16, 2, dh), dtype=BF, device=cuda)
+        L = torch.ones((1,), dtype=torch.int32, device=cuda)
+        with pytest.raises(ValueError, match=r"\(64, 112, 128\)"):
+            ops.decode_attention(q, ck, ck, L)
+        with pytest.raises(ValueError, match=r"\(64, 112, 128\)"):
+            ops.decode_attention_paged(q, ck, ck, torch.zeros((1, 1), dtype=torch.int32, device=cuda), L)
+
+
+def _ragged_case(dev, seed, sizes, bm, K, N, extra_tiles=0):
+    """Inputs of one gmm_ragged case and the plain version's output, with
+    the rows no live output reads (padding, and ``extra_tiles`` bm tiles
+    past the spans) and the weights of groups with no live row at 1e4, so
+    that a read of either shows."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    E = len(sizes)
+    spans = [-(-n // bm) * bm for n in sizes]
+    M = sum(spans) + extra_tiles * bm
+    lhs = _rnd(g, (M, K), dev)
+    rhs = _rnd(g, (E, K, N), dev, K**-0.5)
+    start = 0
+    live = torch.zeros((M,), dtype=torch.bool, device=dev)
+    for n, span in zip(sizes, spans):
+        live[start:start + n] = True
+        start += span
+    lhs[~live] = 1e4
+    rhs[torch.tensor([n == 0 for n in sizes], device=dev)] = 1e4
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    return (lhs, rhs, gs, bm), ref.gmm_ragged_ref(lhs, rhs, gs, bm), ~live
+
+
+@pytest.mark.cuda
+class TestGmmRagged:
+    @pytest.mark.parametrize("case", [
+        # (sizes, bm, K, N, extra bm tiles past the spans)
+        ([2, 0, 3, 1, 0, 0, 2, 1] * 16, 8, 2048, 768, 0),  # a decode step's routing, 128 groups
+        ([40, 0, 129, 7, 0, 300, 1, 64], 128, 256, 192, 0),  # prefill-like, N % 128 != 0
+        ([5, 0, 30, 24, 1], 24, 128, 128, 2),  # a bm that is no power of two; rows past the spans
+        ([0, 0, 0, 0], 8, 64, 64, 3),  # every group empty
+        ([70], 64, 192, 256, 1),  # one group over two bm tiles
+    ], ids=["decode", "prefill", "bm24_past_spans", "all_empty", "one_group"])
+    def test_against_plain(self, cuda, case):
+        sizes, bm, K, N, extra = case
+        args, want, dead = _ragged_case(cuda, sum(sizes) + bm, sizes, bm, K, N, extra)
+        ops.reset_launches()
+        _three_launches(lambda: ops.gmm_ragged(*args), want, dead)
+        assert ops.LAUNCHES["gmm_ragged"] == 3
+
+    def test_checks(self, cuda):
+        lhs = torch.zeros((16, 64), dtype=BF, device=cuda)
+        rhs = torch.zeros((2, 64, 64), dtype=BF, device=cuda)
+        gs = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            ops.gmm_ragged(lhs, rhs, gs, bm=12)
+        with pytest.raises(ValueError, match="K % 64"):
+            ops.gmm_ragged(lhs[:, :32].contiguous(), rhs[:, :32].contiguous(), gs, bm=8)
 
 
 @pytest.mark.cuda
@@ -547,6 +669,69 @@ class TestCompiledDecodeStep:
         for k, n in eng._graph_launches.items():
             assert ops.LAUNCHES[k] == after_first[k] + 2 * n
         assert eng._graph_launches["decode_attention"] == arch.n_layers
+
+
+# (config, paged) of the dense and VLM decode-step cases: two full-width
+# layers each; granite-3-2b runs the dh-64 instance, qwen2-vl-7b (dh 128,
+# 7 query heads per kv head, QKV bias, untied head) M-RoPE positions as a
+# decode input
+_FAMILY_CASES = {
+    "granite_3_2b_dense": ("granite-3-2b", False),
+    "granite_3_2b_paged": ("granite-3-2b", True),
+    "qwen2_vl_7b_dense": ("qwen2-vl-7b", False),
+}
+
+
+@pytest.mark.cuda
+class TestFamilyDecodeStep:
+    @pytest.mark.parametrize("case", list(_FAMILY_CASES))
+    def test_replay_bitwise_equal_to_eager(self, cuda, case):
+        """Two engines on the same weights and requests, one replaying its
+        captured decode step and one eager, stepped side by side: the same
+        tokens, and logits and KV caches bitwise equal at every step; one
+        capture, holding one attention launch per layer and no MoE kernel."""
+        import dataclasses
+
+        from repro_torch.configs import get_arch
+        from repro_torch.models import LM
+        from repro_torch.serving import BatchingConfig, Request, ServingEngine
+
+        name, paged = _FAMILY_CASES[case]
+        arch = dataclasses.replace(get_arch(name), n_layers=2)
+        lm = LM(arch, dtype=BF, device="cuda")
+        params = lm.init(seed=0)
+        batching = BatchingConfig(n_slots=2, max_seq=128, paged=paged, page_size=16)
+        engines = [ServingEngine(lm, params, batching) for _ in range(2)]
+        engines[0]._replay = False
+        logits = [[], []]
+
+        def recorded(i, fn):
+            def run(batch):
+                out = fn(batch)
+                logits[i].append(out[0].float().cpu())
+                return out
+            return run
+
+        new_tokens = (4, 12, 9)
+        for i, eng in enumerate(engines):
+            eng._decode = recorded(i, eng._decode)
+            for n, m in zip((30, 17, 45), new_tokens):
+                prompt = torch.randint(0, arch.vocab_size, (n,), generator=torch.Generator().manual_seed(n))
+                eng.submit(Request(prompt=prompt.tolist(), max_new_tokens=m))
+        while not all(e.sched.idle for e in engines):
+            for eng in engines:
+                eng.step()
+            for a, b in zip(engines[0].cache["blocks"], engines[1].cache["blocks"]):
+                assert torch.equal(a, b)
+        assert len(logits[0]) == len(logits[1]) > 2
+        assert all(torch.equal(a, b) for a, b in zip(*logits))
+        tokens = [[r.generated for r in sorted(e.sched.finished, key=lambda r: r.req_id)] for e in engines]
+        assert tokens[0] == tokens[1] and [len(g) for g in tokens[1]] == list(new_tokens)
+        assert (engines[0].n_captures, engines[1].n_captures) == (0, 1)
+        attn = "decode_attention_paged" if paged else "decode_attention"
+        captured = engines[1]._graph_launches
+        assert captured[attn] == arch.n_layers
+        assert all(n == 0 for k, n in captured.items() if k != attn)
 
 
 def _card_probe_time(slow: bool):

@@ -279,9 +279,10 @@ class TestWrapperDispatch:
         w = t(rng.standard_normal((1, 8, 8)).astype(np.float32))
         ops.gmm_capacity(q.reshape(1, 2, 8), w, torch.tensor([1], dtype=torch.int32))
         ops.expert_gemv(q[0], w, torch.zeros(2, dtype=torch.int32))
+        ops.gmm_ragged(torch.zeros((8, 8)), w, torch.tensor([1], dtype=torch.int32), bm=8)
         assert set(ops.LAUNCHES) == {
             "swiglu_gmm_capacity", "swiglu_gemv", "decode_attention", "decode_attention_split",
-            "decode_attention_paged", "gmm_capacity", "expert_gemv",
+            "decode_attention_paged", "gmm_capacity", "gmm_ragged", "expert_gemv",
         }
         assert all(n == 0 for n in ops.LAUNCHES.values())
 
