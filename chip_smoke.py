@@ -29,8 +29,11 @@ Phases, each fatal on failure:
    split-KV and paged attention at granite-3-2b's decode shape (the dh-64
    instance), at zamba2-7b's shared-attention shape (the dh-112
    instance) and with a 32-head query group at dh 128 (the last two on
-   their entry points), and
-   ``gmm_ragged`` at the decode gate call's routing; the rows without a
+   their entry points),
+   ``gmm_ragged`` at the decode gate call's routing, and the four MoE
+   kernels (fused head and tail, grouped matmul, expert GEMV) again at
+   deepseek-v2-236b's shapes (160 experts top-6, d_model 5120, d_expert
+   1536; phase 7's model); the rows without a
    model caller are driven as one decode step would drive them.  The
    attention kernels are also held (not timed) at the decode shape of each
    family that phase 6 serves, on each KV layout it is served on.  With
@@ -86,7 +89,19 @@ Phases, each fatal on failure:
    are.  Each run's 2-layer slice agrees with the CPU plain
    path under the phase-4 rule (qwen2-vl-7b's on the vision-patch stub with
    distinct t/h/w positions), and qwen2-vl-7b prefills 256 stub
-   embeddings at full depth.
+   embeddings at full depth;
+7. deepseek-v2: after phase 6 frees the families' weights,
+   deepseek-v2-236b is built at full width but cut to 5 of its 60 layers (the dense first layer and four MoE layers,
+   MLA attention, 2 shared experts; its 236B parameters do not fit one
+   card), bf16 seeded random weights, on the Sieve dual path
+   (``expert_exec="dual_path_cost"``), and serves the 12 requests of phase
+   4 on the dense KV cache twice, fused and three-call, each with phase
+   4's checks (one capture, only its path's MoE kernels and no attention
+   kernel, head + tail + drops equal to the routed assignments), its
+   profile and its 2-layer slice (the dense block and the first MoE
+   block) against the CPU plain path; MLA decode's share of a replayed
+   step's device time is timed as a captured graph of its own, and eager
+   and replayed engines of both paths must give the same tokens.
 
 It prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -387,23 +402,26 @@ def _decode_routing(E: int, k: int, n_tok: int, seed: int):
     return counts
 
 
-def phase_kernels(arch, parent=None) -> dict:
-    """Every kernel against its plain version, then timed.  ``parent``
-    (``load_parent``): the parent commit's dense and split-KV attention,
-    timed in turns beside the new ones at the same inputs."""
+def phase_moe_kernels(arch, gen, suffix: str = "") -> dict:
+    """The four MoE kernels (the fused head and tail, the grouped matmul
+    and the expert GEMV) against their plain versions at ``arch``'s widths
+    and expert count, then timed: a decode step's routing of 8 tokens,
+    capacity ``C`` at 8 tokens, and the head and the grouped matmul's down
+    call at a 512-token prefill's capacity too.  Rows are named
+    ``<kernel><suffix>``."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
+    from repro_torch.models.moe import capacity
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
     bf = torch.bfloat16
     E, K, Fd, N = arch.moe.n_experts, arch.d_model, arch.moe.d_expert, arch.d_model
-    a = arch.attn
-    n_slots, max_seq = 8, 1024
+    n_slots = 8
+    C_dec = capacity(n_slots, arch.moe, E)  # 8 tokens: the min_capacity floor
+    C_pre = capacity(512, arch.moe, E)  # a 512-token prefill chunk
 
     def rnd(shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
@@ -417,16 +435,15 @@ def phase_kernels(arch, parent=None) -> dict:
     # ---- kernel 1: head grouped SwiGLU ----
     # persistent, one launch: each case three launches on the same buffers
     # (readiness counters back at zero after each) with bitwise-equal outputs
-    C_dec = 8  # capacity(T=8) at qwen3-30b, min_capacity floor
     head = np.where(counts >= 2, counts, 0)
-    prefill_sizes = np.random.default_rng(5).integers(0, 41, E)  # ragged, 0-40
+    prefill_sizes = np.random.default_rng(5).integers(0, C_pre + 1, E)  # ragged, 0-C_pre
     rog = torch.as_tensor(np.random.default_rng(4).integers(0, E, E), dtype=torch.int32, device=dev)
     over = head.copy()
     over[np.flatnonzero(head)[:3]] = C_dec + 5  # past the capacity: clamped to C
     errs = []
     for C, sizes, rhs_of_group in (
         (C_dec, head, None),  # the decode step's head split
-        (40, prefill_sizes, None),  # prefill, T=512
+        (C_pre, prefill_sizes, None),  # prefill, T=512
         (C_dec, np.r_[np.zeros(E // 2, np.int64), np.full(E // 2, C_dec)], None),  # dead groups
         (C_dec, np.zeros(E, np.int64), None),  # every group dead
         (C_dec, over, None),
@@ -443,7 +460,7 @@ def phase_kernels(arch, parent=None) -> dict:
             zero_rows=dead))
     buf = rnd((E, C_dec, K))
     gs = torch.as_tensor(head, dtype=torch.int32, device=dev)
-    buf_pre = rnd((E, 40, K))
+    buf_pre = rnd((E, C_pre, K))
     gs_pre = torch.as_tensor(prefill_sizes, dtype=torch.int32, device=dev)
     live_rows = int(head.sum())
     n_live = int((head > 0).sum())
@@ -461,7 +478,7 @@ def phase_kernels(arch, parent=None) -> dict:
     byts = head_bytes(n_live, live_rows, C_dec)
     flops = 2 * live_rows * 3 * K * Fd
     pre_rows = int(prefill_sizes.sum())
-    pre_bound = max(head_bytes(int((prefill_sizes > 0).sum()), pre_rows, 40) / PEAK_HBM_BYTES,
+    pre_bound = max(head_bytes(int((prefill_sizes > 0).sum()), pre_rows, C_pre) / PEAK_HBM_BYTES,
                     2 * pre_rows * 3 * K * Fd / PEAK_BF16_FLOPS) * 1e3
     results["swiglu_gmm_capacity"] = dict(
         max_abs_err=max(errs),
@@ -476,7 +493,7 @@ def phase_kernels(arch, parent=None) -> dict:
                                         flush_by="read")),
         bytes=byts, flops=flops, prefill_bound_ms=pre_bound,
         shape=f"buf ({E},{C_dec},{K}), {n_live} live groups, {live_rows} live rows",
-        prefill_shape=f"buf ({E},40,{K}), {int((prefill_sizes > 0).sum())} live groups, "
+        prefill_shape=f"buf ({E},{C_pre},{K}), {int((prefill_sizes > 0).sum())} live groups, "
                       f"{pre_rows} live rows",
     )
 
@@ -523,11 +540,11 @@ def phase_kernels(arch, parent=None) -> dict:
     one_live[17] = C_dec
     for C, w, sizes, rhs_of_group in (
         (C_dec, wg, head, None),  # decode gate/up call: 13 live groups
-        (40, wd, prefill_sizes, None),  # prefill down call, C % 16 != 0, ragged sizes
+        (C_pre, wd, prefill_sizes, None),  # prefill down call, ragged sizes
         (C_dec, wg, np.r_[np.zeros(E // 2, np.int64), np.full(E // 2, C_dec)], None),  # all-dead groups
         (C_dec, wg, head, rog),  # groups sharing weights
         (C_dec, wg, one_live, None),  # one live group: split-K over every SM
-        (C_dec, wg, np.random.default_rng(7).integers(1, C_dec + 1, E), None),  # all 128 live
+        (C_dec, wg, np.random.default_rng(7).integers(1, C_dec + 1, E), None),  # every group live
     ):
         buf = rnd((E, C, w.shape[1]))
         gs = torch.as_tensor(sizes, dtype=torch.int32, device=dev)
@@ -541,7 +558,7 @@ def phase_kernels(arch, parent=None) -> dict:
     # the slab computes the same function
     buf = rnd((E, C_dec, K)) * (torch.arange(C_dec, device=dev)[None, :, None] < gs[:, None, None])
     gs_pre = torch.as_tensor(prefill_sizes, dtype=torch.int32, device=dev)
-    buf_pre = rnd((E, 40, Fd)) * (torch.arange(40, device=dev)[None, :, None] < gs_pre[:, None, None])
+    buf_pre = rnd((E, C_pre, Fd)) * (torch.arange(C_pre, device=dev)[None, :, None] < gs_pre[:, None, None])
     results["gmm_capacity"] = dict(
         max_abs_err=max(errs),
         host_us=host_us(lambda: ops.gmm_capacity(buf, wg, gs)),
@@ -554,7 +571,7 @@ def phase_kernels(arch, parent=None) -> dict:
         flops=2 * live_rows * K * Fd,
         shape=f"gate call: buf ({E},{C_dec},{K}) x ({E},{K},{Fd}), {n_live} live groups, "
               f"{live_rows} live rows",
-        prefill_down_shape=f"buf ({E},40,{Fd}) x ({E},{Fd},{N}), {int((prefill_sizes > 0).sum())} "
+        prefill_down_shape=f"buf ({E},{C_pre},{Fd}) x ({E},{Fd},{N}), {int((prefill_sizes > 0).sum())} "
                            f"live groups, {int(prefill_sizes.sum())} live rows",
     )
 
@@ -586,6 +603,43 @@ def phase_kernels(arch, parent=None) -> dict:
         shape=f"gate call: tokens ({S},{K}) x ({E},{K},{Fd}), {n_valid} valid rows",
     )
     del wg, wu, wd
+    for name, r in results.items():
+        _log_row(f"{name}{suffix}", r)
+    r = results["swiglu_gmm_capacity"]
+    log(f"kernel swiglu_gmm_capacity{suffix} prefill [{r['prefill_shape']}]: {r['prefill_ms']:.4f} ms "
+        f"({r['prefill_ms_spread']['min']:.4f}-{r['prefill_ms_spread']['max']:.4f}), "
+        f"bound {r['prefill_bound_ms']:.4f} ms; kernels per call {r['kernels_per_call']}; decode with "
+        f"the L2 flushed by a read {r['clean_l2_ms']['median']:.4f} ms "
+        f"({r['clean_l2_ms']['min']:.4f}-{r['clean_l2_ms']['max']:.4f})")
+    r = results["gmm_capacity"]
+    log(f"kernel gmm_capacity{suffix} prefill down call [{r['prefill_down_shape']}]: "
+        f"{r['prefill_down_ms']:.4f} ms, torch.bmm {r['prefill_down_library_ms']:.4f} ms")
+    torch.cuda.empty_cache()
+    return {f"{name}{suffix}": dict(r, kernel=name) for name, r in results.items()}
+
+
+def phase_kernels(arch, parent=None) -> dict:
+    """Every kernel against its plain version, then timed.  ``parent``
+    (``load_parent``): the parent commit's dense and split-KV attention,
+    timed in turns beside the new ones at the same inputs."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    bf = torch.bfloat16
+    a = arch.attn
+    n_slots, max_seq = 8, 1024
+
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    moe_rows = phase_moe_kernels(arch, gen)
+    results = {}
 
     # ---- kernel 3: decode attention ----
     # split over each live length: each case three launches on the same
@@ -820,15 +874,6 @@ def phase_kernels(arch, parent=None) -> dict:
         f"{host_us(lambda: F.silu(small)):.1f} us/call")
     for name, r in results.items():
         _log_row(name, r)
-    r = results["swiglu_gmm_capacity"]
-    log(f"kernel swiglu_gmm_capacity prefill [{r['prefill_shape']}]: {r['prefill_ms']:.4f} ms "
-        f"({r['prefill_ms_spread']['min']:.4f}-{r['prefill_ms_spread']['max']:.4f}), "
-        f"bound {r['prefill_bound_ms']:.4f} ms; kernels per call {r['kernels_per_call']}; decode with "
-        f"the L2 flushed by a read {r['clean_l2_ms']['median']:.4f} ms "
-        f"({r['clean_l2_ms']['min']:.4f}-{r['clean_l2_ms']['max']:.4f})")
-    r = results["gmm_capacity"]
-    log(f"kernel gmm_capacity prefill down call [{r['prefill_down_shape']}]: "
-        f"{r['prefill_down_ms']:.4f} ms, torch.bmm {r['prefill_down_library_ms']:.4f} ms")
     for name, r in results.items():
         for shape, t in r.get("parent", {}).items():
             if isinstance(t, dict) and "parent" in t:
@@ -836,7 +881,7 @@ def phase_kernels(arch, parent=None) -> dict:
                     f"({t['parent']['min']:.4f}-{t['parent']['max']:.4f}), new {t['new']['median']:.4f} ms "
                     f"({t['new']['min']:.4f}-{t['new']['max']:.4f}), new/parent {t['new_over_parent']:.3f}")
     torch.cuda.empty_cache()
-    return results
+    return {**moe_rows, **results}
 
 
 def _log_row(name: str, r: dict) -> None:
@@ -1215,12 +1260,12 @@ def fused_swiglu(value: str):
             os.environ["REPRO_FUSED_SWIGLU"] = saved
 
 
-def phase_serve(lm, params, batching, path_kernels) -> dict:
+def phase_serve(lm, params, batching, path_kernels, run=None) -> dict:
     """Serve 12 requests through ``ServingEngine`` and check the run: every
     request and token, the kernels of ``path_kernels`` launched (and no
-    other),
-    head + tail + drops equal to the routed assignments in each phase, and
-    a paged pool back to all blocks free; then profile decode steps."""
+    other), head + tail + drops equal to the routed assignments in each
+    phase, and a paged pool back to all blocks free; then profile decode
+    steps.  ``run`` names the run in the log (default: its KV layout)."""
     import numpy as np
     import torch
 
@@ -1229,7 +1274,7 @@ def phase_serve(lm, params, batching, path_kernels) -> dict:
 
     arch = lm.arch
     eng = ServingEngine(lm, params, batching)
-    run = "paged" if batching.paged else "dense"
+    run = run or ("paged" if batching.paged else "dense")
     rng = np.random.default_rng(0)
     reqs = []
     for _ in range(12):
@@ -1272,9 +1317,9 @@ def phase_serve(lm, params, batching, path_kernels) -> dict:
             fail(f"{run} run: kernel {name} of its path was not launched")
         if name not in path_kernels and n != 0:
             fail(f"{run} run: kernel {name} is not on its path but was launched {n} times")
-    if probe.decode_calls < 2 or probe.replays != probe.decode_calls - 1:
-        fail(f"{run} run: {probe.replays} of {probe.decode_calls} decode steps replayed the captured "
-             "graph; every step after the first must")
+    if probe.decode_calls < 2 or probe.replays != probe.decode_calls - 1 or eng.n_captures != 1:
+        fail(f"{run} run: {eng.n_captures} captures, {probe.replays} of {probe.decode_calls} decode steps "
+             "replayed the captured graph; one capture and every step after the first replayed are required")
     if eng.paged is not None and eng.paged.n_free != eng.paged.n_pool - 1:
         fail(f"paged run: {eng.paged.n_free} of {eng.paged.n_pool - 1} pool blocks free after the run")
     for name, ph in path.items():
@@ -1313,7 +1358,7 @@ def phase_serve(lm, params, batching, path_kernels) -> dict:
         sieve_refreshes=len(eng.sieve_refreshes),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         launches=launches,
-        decode_calls=probe.decode_calls, replays=probe.replays,
+        decode_calls=probe.decode_calls, replays=probe.replays, captures=eng.n_captures,
         graph_launches=dict(eng._graph_launches),
     )
     log(f"serve {run}: {len(reqs)} requests, {out['prompt_tokens']} prompt + {out['decode_tokens']} "
@@ -1334,24 +1379,27 @@ def phase_serve(lm, params, batching, path_kernels) -> dict:
     return out
 
 
-def phase_ab(lm, params, n_steps: int = 4) -> dict:
-    """Full-batch decode-step time of the two serving paths, each eager and
-    replayed, in turns (dense eager, dense replayed, paged eager, paged
+def phase_ab(lm, params, n_steps: int = 4, paths=None) -> dict:
+    """Full-batch decode-step time of two serving paths, each eager and
+    replayed, in turns (first path eager, replayed, second path eager,
     replayed, then the reverse, twice) on the same weights and prompts, so
     that host drift over the call falls on all four: each turn prefills 8
     requests of 256 tokens, then times ``n_steps`` decode steps on the host
     clock (each step ends in the logits' copy to the host).  The eager
     engines run with the engine's private ``_replay`` off.  Eager and
-    replayed engines of a path must give the same tokens."""
+    replayed engines of a path must give the same tokens.  ``paths``: name
+    -> (BatchingConfig, ``REPRO_FUSED_SWIGLU``), by default the dense cache
+    fused ("dense") and the paged pool on the three-call path ("paged")."""
     import numpy as np
     import torch
 
     from repro_torch.serving import BatchingConfig, Request, ServingEngine
 
-    paths = {
+    paths = paths or {
         "dense": (BatchingConfig(n_slots=8, max_seq=1024), "1"),
         "paged": (BatchingConfig(n_slots=8, max_seq=1024, paged=True, page_size=16), "0"),
     }
+    first, second = paths
     order = [(name, mode) for name in paths for mode in ("eager", "replay")]
     engines = {}
     for name, mode in order:
@@ -1383,8 +1431,9 @@ def phase_ab(lm, params, n_steps: int = 4) -> dict:
            for (name, mode), v in steps.items()}
     for name in paths:
         out[f"{name}_replay_over_eager"] = out[f"{name}_replay"]["median_ms"] / out[f"{name}_eager"]["median_ms"]
-    out["paged_over_dense_replay"] = out["paged_replay"]["median_ms"] / out["dense_replay"]["median_ms"]
-    out["paged_over_dense_eager"] = out["paged_eager"]["median_ms"] / out["dense_eager"]["median_ms"]
+    for mode in ("replay", "eager"):
+        out[f"{second}_over_{first}_{mode}"] = (out[f"{second}_{mode}"]["median_ms"]
+                                                / out[f"{first}_{mode}"]["median_ms"])
     out["same_tokens"] = True
     for name in paths:
         e, r = out[f"{name}_eager"], out[f"{name}_replay"]
@@ -1392,8 +1441,8 @@ def phase_ab(lm, params, n_steps: int = 4) -> dict:
             f"({min(e['step_ms']):.1f}-{max(e['step_ms']):.1f}), replayed {r['median_ms']:.1f} ms "
             f"({min(r['step_ms']):.1f}-{max(r['step_ms']):.1f}), replayed/eager "
             f"x{out[f'{name}_replay_over_eager']:.3f} over {len(e['step_ms'])} steps each; same tokens")
-    log(f"in turns: paged/dense x{out['paged_over_dense_replay']:.3f} replayed, "
-        f"x{out['paged_over_dense_eager']:.3f} eager")
+    log(f"in turns: {second}/{first} x{out[f'{second}_over_{first}_replay']:.3f} replayed, "
+        f"x{out[f'{second}_over_{first}_eager']:.3f} eager")
     del engines
     torch.cuda.empty_cache()
     return out
@@ -1448,7 +1497,19 @@ class RoutingTape:
         return moved / max(1, sum(int(c.sum()) for _, c in self.card))
 
 
-def phase_reference(lm, params, paged: bool) -> dict:
+def _two_layers(arch, params):
+    """The first two layers of a model (with a dense prefix block: that
+    block and the first of the others), as a config and its weights."""
+    small = dataclasses.replace(arch, n_layers=2)
+    n_prefix = arch.moe.first_k_dense if arch.moe is not None else 0
+    gp = {k: v for k, v in params.items() if k not in ("blocks", "prefix_blocks")}
+    if n_prefix:
+        gp["prefix_blocks"] = params["prefix_blocks"][:2]
+    gp["blocks"] = params["blocks"][:2 - min(n_prefix, 2)]
+    return small, gp
+
+
+def phase_reference(lm, params, paged: bool, run=None) -> dict:
     """A 2-layer slice of the served weights on the card against the plain
     path on the CPU: prefill logits, and the logits of one decode step
     through a dense cache or, paged, through a block pool whose table maps
@@ -1461,10 +1522,8 @@ def phase_reference(lm, params, paged: bool) -> dict:
     from repro_torch.models import LM
 
     arch = lm.arch
-    run = "paged" if paged else "dense"
-    small = dataclasses.replace(arch, n_layers=2)
-    gp = {k: v for k, v in params.items() if k != "blocks"}
-    gp["blocks"] = params["blocks"][:2]
+    run = run or ("paged" if paged else "dense")
+    small, gp = _two_layers(arch, params)
     cp = _to_cpu(gp)
     rng = np.random.default_rng(1)
     prompt = torch.as_tensor(rng.integers(0, arch.vocab_size, (1, 32)))
@@ -1672,8 +1731,9 @@ def _prefill_decode(lm, params, prompt, tok, paged: bool, stub=None):
         batch["mrope_positions"] = torch.tensor([[[P]], [[P + 3]], [[P + 7]]], dtype=torch.int32, device=dev)
     if not paged:
         cache = lm.init_cache(1, 64)
-        for dst, src in zip(cache["blocks"], req_cache["blocks"]):
-            dst[:, :, :P].copy_(src)
+        for key in cache:
+            for dst, src in zip(cache[key], req_cache[key]):
+                dst[:, :, :P].copy_(src)
     else:
         page, max_blocks = 16, 64
         n = P // page + 1  # blocks covering positions 0..P
@@ -1681,7 +1741,7 @@ def _prefill_decode(lm, params, prompt, tok, paged: bool, stub=None):
         ids = torch.arange(n_pool - 1, 1, -1)
         cache = lm.init_paged_cache(n_pool, page)
         nbp = -(-P // page)
-        for dst, src in zip(cache["blocks"], req_cache["blocks"]):
+        for dst, src in ((d, s) for key in cache for d, s in zip(cache[key], req_cache[key])):
             rows = torch.nn.functional.pad(src[:, 0], (0, 0, 0, 0, 0, nbp * page - P))
             dst[:, ids[:nbp].to(dev)] = rows.reshape((rows.shape[0], nbp, page) + rows.shape[2:])
         table = torch.zeros((1, max_blocks), dtype=torch.int32)
@@ -2139,9 +2199,7 @@ def _family_reference(lm, params, paged: bool) -> dict:
 
     arch = lm.arch
     run = f"{arch.name} {'paged' if paged else 'dense'}"
-    small = dataclasses.replace(arch, n_layers=2)
-    gp = {k: v for k, v in params.items() if k != "blocks"}
-    gp["blocks"] = params["blocks"][:2]
+    small, gp = _two_layers(arch, params)
     rng = np.random.default_rng(1)
     prompt = torch.as_tensor(rng.integers(0, arch.vocab_size, (1, 32)))
     tok = torch.as_tensor(rng.integers(0, arch.vocab_size, (1, 1)))
@@ -2222,6 +2280,112 @@ def phase_families() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: deepseek-v2-236b
+# ---------------------------------------------------------------------------
+
+# the dense first layer and four MoE layers of the 60: the model's 236B
+# parameters do not fit one card; every width stays as published
+DSV2_LAYERS = 5
+DSV2_FUSED_PATH = ("swiglu_gmm_capacity", "swiglu_gemv")
+DSV2_THREE_CALL_PATH = ("gmm_capacity", "expert_gemv")
+DSV2_SUFFIX = "_deepseek_v2"  # phase 3's rows at deepseek-v2's shapes
+
+
+def deepseek_arch():
+    """deepseek-v2-236b cut to ``DSV2_LAYERS`` layers, on the Sieve dual
+    path (``expert_exec="dual_path_cost"``; the config ships ``"dense"``)."""
+    from repro_torch.configs import get_arch
+
+    arch = get_arch("deepseek-v2-236b")
+    return dataclasses.replace(arch, n_layers=DSV2_LAYERS,
+                               moe=dataclasses.replace(arch.moe, expert_exec="dual_path_cost"))
+
+
+def _mla_decode_ms(lm, params, n: int = 10) -> float:
+    """Device time of one full-batch decode step's MLA attention: the
+    ``mla_decode`` of every layer (the dense prefix's and the MoE
+    blocks'), on 8 slots of 1024 positions filled with seeded values and
+    live lengths of 256-544, captured as one CUDA graph and timed by CUDA
+    events around ``n`` replays."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import attention
+
+    arch = lm.arch
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cache = lm.init_cache(8, 1024)
+    for leaves in cache.values():
+        for leaf in leaves:
+            leaf.normal_(generator=gen)
+    layers = [(blk["attn"], cache["prefix"], i) for i, blk in enumerate(params.get("prefix_blocks", []))]
+    layers += [(blk["attn"], cache["blocks"], i) for i, blk in enumerate(params["blocks"])]
+    x = torch.randn((8, 1, arch.d_model), generator=gen, device="cuda").to(lm.dtype)
+    position = torch.as_tensor(np.random.default_rng(12).integers(255, 544, 8), dtype=torch.int32,
+                               device="cuda")
+
+    def step():
+        return [attention.mla_decode(p, x, position, c[0][i], c[1][i], arch.attn) for p, c, i in layers]
+
+    step()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    del graph, cache
+    return e0.elapsed_time(e1) / n
+
+
+def phase_deepseek() -> dict:
+    """deepseek-v2-236b at full width, cut to its dense first layer and
+    four MoE layers, served with MLA on the dense cache as phase 4 serves
+    qwen3-moe, fused and then three-call, each run with its checks,
+    profile and 2-layer slice against the CPU plain path; MLA decode's
+    share of a replayed step's device time; and eager against replayed
+    engines of both paths in turns.  (Phase 3 holds and times its four
+    MoE kernels at its shapes.)"""
+    import torch
+
+    from repro_torch.serving import BatchingConfig
+
+    arch = deepseek_arch()
+    m = arch.attn.mla
+    log(f"deepseek-v2: {arch.n_layers} of 60 layers (the dense first layer, d_ff {arch.d_ff}, and "
+        f"{arch.n_layers - arch.moe.first_k_dense} MoE layers), full width: d_model {arch.d_model}, "
+        f"{arch.attn.n_heads} MLA heads (kv_lora {m.kv_lora_rank}, rope {m.qk_rope_dim}, q_lora "
+        f"{m.q_lora_rank}), {arch.moe.n_experts} experts top-{arch.moe.top_k} of d_expert "
+        f"{arch.moe.d_expert}, {arch.moe.n_shared} shared, vocab {arch.vocab_size}; bf16 random weights "
+        f"from seed 0; expert_exec {arch.moe.expert_exec} (the config ships dense); 8 slots of 1024 "
+        "positions, dense KV cache (MLA has no paged layout)")
+    lm, params = build_model(arch)
+    out = {"weights_gb": torch.cuda.memory_allocated() / 1e9}
+    batching = BatchingConfig(n_slots=8, max_seq=1024)
+    for run, fused, path in (("fused", "1", DSV2_FUSED_PATH), ("three_call", "0", DSV2_THREE_CALL_PATH)):
+        with fused_swiglu(fused):
+            out[run] = phase_serve(lm, params, batching, path, run=f"deepseek-v2 {run}")
+            out[run].update(phase_reference(lm, params, paged=False, run=f"deepseek-v2 {run}"))
+    out["mla_decode_ms"] = _mla_decode_ms(lm, params)
+    for run in ("fused", "three_call"):
+        graph_ms = out[run]["profile"]["replay"]["graph_span_ms"]
+        out[run]["mla_decode_share"] = out["mla_decode_ms"] / graph_ms
+        log(f"deepseek-v2 {run}: MLA decode {out['mla_decode_ms']:.3f} ms of the replayed step's "
+            f"{graph_ms:.3f} ms graph, share {out[run]['mla_decode_share']:.3f}")
+    out["in_turns"] = phase_ab(lm, params, paths={"fused": (batching, "1"), "three_call": (batching, "0")})
+    del lm, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> None:
@@ -2244,6 +2408,10 @@ def main() -> None:
     build_info = phase_build()
     parent = load_parent(args.parent_csrc) if args.parent_csrc else None
     kernels = phase_kernels(arch, parent)
+    # the four MoE kernels again at deepseek-v2's shapes (phase 7's model)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    kernels.update(phase_moe_kernels(deepseek_arch(), gen, DSV2_SUFFIX))
     kernels.update(phase_kernel_instances(arch))
     held = phase_family_shapes()
     lm, params = build_model(arch)
@@ -2266,6 +2434,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     log(f"qwen3-moe weights freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
     families = phase_families()
+    deepseek = phase_deepseek()
 
     # each kernel's launches come from the run of its own path
     launches = {k: serve["dense"]["launches"][k] for k in DENSE_FUSED_PATH}
@@ -2273,6 +2442,8 @@ def main() -> None:
     granite = families["granite-3-2b"]
     launches["decode_attention_dh64"] = granite["dense"]["launches"]["decode_attention"]
     launches["decode_attention_paged_dh64"] = granite["paged"]["launches"]["decode_attention_paged"]
+    launches.update({f"{k}{DSV2_SUFFIX}": deepseek["fused"]["launches"][k] for k in DSV2_FUSED_PATH})
+    launches.update({f"{k}{DSV2_SUFFIX}": deepseek["three_call"]["launches"][k] for k in DSV2_THREE_CALL_PATH})
     for name, r in kernels.items():
         if "path_launches" in r:
             launches[name] = r["path_launches"]
@@ -2290,6 +2461,7 @@ def main() -> None:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, device=kind, build=build_info, kernels=kernels, held=held, serve=serve, families=families,
+        deepseek=deepseek,
     ), indent=1, default=str))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

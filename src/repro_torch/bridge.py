@@ -14,9 +14,12 @@ import torch
 
 from repro_torch.device import resolve_device
 
-# leaves the reference keeps in float32 whatever the model dtype:
-# norm scales/biases and the router (repro/models/moe.py:75)
-_FLOAT32_LEAVES = ("scale", "bias", "w_router")
+# leaves the reference keeps in float32 whatever the model dtype: norm
+# scales/biases, the router (repro/models/moe.py:75) and MLA's latent norm
+# scales (repro/models/attention.py:61, 66)
+_FLOAT32_LEAVES = ("scale", "bias", "w_router", "q_norm_scale", "kv_norm_scale")
+# the scan-stacked block trees (leading layer axis), unstacked into lists
+_STACKED = ("blocks", "prefix_blocks")
 
 
 def _leaf(name: str, a, device, dtype) -> torch.Tensor:
@@ -39,16 +42,17 @@ def _unstack(tree, i: int):
 def params_from_numpy(tree: Dict[str, Any], device,
                       dtype: torch.dtype) -> Dict[str, Any]:
     """Convert a JAX ``LM.init`` tree (leaves as numpy arrays) into the
-    port's parameter dict.  The scan-stacked ``tree["blocks"]`` (leading
-    layer axis, ``repro/models/model.py:134``) becomes a list of per-layer
-    dicts; the router and norm scales stay float32, other floating leaves
-    take ``dtype``.  ``device`` is resolved as every entry point resolves
-    it: ``"cuda"`` without a GPU raises."""
+    port's parameter dict.  The scan-stacked ``tree["blocks"]`` and, with
+    a dense prefix, ``tree["prefix_blocks"]`` (leading layer axis,
+    ``repro/models/model.py:124-135``) become lists of per-layer dicts; the
+    router and the norm scales stay float32, other floating leaves take
+    ``dtype``.  ``device`` is resolved as every entry point resolves it:
+    ``"cuda"`` without a GPU raises."""
     device = resolve_device(device)
-    out = {k: _convert(v, device, dtype, k) for k, v in tree.items() if k != "blocks"}
-    blocks = tree["blocks"]
-    n_layers = len(np.asarray(blocks["norm1"]["scale"]))
-    out["blocks"] = [
-        _convert(_unstack(blocks, i), device, dtype) for i in range(n_layers)
-    ]
+    out = {k: _convert(v, device, dtype, k) for k, v in tree.items() if k not in _STACKED}
+    for key in _STACKED:
+        if key in tree:
+            blocks = tree[key]
+            n_layers = len(np.asarray(blocks["norm1"]["scale"]))
+            out[key] = [_convert(_unstack(blocks, i), device, dtype) for i in range(n_layers)]
     return out

@@ -2,8 +2,9 @@
 
 Counterpart of ``repro.configs.base``, cut to what the port serves: the
 decoder-only ``moe``, ``dense`` and ``vlm`` families with GQA attention
-(M-RoPE and the vision-patch stub included).  MLA, SSM and the encoder-
-decoder fields join when those families are ported.
+(M-RoPE and the vision-patch stub included) or DeepSeek-V2's MLA, and
+MoE models' leading dense blocks (``first_k_dense``).  SSM and the
+encoder-decoder fields join when those families are ported.
 """
 
 from __future__ import annotations
@@ -15,13 +16,25 @@ from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V2 Multi-head Latent Attention dims."""
+
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
 class AttnConfig:
-    kind: str = "gqa"  # only "gqa" is ported
+    kind: str = "gqa"  # "gqa" | "mla"
     n_heads: int = 0
     n_kv_heads: int = 0
     d_head: int = 0
     qkv_bias: bool = False
     rope_theta: float = 1e6
+    mla: Optional[MLAConfig] = None
     # Qwen2-VL M-RoPE: head-dim split across (temporal, height, width)
     mrope_sections: Optional[Tuple[int, int, int]] = None
 
@@ -32,7 +45,7 @@ class MoEConfig:
     top_k: int
     d_expert: int
     n_shared: int = 0
-    first_k_dense: int = 0
+    first_k_dense: int = 0  # leading dense layers (DeepSeek-V2: 1)
     capacity_factor: float = 1.25
     # Decode batches are tiny; a capacity floor keeps serving drop-free
     # (cap = min(T, min_capacity) lower bound).
@@ -74,17 +87,24 @@ class ArchConfig:
     def reduced(self, **overrides) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests (same numbers as
         ``repro.configs.base.ArchConfig.reduced``)."""
+        a = self.attn
         kw: dict = dict(
             n_layers=min(self.n_layers, 2),
             d_model=64,
             d_ff=128,
             vocab_size=256,
             attn=dataclasses.replace(
-                self.attn,
+                a,
                 n_heads=4,
-                n_kv_heads=min(max(self.attn.n_kv_heads, 1), 2),
+                n_kv_heads=min(max(a.n_kv_heads, 1), 2) if a.kind == "gqa" else 0,
                 d_head=16,
-                mrope_sections=(4, 2, 2) if self.attn.mrope_sections else None,
+                mla=MLAConfig(
+                    q_lora_rank=32, kv_lora_rank=32, qk_nope_dim=16, qk_rope_dim=8,
+                    v_head_dim=16,
+                )
+                if a.mla is not None
+                else None,
+                mrope_sections=(4, 2, 2) if a.mrope_sections else None,
             ),
         )
         if self.moe is not None:
@@ -99,6 +119,7 @@ class ArchConfig:
 
 _MODULE_OF = {
     "qwen3-moe-30b-a3b": "qwen3_moe_30b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
     "deepseek-coder-33b": "deepseek_coder_33b",
     "granite-3-2b": "granite_3_2b",
     "qwen1.5-0.5b": "qwen15_0_5b",

@@ -1,11 +1,14 @@
-"""GQA attention: chunked online-softmax prefill and cached decode
-(counterpart of ``repro.models.attention``, GQA part).
+"""Attention: GQA (chunked online-softmax prefill, cached decode) and
+DeepSeek-V2's MLA (counterpart of ``repro.models.attention``, its GQA and
+MLA parts).
 
 Prefill attention (:func:`flash_attention`) is plain PyTorch, as it is
-plain jnp in the reference.  Decode attention goes through the
+plain jnp in the reference.  GQA decode attention goes through the
 ``decode_attention`` kernel wrapper (dense cache) or the
 ``decode_attention_paged`` one (paged block pool), which run the CUDA
-kernels on the card and their plain versions on the CPU.
+kernels on the card and their plain versions on the CPU.  MLA decode is
+the matrix-absorbed form in float32 einsums, as the reference computes it
+outside any kernel.
 """
 
 from __future__ import annotations
@@ -33,6 +36,27 @@ def init_gqa(gen, cfg: AttnConfig, d_model: int, dtype, device) -> dict:
         for name, n in (("bq", H * dh), ("bk", K * dh), ("bv", K * dh)):
             p[name] = torch.zeros((n,), dtype=dtype, device=device)
     return p
+
+
+def init_mla(gen, cfg: AttnConfig, d_model: int, dtype, device) -> dict:
+    m, H = cfg.mla, cfg.n_heads
+    return {
+        "w_dq": he_init(gen, (d_model, m.q_lora_rank), dtype, device),
+        "q_norm_scale": torch.ones((m.q_lora_rank,), dtype=torch.float32, device=device),
+        "w_uq": he_init(gen, (m.q_lora_rank, H * (m.qk_nope_dim + m.qk_rope_dim)), dtype, device),
+        "w_dkv": he_init(gen, (d_model, m.kv_lora_rank), dtype, device),
+        "kv_norm_scale": torch.ones((m.kv_lora_rank,), dtype=torch.float32, device=device),
+        "w_kr": he_init(gen, (d_model, m.qk_rope_dim), dtype, device),
+        "w_uk": he_init(gen, (m.kv_lora_rank, H * m.qk_nope_dim), dtype, device),
+        "w_uv": he_init(gen, (m.kv_lora_rank, H * m.v_head_dim), dtype, device),
+        "wo": he_init(gen, (H * m.v_head_dim, d_model), dtype, device),
+    }
+
+
+def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (y * scale).to(x.dtype)
 
 
 def flash_attention(
@@ -253,3 +277,85 @@ def gqa_decode_paged(
     lengths = (pos + 1).to(torch.int32)
     o = ops.decode_attention_paged(q[:, 0].contiguous(), pool_k, pool_v, block_tables, lengths)
     return o.reshape(B, 1, -1) @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+def _mla_q(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig):
+    """The queries' no-RoPE and rotated parts, each (B, S, H, dim)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    cq = _rms(x @ params["w_dq"], params["q_norm_scale"])
+    q = (cq @ params["w_uq"]).reshape(B, S, cfg.n_heads, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = q[..., : m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig):
+    """The compressed cache rows: c_kv (B, S, kv_lora) and the rotated
+    k_rope (B, S, qk_rope) that all heads share."""
+    c_kv = _rms(x @ params["w_dkv"], params["kv_norm_scale"])
+    k_rope = apply_rope((x @ params["w_kr"])[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def mla_prefill(
+    params: dict,
+    x: torch.Tensor,  # (B, S, d)
+    positions: torch.Tensor,  # (B, S)
+    cfg: AttnConfig,
+    q_chunk: int = 1024,
+    kv_chunk: int = 1024,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns (y, c_kv, k_rope): the output and the compressed caches."""
+    m, H = cfg.mla, cfg.n_heads
+    B, S, _ = x.shape
+    q_nope, q_rope = _mla_q(params, x, positions, cfg)
+    c_kv, k_rope = _mla_latent(params, x, positions, cfg)
+    k_nope = (c_kv @ params["w_uk"]).reshape(B, S, H, m.qk_nope_dim)
+    v = (c_kv @ params["w_uv"]).reshape(B, S, H, m.v_head_dim)
+    qq = torch.cat([q_nope, q_rope], -1)
+    kk = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, m.qk_rope_dim)], -1)
+    o = flash_attention(qq, kk, v, causal=True, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    return o.reshape(B, S, -1) @ params["wo"], c_kv, k_rope
+
+
+def mla_decode(
+    params: dict,
+    x: torch.Tensor,  # (B, 1, d)
+    position: torch.Tensor,  # (B,)
+    cache_ckv: torch.Tensor,  # (B, T, kv_lora), updated in place
+    cache_kr: torch.Tensor,  # (B, T, qk_rope), updated in place
+    cfg: AttnConfig,
+) -> torch.Tensor:
+    """Matrix-absorbed MLA decode: attention runs in the compressed latent
+    space, in float32 as the reference computes it.  Writes the step's
+    ``(c_kv, k_rope)`` row at ``position`` into the caches in place (the
+    row index clamped to the cache, as ``dynamic_update_slice`` clamps its
+    start) and attends over positions ``t < position + 1``."""
+    m, H = cfg.mla, cfg.n_heads
+    B, T = cache_ckv.shape[:2]
+    q_nope, q_rope = _mla_q(params, x, position[:, None], cfg)
+    c1, kr1 = _mla_latent(params, x, position[:, None], cfg)
+    rows = torch.arange(B, device=x.device)
+    idx = position.long().clamp(0, T - 1)
+    cache_ckv[rows, idx] = c1[:, 0].to(cache_ckv.dtype)
+    cache_kr[rows, idx] = kr1[:, 0].to(cache_kr.dtype)
+
+    # absorb W_uk into the query: q_lat[b,h,c] = sum_n q_nope[b,h,n] W_uk[c,(h,n)]
+    w_uk = params["w_uk"].reshape(-1, H, m.qk_nope_dim).float()  # (c, H, n)
+    q_lat = torch.einsum("bhn,chn->bhc", q_nope[:, 0].float(), w_uk)
+    ckv = cache_ckv.float()
+    scale = 1.0 / float(m.qk_nope_dim + m.qk_rope_dim) ** 0.5
+    s = (torch.einsum("bhc,btc->bht", q_lat, ckv)
+         + torch.einsum("bhr,btr->bht", q_rope[:, 0].float(), cache_kr.float())) * scale
+    mask = torch.arange(T, device=x.device)[None, :] < (position.long()[:, None] + 1)
+    s = torch.where(mask[:, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    ctx_lat = torch.einsum("bht,btc->bhc", p, ckv)
+    w_uv = params["w_uv"].reshape(-1, H, m.v_head_dim).float()  # (c, H, v)
+    o = torch.einsum("bhc,chv->bhv", ctx_lat, w_uv)
+    return o.reshape(B, 1, -1).to(x.dtype) @ params["wo"]

@@ -1,11 +1,16 @@
-"""LM facade: init / prefill / decode for the decoder-only families with
-GQA attention (counterpart of ``repro.models.model.LM``): ``moe``,
-``dense``, and ``vlm``, whose vision frontend is a stub (precomputed patch
-embeddings, :meth:`LM.stub_inputs`) and whose attention rotates by M-RoPE.
+"""LM facade: init / prefill / decode for the decoder-only families
+(counterpart of ``repro.models.model.LM``): ``moe``, ``dense``, and
+``vlm``, whose vision frontend is a stub (precomputed patch embeddings,
+:meth:`LM.stub_inputs`) and whose attention rotates by M-RoPE.  Attention
+is GQA, or DeepSeek-V2's MLA with its compressed ``(c_kv, k_rope)``
+cache; a MoE model's leading ``first_k_dense`` blocks are dense
+(``p["prefix_blocks"]``, cache ``"prefix"``), walked before the MoE
+blocks.
 
 Parameters are a dict like the JAX pytree, except that the scan-stacked
-``p["blocks"]`` becomes a list of per-layer dicts and the ``lax.scan``
-over layers a Python loop.  The KV cache is updated in place.
+``p["blocks"]`` and ``p["prefix_blocks"]`` become lists of per-layer
+dicts and the ``lax.scan`` over layers a Python loop.  The KV cache is
+updated in place.
 """
 
 from __future__ import annotations
@@ -27,20 +32,24 @@ class StepAux(NamedTuple):
     """Per-step diagnostics (MoE aux loss, Sieve counts, drops)."""
 
     moe_aux: torch.Tensor  # scalar
-    counts: torch.Tensor  # (n_layers, E) token counts per layer (Sieve input)
+    counts: torch.Tensor  # (n_blocks, E) token counts per MoE layer (Sieve input)
     dropped: torch.Tensor  # scalar
 
 
-def _aggregate_aux(auxes: List[BlockAux]) -> StepAux:
+def _aggregate_aux(prefix_auxes: List[BlockAux], auxes: List[BlockAux]) -> StepAux:
+    """Counts of the main blocks only; the dense prefix adds its aux loss
+    and drops (both zero), as ``repro.models.model._aggregate_aux`` does."""
+    every = prefix_auxes + auxes
     return StepAux(
-        torch.stack([a.moe_aux for a in auxes]).sum(),
+        torch.stack([a.moe_aux for a in every]).sum(),
         torch.stack([a.counts for a in auxes]),
-        torch.stack([a.dropped for a in auxes]).sum(),
+        torch.stack([a.dropped for a in every]).sum(),
     )
 
 
-# decoder-only families of GQA attention + MLP/MoE blocks
+# decoder-only families of attention + MLP/MoE blocks
 PORTED_FAMILIES = ("moe", "dense", "vlm")
+PORTED_ATTENTION = ("gqa", "mla")
 
 
 class LM:
@@ -52,14 +61,15 @@ class LM:
         q_chunk: int = 1024,
         kv_chunk: int = 1024,
     ):
-        if arch.family not in PORTED_FAMILIES or arch.attn.kind != "gqa":
+        if arch.family not in PORTED_FAMILIES or arch.attn.kind not in PORTED_ATTENTION:
             raise NotImplementedError(
                 f"family {arch.family!r} with {arch.attn.kind!r} attention is not "
-                f"ported yet (ported: {', '.join(PORTED_FAMILIES)} with gqa attention)"
+                f"ported yet (ported: {', '.join(PORTED_FAMILIES)} with "
+                f"{' or '.join(PORTED_ATTENTION)} attention)"
             )
-        if arch.moe is not None and arch.moe.first_k_dense:
-            raise NotImplementedError("dense prefix blocks (first_k_dense) are not ported yet")
         self.arch = arch
+        # leading dense blocks of a MoE model (DeepSeek-V2: 1)
+        self.n_prefix = arch.moe.first_k_dense if arch.moe is not None else 0
         self.dtype = dtype
         self.device = resolve_device(device)
         self.q_chunk = q_chunk
@@ -85,21 +95,40 @@ class LM:
         if not arch.tie_embeddings:
             p["w_out"] = normal((arch.d_model, self.vocab_padded), 0.02)
         moe = arch.moe is not None
+        if self.n_prefix:
+            p["prefix_blocks"] = [
+                tf.init_attn_mlp_block(gen, arch, False, dtype, dev)
+                for _ in range(self.n_prefix)
+            ]
         p["blocks"] = [
             tf.init_attn_mlp_block(gen, arch, moe, dtype, dev)
-            for _ in range(arch.n_layers)
+            for _ in range(arch.n_layers - self.n_prefix)
         ]
         return p
 
+    def _caches(self, row_shapes) -> Dict[str, Any]:
+        """Zeroed cache leaves ``(n, *row_shape)`` for each shape of
+        ``row_shapes``: ``"blocks"`` for the main blocks and, with a dense
+        prefix, ``"prefix"`` for its blocks."""
+        def leaves(n):
+            return tuple(torch.zeros((n,) + shape, dtype=self.dtype, device=self.device)
+                         for shape in row_shapes)
+
+        c = {"blocks": leaves(self.arch.n_layers - self.n_prefix)}
+        if self.n_prefix:
+            c["prefix"] = leaves(self.n_prefix)
+        return c
+
     def init_cache(self, batch: int, max_seq: int) -> Dict[str, Any]:
+        """Dense per-slot caches: ``(k, v)`` of ``(n, batch, max_seq, Kv,
+        dh)`` each, or for MLA ``(c_kv, k_rope)`` of ``(n, batch, max_seq,
+        kv_lora)`` and ``(n, batch, max_seq, qk_rope)``."""
         a = self.arch.attn
-        shape = (self.arch.n_layers, batch, max_seq, a.n_kv_heads, a.d_head)
-        return {
-            "blocks": (
-                torch.zeros(shape, dtype=self.dtype, device=self.device),
-                torch.zeros(shape, dtype=self.dtype, device=self.device),
-            )
-        }
+        if a.kind == "mla":
+            m = a.mla
+            return self._caches([(batch, max_seq, m.kv_lora_rank), (batch, max_seq, m.qk_rope_dim)])
+        shape = (batch, max_seq, a.n_kv_heads, a.d_head)
+        return self._caches([shape, shape])
 
     def init_paged_cache(self, n_pool: int, page: int) -> Dict[str, Any]:
         """Paged KV cache: per-layer shared block pools ``(n_layers, n_pool,
@@ -107,15 +136,17 @@ class LM:
         table that maps (slot, logical block) to a pool block lives on the
         host (``serving.batching.PagedKVCache``) and arrives with each
         decode batch; physical block 0 is the trash block idle slots write
-        into."""
-        a = self.arch.attn
-        shape = (self.arch.n_layers, n_pool, page, a.n_kv_heads, a.d_head)
-        return {
-            "blocks": (
-                torch.zeros(shape, dtype=self.dtype, device=self.device),
-                torch.zeros(shape, dtype=self.dtype, device=self.device),
+        into.  MLA's compressed cache has no paged layout (the reference
+        raises too)."""
+        arch = self.arch
+        a = arch.attn
+        if a.kind != "gqa":
+            raise ValueError(
+                "paged KV cache requires a gqa decoder-only family "
+                f"(got family={arch.family}, attn={a.kind})"
             )
-        }
+        shape = (n_pool, page, a.n_kv_heads, a.d_head)
+        return self._caches([shape, shape])
 
     def _logits(self, p, h: torch.Tensor) -> torch.Tensor:
         logits = lm_logits(h, p["embed"], p.get("w_out"))
@@ -156,32 +187,44 @@ class LM:
     # ------------------------------------------------------------------
     def prefill(self, p, batch: Dict[str, Any]):
         """Forward over the prompt: (last-position logits, cache of the
-        prompt's K/V as ``(n_layers, B, S, Kv, dh)`` tensors, StepAux).
-        batch: tokens (B, S) or the stub's ``embeds`` (B, S, d); for the
-        ``vlm`` family optionally ``mrope_positions`` (3, B, S)."""
+        prompt, StepAux).  The cache holds, under ``"blocks"`` (and
+        ``"prefix"`` for a dense prefix), the prompt's K/V as ``(n, B, S,
+        Kv, dh)`` tensors, or MLA's ``(c_kv, k_rope)`` as ``(n, B, S,
+        kv_lora)`` and ``(n, B, S, qk_rope)``.  batch: tokens (B, S) or the
+        stub's ``embeds`` (B, S, d); for the ``vlm`` family optionally
+        ``mrope_positions`` (3, B, S)."""
         arch = self.arch
         x, mrope = self._embed_in(p, batch)
         B, S = x.shape[:2]
         positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
         moe = arch.moe is not None
-        ks, vs, auxes = [], [], []
-        for blk in p["blocks"]:
-            x, (k, v), aux = tf.attn_mlp_block_seq(
-                blk, x, positions, arch, moe, q_chunk=self.q_chunk,
-                kv_chunk=self.kv_chunk, sieve=batch.get("sieve"), mrope_positions=mrope,
-            )
-            ks.append(k)
-            vs.append(v)
-            auxes.append(aux)
+
+        def walk(x, blocks, moe):
+            caches, auxes = [], []
+            for blk in blocks:
+                x, c, aux = tf.attn_mlp_block_seq(
+                    blk, x, positions, arch, moe, q_chunk=self.q_chunk,
+                    kv_chunk=self.kv_chunk, sieve=batch.get("sieve"), mrope_positions=mrope,
+                )
+                caches.append(c)
+                auxes.append(aux)
+            return x, tuple(torch.stack(leaf) for leaf in zip(*caches)), auxes
+
+        cache, prefix_auxes = {}, []
+        if self.n_prefix:
+            x, cache["prefix"], prefix_auxes = walk(x, p["prefix_blocks"], False)
+        x, cache["blocks"], auxes = walk(x, p["blocks"], moe)
         h = apply_norm(p["final_norm"], x, arch.norm)
         logits = self._logits(p, h[:, -1:, :])
-        return logits, {"blocks": (torch.stack(ks), torch.stack(vs))}, _aggregate_aux(auxes)
+        return logits, cache, _aggregate_aux(prefix_auxes, auxes)
 
     def decode_step(self, p, batch: Dict[str, Any], cache: Dict[str, Any]):
         """One-token step.  batch: tokens (B, 1), position (B,), optional
         sieve and ``mrope_positions`` (3, B, 1), and for a paged cache
         ``block_tables``/``pool_owner``/``pool_pos``.  Writes the step's K/V
-        into ``cache`` in place and returns ``(logits, cache, StepAux)``."""
+        (MLA: its ``(c_kv, k_rope)`` row) into ``cache`` in place, the dense
+        prefix's before the main blocks', and returns ``(logits, cache,
+        StepAux)``."""
         arch = self.arch
         x, mrope = self._embed_in(p, batch)
         position = batch["position"]
@@ -189,13 +232,20 @@ class LM:
         paged = None
         if "block_tables" in batch:
             paged = (batch["block_tables"], batch["pool_owner"], batch["pool_pos"])
-        ck, cv = cache["blocks"]
-        auxes = []
-        for i, blk in enumerate(p["blocks"]):
-            x, aux = tf.attn_mlp_block_decode(
-                blk, x, position, (ck[i], cv[i]), arch, moe, sieve=batch.get("sieve"),
-                paged=paged, mrope_positions=mrope,
-            )
-            auxes.append(aux)
+
+        def walk(x, blocks, leaves, moe):
+            auxes = []
+            for i, blk in enumerate(blocks):
+                x, aux = tf.attn_mlp_block_decode(
+                    blk, x, position, tuple(leaf[i] for leaf in leaves), arch, moe,
+                    sieve=batch.get("sieve"), paged=paged, mrope_positions=mrope,
+                )
+                auxes.append(aux)
+            return x, auxes
+
+        prefix_auxes = []
+        if self.n_prefix:
+            x, prefix_auxes = walk(x, p["prefix_blocks"], cache["prefix"], False)
+        x, auxes = walk(x, p["blocks"], cache["blocks"], moe)
         h = apply_norm(p["final_norm"], x, arch.norm)
-        return self._logits(p, h), cache, _aggregate_aux(auxes)
+        return self._logits(p, h), cache, _aggregate_aux(prefix_auxes, auxes)

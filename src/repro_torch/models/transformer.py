@@ -1,5 +1,6 @@
 """Attention + (MoE | dense MLP) blocks (counterpart of
-``repro.models.transformer``, the ``attn_mlp`` block kind with GQA)."""
+``repro.models.transformer``, the ``attn_mlp`` block kind with GQA or
+MLA attention)."""
 
 from __future__ import annotations
 
@@ -31,13 +32,13 @@ def _zero_aux(device) -> BlockAux:
 
 def init_attn_mlp_block(gen, arch: ArchConfig, moe: bool, dtype, device) -> dict:
     d = arch.d_model
-    if arch.attn.kind != "gqa":
-        raise ValueError(f"attention {arch.attn.kind!r} is not ported (gqa only)")
-    p = {
-        "norm1": init_norm(d, device),
-        "norm2": init_norm(d, device),
-        "attn": attn_lib.init_gqa(gen, arch.attn, d, dtype, device),
-    }
+    if arch.attn.kind == "mla":
+        attn = attn_lib.init_mla(gen, arch.attn, d, dtype, device)
+    elif arch.attn.kind == "gqa":
+        attn = attn_lib.init_gqa(gen, arch.attn, d, dtype, device)
+    else:
+        raise ValueError(f"attention {arch.attn.kind!r} is not ported (gqa and mla only)")
+    p = {"norm1": init_norm(d, device), "norm2": init_norm(d, device), "attn": attn}
     if moe:
         p["moe"] = init_moe(gen, arch, dtype, device)
     else:
@@ -63,23 +64,28 @@ def attn_mlp_block_seq(
     sieve=None,
     mrope_positions=None,  # (3, B, S): M-RoPE position streams (vlm)
 ):
-    """Full-sequence block (prefill).  Returns (x, (k, v), aux)."""
+    """Full-sequence block (prefill).  Returns (x, cache, aux), the cache
+    ``(k, v)`` or, for MLA, ``(c_kv, k_rope)``."""
     h = apply_norm(p["norm1"], x, arch.norm)
-    a, k, v = attn_lib.gqa_prefill(
-        p["attn"], h, positions, arch.attn, mrope_positions, causal=True,
-        q_chunk=q_chunk, kv_chunk=kv_chunk,
-    )
+    if arch.attn.kind == "mla":
+        a, *cache = attn_lib.mla_prefill(p["attn"], h, positions, arch.attn, q_chunk, kv_chunk)
+    else:
+        a, *cache = attn_lib.gqa_prefill(
+            p["attn"], h, positions, arch.attn, mrope_positions, causal=True,
+            q_chunk=q_chunk, kv_chunk=kv_chunk,
+        )
     x = x + a
     h = apply_norm(p["norm2"], x, arch.norm)
     x, aux = _ffn(p, x, h, arch, moe, sieve)
-    return x, (k, v), aux
+    return x, tuple(cache), aux
 
 
 def attn_mlp_block_decode(
     p: dict,
     x: torch.Tensor,  # (B, 1, d)
     position: torch.Tensor,  # (B,)
-    cache,  # (k, v): each (B, T, Kv, dh), or a (n_pool, page, Kv, dh) block pool
+    cache,  # (k, v): each (B, T, Kv, dh), or a (n_pool, page, Kv, dh) block pool;
+    # MLA: (c_kv (B, T, kv_lora), k_rope (B, T, qk_rope))
     arch: ArchConfig,
     moe: bool,
     sieve=None,
@@ -88,7 +94,9 @@ def attn_mlp_block_decode(
 ):
     """One-token block.  Returns (x, aux); the cache is written in place."""
     h = apply_norm(p["norm1"], x, arch.norm)
-    if paged is not None:
+    if arch.attn.kind == "mla":
+        a = attn_lib.mla_decode(p["attn"], h, position, cache[0], cache[1], arch.attn)
+    elif paged is not None:
         a = attn_lib.gqa_decode_paged(p["attn"], h, position, cache[0], cache[1], paged, arch.attn,
                                       mrope_positions)
     else:

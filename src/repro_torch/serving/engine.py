@@ -26,6 +26,9 @@ each step.  On the card, the counterpart of the JAX engine's compiled
 step (``jax.jit(lm.decode_step, donate_argnums=(2,))``) is one CUDA graph
 of ``LM.decode_step``, captured after the first decode step has run
 eagerly and replayed by every later one (:meth:`ServingEngine._decode`).
+The cache is whatever ``LM.init_cache`` makes: per-head K/V, or MLA's
+compressed ``(c_kv, k_rope)`` rows, with a dense prefix's layers under
+their own key; prefill copies every leaf into the slot.
 For the ``vlm`` family the prompt's text tokens carry M-RoPE positions
 equal on the temporal, height and width streams, at prefill and as one
 more fixed-address decode input, so each engine still captures one graph.
@@ -345,17 +348,20 @@ class ServingEngine:
         self.sieve_refreshes.append(step)
 
     def _insert_prefill(self, slot: int, req_cache) -> None:
-        """Copy one request's prompt K/V into its slot of the cache.  Paged:
-        the rows are padded to whole pages and scattered over the slot's
-        first blocks; the padded rows lie at or past the length and are
-        never read."""
+        """Copy one request's prompt cache into its slot, for every group
+        of layers (``"blocks"``, and ``"prefix"`` for a dense prefix) and
+        every leaf: K/V, or MLA's ``(c_kv, k_rope)``.  Paged: the rows are
+        padded to whole pages and scattered over the slot's first blocks;
+        the padded rows lie at or past the length and are never read."""
+        pairs = [(dst, src) for key in self.cache
+                 for dst, src in zip(self.cache[key], req_cache[key])]
         if self.paged is None:
-            for dst, src in zip(self.cache["blocks"], req_cache["blocks"]):
+            for dst, src in pairs:
                 P = src.shape[2]
                 dst[:, slot, :P].copy_(src[:, 0])
             return
         page = self.paged.page
-        for dst, src in zip(self.cache["blocks"], req_cache["blocks"]):
+        for dst, src in pairs:
             L, _, P = src.shape[:3]
             nbp = -(-P // page)
             ids = torch.as_tensor(self.paged.block_table[slot, :nbp], device=dst.device).long()

@@ -844,3 +844,152 @@ class TestRuntimeLoop:
         print(f"\n{path}: fault at steps 4-9 GPU-only at {sorted(gpu_only)}; restored at step "
               f"{_RESTORE_AT} to {_SNAP_AT}, {len(got)} decode steps bitwise equal to the twin; "
               f"probe launches {probe_launches}")
+
+
+# deepseek-v2-236b's MoE widths: 160 experts, top-6 of 8 decode tokens,
+# K = N = d_model 5120, F = d_expert 1536; capacity 8 at decode (the
+# min_capacity floor) and 24 for a 512-token prefill chunk
+_DSV2 = dict(E=160, K=5120, F=1536, top_k=6)
+_DSV2_C = {"decode": 8, "prefill_512": 24}
+
+
+def _dsv2_sizes(phase: str):
+    """Group sizes of one step at deepseek-v2's shapes: the decode step's
+    head (experts with two or more of 8 tokens x top-6) or a 512-token
+    prefill's ragged sizes up to its capacity."""
+    import numpy as np
+
+    E, C = _DSV2["E"], _DSV2_C[phase]
+    rng = np.random.default_rng(C)
+    if phase == "prefill_512":
+        return rng.integers(0, C + 1, E).tolist()
+    counts = np.zeros(E, np.int64)
+    for _ in range(8):
+        counts[rng.choice(E, size=_DSV2["top_k"], replace=False)] += 1
+    return np.where(counts >= 2, counts, 0).tolist()
+
+
+def _dsv2_tail_valid(dev):
+    """One decode step's tail rows at deepseek-v2's shapes: the experts of
+    8 tokens x top-6 that got exactly one token (about 37 of 160)."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    counts = np.zeros(_DSV2["E"], np.int64)
+    for _ in range(8):
+        counts[rng.choice(_DSV2["E"], size=_DSV2["top_k"], replace=False)] += 1
+    return torch.as_tensor((counts == 1).astype(np.int32), device=dev)
+
+
+@pytest.mark.cuda
+class TestDeepseekShapes:
+    """The four MoE kernels of the deepseek-v2 serving path at its decode
+    and 512-token-prefill shapes, each three launches on the same buffers
+    against the plain version and bitwise equal from launch to launch."""
+
+    @pytest.mark.parametrize("phase", list(_DSV2_C))
+    def test_fused_head(self, cuda, phase):
+        E, K, F = _DSV2["E"], _DSV2["K"], _DSV2["F"]
+        sizes = _dsv2_sizes(phase)
+        args, want, dead = _head_case(cuda, 7, E, E, _DSV2_C[phase], K, F, K, sizes)
+        _three_launches(lambda: ops.swiglu_gmm_capacity(*args), want, dead)
+
+    def test_fused_tail(self, cuda):
+        E, K, F = _DSV2["E"], _DSV2["K"], _DSV2["F"]
+        g = torch.Generator(device=cuda).manual_seed(8)
+        toks = _rnd(g, (E, K), cuda)
+        wg, wu = (_rnd(g, (E, K, F), cuda, K**-0.5) for _ in range(2))
+        wd = _rnd(g, (E, F, K), cuda, F**-0.5)
+        eids = torch.arange(E, dtype=torch.int32, device=cuda)
+        valid = _dsv2_tail_valid(cuda)
+        want = ref.fused_swiglu_gemv_ref(toks, wg, wu, wd, eids, valid)
+        _three_launches(lambda: ops.swiglu_gemv(toks, wg, wu, wd, eids, valid), want, valid == 0)
+
+    @pytest.mark.parametrize("phase", list(_DSV2_C))
+    @pytest.mark.parametrize("call", ["gate", "down"])
+    def test_gmm_capacity(self, cuda, phase, call):
+        E, C = _DSV2["E"], _DSV2_C[phase]
+        K, N = (_DSV2["K"], _DSV2["F"]) if call == "gate" else (_DSV2["F"], _DSV2["K"])
+        g = torch.Generator(device=cuda).manual_seed(C + K)
+        buf = _rnd(g, (E, C, K), cuda)
+        rhs = _rnd(g, (E, K, N), cuda, K**-0.5)
+        gs = torch.tensor(_dsv2_sizes(phase), dtype=torch.int32, device=cuda)
+        dead = torch.arange(C, device=cuda)[None, :] >= gs[:, None]
+        _three_launches(lambda: ops.gmm_capacity(buf, rhs, gs), ref.gmm_ref(buf, rhs, gs), dead)
+
+    @pytest.mark.parametrize("call", ["gate", "down"])
+    def test_expert_gemv(self, cuda, call):
+        E = _DSV2["E"]
+        K, N = (_DSV2["K"], _DSV2["F"]) if call == "gate" else (_DSV2["F"], _DSV2["K"])
+        g = torch.Generator(device=cuda).manual_seed(K)
+        toks = _rnd(g, (E, K), cuda)
+        w = _rnd(g, (E, K, N), cuda, K**-0.5)
+        eids = torch.arange(E, dtype=torch.int32, device=cuda)
+        valid = _dsv2_tail_valid(cuda)
+        want = ref.expert_gemv_ref(toks, w, eids, valid)
+        _three_launches(lambda: ops.expert_gemv(toks, w, eids, valid), want, valid == 0)
+
+
+@pytest.mark.cuda
+class TestDeepseekDecodeStep:
+    @pytest.mark.parametrize("fused", ["1", "0"])
+    def test_replay_matches_eager(self, cuda, monkeypatch, fused):
+        """deepseek-v2 at full width cut to two layers (the dense block and
+        the first MoE block, MLA attention) on the Sieve dual path: an
+        engine replaying its captured decode step and an eager one, stepped
+        side by side, give the same tokens, counts and drops, logits and
+        both cache groups within the bf16 tolerance (and whether bitwise
+        equal, printed); one capture holding the path's two MoE kernels and
+        no attention kernel."""
+        import dataclasses
+
+        from repro_torch.configs import get_arch
+        from repro_torch.models import LM
+        from repro_torch.serving import BatchingConfig, Request, ServingEngine
+
+        monkeypatch.setenv("REPRO_FUSED_SWIGLU", fused)
+        arch = get_arch("deepseek-v2-236b")
+        arch = dataclasses.replace(arch, n_layers=2,
+                                   moe=dataclasses.replace(arch.moe, expert_exec="dual_path_cost"))
+        lm = LM(arch, dtype=BF, device="cuda")
+        params = lm.init(seed=0)
+        engines = [ServingEngine(lm, params, BatchingConfig(n_slots=2, max_seq=128), sieve_refresh_every=2)
+                   for _ in range(2)]
+        engines[0]._replay = False
+        steps = [[], []]
+
+        def recorded(i, fn):
+            def run(batch):
+                logits, aux = fn(batch)
+                steps[i].append((logits.float().cpu(), aux.counts.cpu(), int(aux.dropped)))
+                return logits, aux
+            return run
+
+        new_tokens = (4, 12, 9)
+        for i, eng in enumerate(engines):
+            eng._decode = recorded(i, eng._decode)
+            for n, m in zip((30, 17, 45), new_tokens):
+                prompt = torch.randint(0, arch.vocab_size, (n,), generator=torch.Generator().manual_seed(n))
+                eng.submit(Request(prompt=prompt.tolist(), max_new_tokens=m))
+        bitwise = True
+        while not all(e.sched.idle for e in engines):
+            for eng in engines:
+                eng.step()
+            for key in ("prefix", "blocks"):
+                for a, b in zip(engines[0].cache[key], engines[1].cache[key]):
+                    _close(b, a)
+                    bitwise &= torch.equal(a, b)
+        assert len(steps[0]) == len(steps[1]) > 2
+        for (le, ce, de), (lr, cr, dr) in zip(*steps):
+            assert torch.allclose(lr, le, **TOL), float((lr - le).abs().max())
+            bitwise &= torch.equal(lr, le)
+            assert ce.shape == (1, arch.moe.n_experts) and torch.equal(cr, ce) and dr == de
+        tokens = [[r.generated for r in sorted(e.sched.finished, key=lambda r: r.req_id)] for e in engines]
+        assert tokens[0] == tokens[1] and [len(g) for g in tokens[1]] == list(new_tokens)
+        assert (engines[0].n_captures, engines[1].n_captures) == (0, 1)
+        kernels = ("swiglu_gmm_capacity", "swiglu_gemv") if fused == "1" else ("gmm_capacity", "expert_gemv")
+        captured = engines[1]._graph_launches
+        assert all(captured[k] > 0 for k in kernels), captured
+        assert all(n == 0 for k, n in captured.items() if k not in kernels), captured
+        print(f"\ndeepseek-v2 2 layers, REPRO_FUSED_SWIGLU={fused}: replayed against eager over "
+              f"{len(steps[1])} decode steps, logits and caches bitwise equal: {bitwise}")
