@@ -101,7 +101,31 @@ Phases, each fatal on failure:
    profile and its 2-layer slice (the dense block and the first MoE
    block) against the CPU plain path; MLA decode's share of a replayed
    step's device time is timed as a captured graph of its own, and eager
-   and replayed engines of both paths must give the same tokens.
+   and replayed engines of both paths must give the same tokens;
+8. policies and chaos, on qwen3-moe's weights after phase 5's dense
+   runtime (before phase 6 frees them) and on deepseek-v2's in phase 7.
+   Every policy of ``core.scheduler.POLICIES`` is timed on the host (the
+   CPU's model printed beside it) over phase 4's recorded full-batch
+   decode steps (48 layers x 128 experts; deepseek-v2's fused run: 4 x
+   160), median and min-max per step, each partition covering its
+   layer's active experts.  ``sieve_partition_torch`` and
+   ``sieve_partition_dynamic``, greedy and argmin, are each captured once
+   as a CUDA graph and replayed with every recorded layer's counts
+   written in place: the GPU set must equal the host ``sieve_schedule``'s
+   exactly; CUDA events time replayed and eager calls.  The
+   fixed-threshold dual path (``expert_exec="dual_path"``, policy
+   ``dual_threshold``) serves the 12 requests of phase 4 with its checks:
+   on every replayed decode step the captured row counters (head groups,
+   head rows, tail rows) must equal ``dual_threshold_schedule`` on the
+   step's counts, and its 2-layer slice passes the phase-4 rule; its step
+   time, tokens/s, TTFT and TPOT print beside the ``dual_path_cost`` run.
+   A measured engine built as phase 5's runs each engine chaos scenario
+   (``EngineChaos``, ``make_plan(scenario, 48, seed=0)``) and must be
+   detected and clamped to GPU-only within one refresh cadence, restored,
+   and keep one capture; its tokens are compared with a x1 control (a
+   count, not asserted: the clamp moves rows between two bf16 kernels).
+   Last, ``run_engine_chaos(device="cuda")`` at proxy size under each
+   scenario with tests/test_faults.py's checks.
 
 It prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -1137,11 +1161,11 @@ def phase_family_shapes() -> dict:
 
 
 class RowCounter:
-    """Live head rows and valid tail rows of the MoE path, summed on the card
-    (no sync) into ``rows[slot]`` for the ``slot`` set at the call.  It
-    wraps ``moe.head_stage``/``moe.tail_stage`` until :meth:`remove`.  The
-    adds made while a decode step is captured are captured with it (into
-    the slot set then) and run on every replay."""
+    """Live head rows, valid tail rows and live head groups of the MoE path,
+    summed on the card (no sync) into ``rows[slot]`` for the ``slot`` set at
+    the call.  It wraps ``moe.head_stage``/``moe.tail_stage`` until
+    :meth:`remove`.  The adds made while a decode step is captured are
+    captured with it (into the slot set then) and run on every replay."""
 
     def __init__(self, n_slots: int):
         import torch
@@ -1149,13 +1173,15 @@ class RowCounter:
         from repro_torch.models import moe
 
         self.moe, self.orig = moe, (moe.head_stage, moe.tail_stage)
-        self.rows = torch.zeros((n_slots, 2), dtype=torch.int64, device="cuda")  # [slot, head/tail]
+        # [slot, head rows / tail rows / head groups]
+        self.rows = torch.zeros((n_slots, 3), dtype=torch.int64, device="cuda")
         self.slot = 0
         head, tail = self.orig
         rows = self.rows
 
         def head_stage(slab, wg, wu, wd, sizes):
             rows[self.slot, 0] += sizes.sum()
+            rows[self.slot, 2] += (sizes > 0).sum()
             return head(slab, wg, wu, wd, sizes)
 
         def tail_stage(toks, wg, wu, wd, eids, valid):
@@ -1185,6 +1211,7 @@ class PathProbe:
         self.counter = None
         self.routed, self.dropped = [0, 0], [0, 0]
         self.sieve_s = 0.0
+        self.last_counts = None  # the per-layer counts of the last host pass
         self.decode_calls, self.replays = 0, 0
         self._orig = (eng.lm.prefill, eng._decode, eng._run_sieve)
 
@@ -1208,6 +1235,7 @@ class PathProbe:
             t = time.perf_counter()
             run_sieve(counts)
             self.sieve_s += time.perf_counter() - t
+            self.last_counts = counts
 
         self.eng.lm.prefill, self.eng._decode = counted(0, prefill, 2), counted(1, decode, 1)
         self.eng._run_sieve = timed_sieve
@@ -1260,12 +1288,19 @@ def fused_swiglu(value: str):
             os.environ["REPRO_FUSED_SWIGLU"] = saved
 
 
-def phase_serve(lm, params, batching, path_kernels, run=None) -> dict:
+def phase_serve(lm, params, batching, path_kernels, run=None, policy="sieve", check_step=None,
+                keep_counts=False) -> dict:
     """Serve 12 requests through ``ServingEngine`` and check the run: every
     request and token, the kernels of ``path_kernels`` launched (and no
     other), head + tail + drops equal to the routed assignments in each
     phase, and a paged pool back to all blocks free; then profile decode
-    steps.  ``run`` names the run in the log (default: its KV layout)."""
+    steps.  ``run`` names the run in the log (default: its KV layout),
+    ``policy`` the host scheduler's.  ``check_step(eng, counts, rows)``
+    runs after every replayed decode step with the host pass's per-layer
+    counts and the step's head rows, tail rows and head groups from the
+    captured row counters.  ``keep_counts``: the per-layer counts of the
+    full-batch decode-only steps, the engine's cost model and its cost
+    table go under ``_counts``, ``_cost_model`` and ``_cost_table``."""
     import numpy as np
     import torch
 
@@ -1273,7 +1308,7 @@ def phase_serve(lm, params, batching, path_kernels, run=None) -> dict:
     from repro_torch.serving import Request, ServingEngine
 
     arch = lm.arch
-    eng = ServingEngine(lm, params, batching)
+    eng = ServingEngine(lm, params, batching, policy=policy)
     run = run or ("paged" if batching.paged else "dense")
     rng = np.random.default_rng(0)
     reqs = []
@@ -1293,13 +1328,21 @@ def phase_serve(lm, params, batching, path_kernels, run=None) -> dict:
         r.arrival_time = t_start
         eng.submit(r)
     decode_steps = []  # steps that ran no prefill: (decode tokens, ms, host sieve ms)
+    full_counts, checked = [], 0
     while not eng.sched.idle:
-        p0, d0, s0 = eng.stats.prefill_tokens, eng.stats.decode_tokens, probe.sieve_s
+        p0, d0, s0, r0 = eng.stats.prefill_tokens, eng.stats.decode_tokens, probe.sieve_s, probe.replays
+        before = probe.counter.rows[1].tolist() if check_step else None
+        probe.last_counts = None
         ts = time.perf_counter()
         eng.step()
         dt = time.perf_counter() - ts
         if eng.stats.prefill_tokens == p0:
             decode_steps.append((eng.stats.decode_tokens - d0, 1e3 * dt, 1e3 * (probe.sieve_s - s0)))
+            if keep_counts and decode_steps[-1][0] == eng.cfg.n_slots:
+                full_counts.append(probe.last_counts)
+        if check_step and probe.replays > r0:
+            check_step(eng, probe.last_counts, [a - b for a, b in zip(probe.counter.rows[1].tolist(), before)])
+            checked += 1
         if eng.stats.steps > 2000:
             fail("serving did not finish in 2000 steps")
     wall = time.perf_counter() - t_start
@@ -1359,8 +1402,12 @@ def phase_serve(lm, params, batching, path_kernels, run=None) -> dict:
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         launches=launches,
         decode_calls=probe.decode_calls, replays=probe.replays, captures=eng.n_captures,
-        graph_launches=dict(eng._graph_launches),
+        graph_launches=dict(eng._graph_launches), policy=policy,
     )
+    if check_step:
+        out["checked_steps"] = checked
+    if keep_counts:
+        out.update(_counts=full_counts, _cost_model=eng.cost_model, _cost_table=eng.cost_table)
     log(f"serve {run}: {len(reqs)} requests, {out['prompt_tokens']} prompt + {out['decode_tokens']} "
         f"decode tokens in {wall:.2f} s ({out['steps']} steps); decode {out['decode_tok_per_s']:.1f} tok/s "
         f"over {len(decode_steps)} decode-only steps of {out['decode_step_ms']:.1f} ms "
@@ -2093,6 +2140,286 @@ def phase_runtime(lm, params, batching, path_kernels, kernels) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: every policy, the on-device split, engine chaos
+# ---------------------------------------------------------------------------
+
+CHAOS_STEPS = 48  # make_plan's horizon: the fault spans steps 14-27
+
+
+def host_cpu() -> str:
+    """The host CPU's model name, as ``/proc/cpuinfo`` gives it, and the
+    cores visible (host-clock numbers depend on both)."""
+    name = "unknown"
+    with contextlib.suppress(OSError):
+        for line in Path("/proc/cpuinfo").read_text().splitlines():
+            key, _, value = line.partition(":")
+            if key.strip() == "model name":
+                name = value.strip()
+                break
+    return f"CPU model {name}, {os.cpu_count()} cores visible"
+
+
+def _dual_threshold_check(moe, n_tokens: int, mismatches: list):
+    """``check_step`` of the ``dual_threshold`` run: ``dual_threshold_schedule``
+    on each layer's counts gives the head groups (its GPU set), head rows
+    (that set's rows, clamped at the decode step's capacity) and tail rows
+    (its PIM set's rows, clamped at ``dual_tail_tokens``) the captured row
+    counters must hold; a step that differs goes into ``mismatches``."""
+    import numpy as np
+
+    from repro_torch.core.scheduler import dual_threshold_schedule
+    from repro_torch.models.moe import capacity
+
+    tau = moe.dual_tail_tokens
+    cap = capacity(n_tokens, moe, moe.n_experts)
+
+    def check(eng, counts, rows):
+        want = [0, 0, 0]
+        for c in counts:
+            part = dual_threshold_schedule(c, eng.cost_model, None, tail_tokens=tau, max_head=moe.dual_max_head)
+            want[0] += int(np.minimum(c[part.gpu_experts], cap).sum())
+            want[1] += int(np.minimum(c[part.pim_experts], tau).sum())
+            want[2] += len(part.gpu_experts)
+        if rows != want:
+            mismatches.append((eng.stats.steps, rows, want))
+
+    return check
+
+
+def phase_dual_threshold(lm, params, batching, cost_run: dict) -> dict:
+    """The fixed-threshold dual path (``expert_exec="dual_path"``) under the
+    cost-blind ``dual_threshold`` host rule, on the same weights and 12
+    requests as phase 4's dense/fused run.  On every replayed decode step
+    the captured row counters must equal ``dual_threshold_schedule`` on the
+    step's counts: head groups = its GPU set's size, head rows = that
+    set's rows (clamped at capacity), tail rows = its PIM set's rows
+    (clamped at ``dual_tail_tokens``).  Then the 2-layer slice against the
+    CPU plain path (the phase-4 rule), and the run beside ``cost_run``,
+    phase 4's ``dual_path_cost`` run."""
+    from repro_torch.models import LM
+
+    arch = dataclasses.replace(lm.arch, moe=dataclasses.replace(lm.arch.moe, expert_exec="dual_path"))
+    mismatches = []
+    check = _dual_threshold_check(arch.moe, batching.n_slots, mismatches)
+    lm2 = LM(arch, dtype=lm.dtype, device=lm.device)
+    run = "dense dual_path/dual_threshold"
+    out = phase_serve(lm2, params, batching, DENSE_FUSED_PATH, run=run, policy="dual_threshold",
+                      check_step=check)
+    if mismatches or out["checked_steps"] < 2:
+        fail(f"{run}: the head/tail split of {len(mismatches)} of {out['checked_steps']} replayed decode "
+             f"steps differs from dual_threshold_schedule's (step, [head rows, tail rows, head groups], "
+             f"wanted): {mismatches[:3]}")
+    log(f"{run}: on all {out['checked_steps']} replayed decode steps the captured head groups, head rows "
+        "and tail rows equal dual_threshold_schedule's GPU and PIM sets on the step's counts")
+    out.update(phase_reference(lm2, params, paged=False, run=run))
+    for key in ("full_batch_step_ms", "decode_tok_per_s", "ttft_p50_s", "tpot_p50_s"):
+        out[f"{key}_dual_path_cost"] = cost_run[key]
+    log(f"{run} beside dense dual_path_cost: full-batch step {out['full_batch_step_ms']:.1f} / "
+        f"{cost_run['full_batch_step_ms']:.1f} ms, decode {out['decode_tok_per_s']:.1f} / "
+        f"{cost_run['decode_tok_per_s']:.1f} tok/s, TTFT p50 {out['ttft_p50_s'] * 1e3:.1f} / "
+        f"{cost_run['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 {out['tpot_p50_s'] * 1e3:.2f} / "
+        f"{cost_run['tpot_p50_s'] * 1e3:.2f} ms; decode path: head rows "
+        f"{out['path']['decode']['head_rows']} / {cost_run['path']['decode']['head_rows']}, tail rows "
+        f"{out['path']['decode']['tail_rows']} / {cost_run['path']['decode']['tail_rows']}")
+    del lm2
+    return out
+
+
+def _policy_host_ms(steps, cost_model, cost_table, moe, tag: str) -> dict:
+    """Host ms of ``schedule(p, ...)`` over every layer of each recorded
+    step, for each policy (the engine's keywords: the dual rules get the
+    decode step's window), as the median with min-max over the steps.
+    Each partition must cover the layer's active experts."""
+    import numpy as np
+
+    from repro_torch.core.scheduler import POLICIES, schedule
+
+    out = {}
+    for policy in POLICIES:
+        kw = ({"tail_tokens": moe.dual_tail_tokens, "max_head": moe.dual_max_head}
+              if policy in ("dual_threshold", "dual_cost") else {})
+        ms, n_gpu = [], 0
+        for counts in steps:
+            t0 = time.perf_counter()
+            parts = [schedule(policy, c, cost_model, cost_table, **kw) for c in counts]
+            ms.append(1e3 * (time.perf_counter() - t0))
+            for c, part in zip(counts, parts):
+                part.validate(int((c > 0).sum()))
+                n_gpu += len(part.gpu_experts)
+        out[policy] = dict(spread(ms), gpu_experts_per_layer=n_gpu / (len(steps) * len(steps[0])))
+    log(f"{tag} host ms per decode step ({len(steps)} full-batch steps x {len(steps[0])} layers x "
+        f"{len(steps[0][0])} experts; {host_cpu()}), median (min-max), GPU experts a layer: "
+        + "; ".join(f"{p} {r['median']:.3f} ({r['min']:.3f}-{r['max']:.3f}), {r['gpu_experts_per_layer']:.1f}"
+                    for p, r in out.items()))
+    return out
+
+
+def _device_split(steps, cost_model, cost_table, tag: str, n_time: int = 100) -> dict:
+    """``sieve_partition_torch`` and ``sieve_partition_dynamic`` on the
+    card, greedy and argmin, each captured once as a CUDA graph over a
+    fixed counts tensor, then replayed for every layer of every recorded
+    step with that layer's counts written in place: the GPU set and split
+    must equal the host ``sieve_schedule``'s exactly.  CUDA events time
+    ``n_time`` replays and ``n_time`` eager calls on one layer's counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.scheduler import sieve_schedule
+    from repro_torch.core.scheduler_torch import (
+        SieveParams, make_sieve_state, sieve_partition_dynamic, sieve_partition_torch,
+    )
+
+    E = len(steps[0][0])
+    state = make_sieve_state(cost_table, cost_model, 1024, device="cuda")
+    params = SieveParams.from_cost_model(cost_model, 0)  # t_comm 0 at ep_degree 1
+    counts_buf = torch.zeros((E,), dtype=torch.int32, device="cuda")
+    forms = {"torch": lambda mode: sieve_partition_torch(counts_buf, state.pim_time_by_count, params, mode),
+             "dynamic": lambda mode: sieve_partition_dynamic(counts_buf, *state, mode)}
+    out = {}
+    for form, call in forms.items():
+        for mode in ("greedy", "argmin"):
+            for _ in range(3):  # eager warm-up: the static scalars' upload, the sort's scratch
+                call(mode)
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                res = call(mode)
+            bad, n = [], 0
+            for si, counts in enumerate(steps):
+                for li, c in enumerate(counts):
+                    host = sieve_schedule(c, cost_model, cost_table, mode=mode)
+                    counts_buf.copy_(torch.as_tensor(c, dtype=torch.int32))
+                    graph.replay()
+                    got = np.nonzero(res["gpu_mask"].cpu().numpy())[0]
+                    n += 1
+                    if int(res["split"]) != host.meta["split"] or set(got) != set(host.gpu_experts.tolist()):
+                        bad.append((si, li, int(res["split"]), host.meta["split"]))
+            if bad:
+                fail(f"{tag}: sieve_partition_{form} ({mode}) replayed differs from the host sieve_schedule "
+                     f"on {len(bad)} of {n} layers (step, layer, device split, host split): {bad[:4]}")
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(n_time):
+                graph.replay()
+            e1.record()
+            torch.cuda.synchronize()
+            replay_ms = e0.elapsed_time(e1) / n_time
+            e0.record()
+            for _ in range(n_time):
+                call(mode)
+            e1.record()
+            torch.cuda.synchronize()
+            eager_ms = e0.elapsed_time(e1) / n_time
+            out[f"{form}_{mode}"] = dict(layers=n, same=True, replay_ms=replay_ms, eager_ms=eager_ms,
+                                         replay_ms_per_step=replay_ms * len(steps[0]))
+            del graph, res
+    log(f"{tag} on-device split (E {E}): equal to the host sieve_schedule on every layer, greedy and argmin; "
+        "device ms per call (CUDA events over 100), replayed / eager: "
+        + "; ".join(f"{k} {v['replay_ms']:.4f} / {v['eager_ms']:.4f}" for k, v in out.items()))
+    return out
+
+
+def phase_policies(serve_out: dict, moe, tag: str) -> dict:
+    """Host time of every policy and the on-device split over the
+    full-batch decode steps a serving run recorded (``keep_counts``)."""
+    steps = serve_out.pop("_counts")[:10]
+    cost_model, cost_table = serve_out.pop("_cost_model"), serve_out.pop("_cost_table")
+    if not steps:
+        fail(f"{tag}: the serving run recorded no full-batch decode step")
+    return dict(host_cpu=host_cpu(), steps=len(steps), layers=len(steps[0]), experts=len(steps[0][0]),
+                host_ms=_policy_host_ms(steps, cost_model, cost_table, moe, tag),
+                device_split=_device_split(steps, cost_model, cost_table, tag))
+
+
+def _chaos_full_width(lm, params, batching, scenario: str, magnitude=None) -> dict:
+    """A measured engine built as phase 5's, driven through ``EngineChaos``
+    under ``make_plan(scenario, CHAOS_STEPS, seed=0)`` with the slots kept
+    full; returns its summary and every request's tokens."""
+    import numpy as np
+
+    from repro_torch.faults import EngineChaos, make_plan
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.telemetry import Telemetry
+
+    eng = ServingEngine(lm, params, batching, telemetry=Telemetry(), cost_source="measured",
+                        sieve_refresh_every=RUNTIME_REFRESH)
+    chaos = EngineChaos(eng, make_plan(scenario, float(CHAOS_STEPS), seed=0, magnitude=magnitude))
+    rng = np.random.default_rng(5)
+    max_new = 12
+    reqs = [Request(prompt=[int(t) for t in rng.integers(0, lm.arch.vocab_size, 64)], max_new_tokens=max_new)
+            for _ in range(batching.n_slots * (CHAOS_STEPS // max_new + 2))]
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    for _ in range(CHAOS_STEPS):
+        chaos.step()
+    out = chaos.summary()
+    out.update(wall_s=time.perf_counter() - t0, captures=eng.n_captures,
+               tokens=[list(r.generated) for r in reqs])
+    del eng, chaos
+    return out
+
+
+def phase_chaos(lm, params, batching) -> dict:
+    """Both engine scenarios at full width (and a x1 control for the
+    tokens), then ``run_engine_chaos(device="cuda")`` at proxy size with
+    tests/test_faults.py's checks."""
+    import torch
+
+    from repro_torch.faults import ENGINE_SCENARIOS, run_engine_chaos
+
+    out = {"full_width": {}, "proxy": {}}
+    control = _chaos_full_width(lm, params, batching, "pim-brownout-engine", magnitude=1.0)
+    for scenario in ENGINE_SCENARIOS:
+        r = _chaos_full_width(lm, params, batching, scenario)
+        diff = sum(a != b for x, y in zip(r["tokens"], control["tokens"]) for a, b in zip(x, y))
+        diff += sum(abs(len(x) - len(y)) for x, y in zip(r["tokens"], control["tokens"]))
+        n_tok = sum(map(len, control["tokens"]))
+        caps = {rec["decode_cache"] for rec in r["trajectory"]}
+        keys = ("fault_t", "clear_t", "detect_step", "gpu_only_step", "recover_step", "restored", "feed_rejected")
+        row = {k: r[k] for k in keys}
+        row.update(captures=r["captures"], captures_seen=sorted(caps), tokens=n_tok, tokens_differing=diff,
+                   wall_s=r["wall_s"], control_gpu_only_step=control["gpu_only_step"])
+        out["full_width"][scenario] = row
+        log(f"chaos {scenario} full width ({CHAOS_STEPS} steps, refresh {RUNTIME_REFRESH}): fault steps "
+            f"{r['fault_t']:g}-{r['clear_t'] - 1:g}, detected at {r['detect_step']}, GPU-only at "
+            f"{r['gpu_only_step']}, recovered at {r['recover_step']}, restored {r['restored']}, feed rejected "
+            f"{r['feed_rejected']}, captures {r['captures']}; {diff} of {n_tok} tokens differ from the x1 "
+            f"control (not asserted: the GPU-only clamp moves rows between two bf16 kernels)")
+        if (r["detect_step"] is None or r["gpu_only_step"] is None or r["recover_step"] is None
+                or not r["restored"] or r["gpu_only_step"] - r["fault_t"] > RUNTIME_REFRESH):
+            fail(f"chaos {scenario} full width: not detected, clamped within one refresh cadence and "
+                 f"restored: {row}")
+        if r["captures"] != 1 or caps != {1} or r["cache_misses_after_fault"] != 0:
+            fail(f"chaos {scenario} full width: captures {sorted(caps)}; one is required throughout")
+        if any(rec["quarantined"] != rec["gpu_only"] for rec in r["trajectory"]):
+            fail(f"chaos {scenario} full width: quarantine and the GPU-only clamp disagree on a step")
+        if scenario == "probe-poison" and r["feed_rejected"] <= 0:
+            fail("chaos probe-poison full width: the feed's outlier gates rejected nothing")
+        if control["gpu_only_step"] is not None:
+            fail("chaos control (x1): the fault-free run was clamped to GPU-only")
+    torch.cuda.empty_cache()
+    # the reduced proxy, as tests/test_faults.py::TestEngineChaos runs it
+    ctl = run_engine_chaos("pim-brownout-engine", n_steps=28, seed=0, refresh=4, magnitude=1.0)
+    for scenario in ENGINE_SCENARIOS:
+        r = run_engine_chaos(scenario, n_steps=28, seed=0, refresh=4)
+        ok = (r["gpu_only_step"] is not None and r["gpu_only_step"] - r["fault_t"] <= 4
+              and r["cache_misses_after_fault"] == 0 and r["cache_at_end"] == 1
+              and r["recover_step"] is not None and r["restored"]
+              and all(rec["quarantined"] == rec["gpu_only"] for rec in r["trajectory"])
+              and (scenario != "probe-poison" or r["feed_rejected"] > 0)
+              and (scenario != "pim-brownout-engine" or ctl["tokens"] == r["tokens"]))
+        row = {k: r[k] for k in ("fault_t", "detect_step", "gpu_only_step", "recover_step", "restored",
+                                 "feed_rejected", "cache_at_end", "cache_misses_after_fault")}
+        row["same_tokens_as_control"] = ctl["tokens"] == r["tokens"]
+        out["proxy"][scenario] = row
+        log(f"chaos {scenario} proxy (run_engine_chaos on the card, 28 steps): {row}")
+        if not ok:
+            fail(f"chaos {scenario} proxy: tests/test_faults.py's checks failed: {row}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the dense and VLM families
 # ---------------------------------------------------------------------------
 
@@ -2370,8 +2697,11 @@ def phase_deepseek() -> dict:
     batching = BatchingConfig(n_slots=8, max_seq=1024)
     for run, fused, path in (("fused", "1", DSV2_FUSED_PATH), ("three_call", "0", DSV2_THREE_CALL_PATH)):
         with fused_swiglu(fused):
-            out[run] = phase_serve(lm, params, batching, path, run=f"deepseek-v2 {run}")
+            out[run] = phase_serve(lm, params, batching, path, run=f"deepseek-v2 {run}",
+                                   keep_counts=run == "fused")
             out[run].update(phase_reference(lm, params, paged=False, run=f"deepseek-v2 {run}"))
+    # phase 8's policies and on-device split at 160 experts
+    out["policies"] = phase_policies(out["fused"], arch.moe, "deepseek-v2")
     out["mla_decode_ms"] = _mla_decode_ms(lm, params)
     for run in ("fused", "three_call"):
         graph_ms = out[run]["profile"]["replay"]["graph_span_ms"]
@@ -2417,11 +2747,14 @@ def main() -> None:
     lm, params = build_model(arch)
     serve = {}
     with fused_swiglu("1"):
-        serve["dense"] = phase_serve(lm, params, BatchingConfig(n_slots=8, max_seq=1024),
-                                     DENSE_FUSED_PATH)
+        dense = BatchingConfig(n_slots=8, max_seq=1024)
+        serve["dense"] = phase_serve(lm, params, dense, DENSE_FUSED_PATH, keep_counts=True)
         serve["dense"].update(phase_reference(lm, params, paged=False))
-        serve["dense"]["runtime"] = phase_runtime(lm, params, BatchingConfig(n_slots=8, max_seq=1024),
-                                                  DENSE_FUSED_PATH, kernels)
+        serve["dense"]["runtime"] = phase_runtime(lm, params, dense, DENSE_FUSED_PATH, kernels)
+        # phase 8 on qwen3's weights, before phase 6 frees them
+        serve["policies"] = phase_policies(serve["dense"], arch.moe, "qwen3-moe")
+        serve["dual_threshold"] = phase_dual_threshold(lm, params, dense, serve["dense"])
+        serve["chaos"] = phase_chaos(lm, params, dense)
     with fused_swiglu("0"):
         paged = BatchingConfig(n_slots=8, max_seq=1024, paged=True, page_size=16)
         serve["paged"] = phase_serve(lm, params, paged, PAGED_UNFUSED_PATH)

@@ -9,12 +9,22 @@ step with no host round trip.
 The PIM cost table enters as a dense ``pim_time_by_count`` tensor (seconds
 per token count, clamped at the last entry) held in a :class:`SieveState`
 that the serving engine refreshes in place (``copy_``) on its EMA cadence.
+
+Entry points: :func:`sieve_partition_torch` (cost scalars fixed per
+:class:`SieveParams`) and :func:`sieve_partition_dynamic` (the scalars a
+tensor, as the serving engine holds them) pick the paper's greedy split or
+the prefix argmin; :func:`dual_path_split` and
+:func:`dual_path_split_cost` are the MoE executor's head/tail partitions.
+None reads a value back to the host, so each can be captured in a CUDA
+graph and replayed with new counts written into the same tensor.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
+
+import functools
 
 import numpy as np
 import torch
@@ -71,6 +81,13 @@ class SieveParams:
             [float(getattr(self, f)) for f in self.FIELDS], dtype=np.float32
         )
 
+    @staticmethod
+    def from_array(arr) -> "SieveParams":
+        vals = np.asarray(arr, dtype=np.float32)
+        kw = {f: float(vals[i]) for i, f in enumerate(SieveParams.FIELDS)}
+        kw["tile_m"] = int(kw["tile_m"])
+        return SieveParams(**kw)
+
 
 class SieveState(NamedTuple):
     """Cost-model state for the on-device cost-driven split: two float32
@@ -118,9 +135,14 @@ def _prefix_partition(
     params: torch.Tensor,  # packed SieveParams, float32
     min_split: Optional[torch.Tensor] = None,
     max_split: Optional[int] = None,
+    mode: str = "argmin",
 ) -> dict:
-    """Prefix-family argmin of T_total = max(T_GPU, T_PIM, T_Comm), clamped
-    to ``[min_split, max_split]``; float32 throughout, as in JAX."""
+    """Prefix-family split of T_total = max(T_GPU, T_PIM, T_Comm), clamped
+    to ``[min_split, max_split]``; float32 throughout, as in JAX.
+    ``mode="argmin"`` takes the window's first minimum, ``"greedy"`` the
+    paper's first split whose successor does not strictly improve."""
+    if mode not in ("greedy", "argmin"):
+        raise ValueError(f"unknown mode {mode!r}")
     p = {f: params[i] for i, f in enumerate(SieveParams.FIELDS)}
     E = counts.shape[0]
     dev = counts.device
@@ -162,7 +184,14 @@ def _prefix_partition(
     hi = n_active if max_split is None else torch.clamp(n_active, max=max_split)
     valid = (g_range <= n_active) & (g_range >= lo) & (g_range <= hi)
     t_masked = torch.where(valid, t_total, float("inf"))
-    g_star = torch.argmin(t_masked).to(torch.int32)  # first occurrence
+    if mode == "greedy":
+        # first split whose successor does not strictly improve (paper
+        # §5.2), scanning only inside the feasible window
+        nonimp = (t_masked[1:] >= t_masked[:-1]) & valid[1:]
+        first = torch.argmax(nonimp.to(torch.int32)).to(torch.int32)  # first True
+        g_star = torch.where(nonimp.any(), first, hi)
+    else:
+        g_star = torch.argmin(t_masked).to(torch.int32)  # first occurrence
     # empty window (budget below the feasibility floor): the budget wins
     g_star = torch.where(valid.any(), g_star, hi).to(torch.int32)
 
@@ -179,8 +208,50 @@ def _prefix_partition(
         "t_total": t_total.index_select(0, at)[0],
         "t_gpu": t_gpu.index_select(0, at)[0],
         "t_pim": t_pim.index_select(0, at)[0],
+        "t_comm": p["t_comm"],
         "n_active": n_active,
     }
+
+
+@functools.lru_cache(maxsize=64)
+def _params_tensor(params: SieveParams, device: torch.device) -> torch.Tensor:
+    """The packed float32 scalars of ``params`` on ``device``, made once per
+    (params, device) (JAX's static-argument jit key): a capture that reads
+    them copies nothing from the host."""
+    return torch.from_numpy(params.to_array()).to(device)
+
+
+def sieve_partition_torch(
+    counts: torch.Tensor,  # (E,) token count per local expert
+    pim_time_by_count: torch.Tensor,  # (maxc+1,) float32 seconds
+    params: SieveParams,
+    mode: str = "argmin",
+) -> dict:
+    """``gpu_mask`` (E,) bool plus the evaluated split's diagnostics, with
+    the cost scalars fixed by ``params`` (``repro.core.scheduler_jax.
+    sieve_partition_jax``).
+
+    ``mode="argmin"`` is the global argmin over the prefix family
+    (``scheduler.sieve_schedule(..., mode="argmin")``), ``"greedy"`` the
+    paper's first non-improvement on the same prefix arrays.  The scalars
+    are rounded to float32 as the dynamic form stores them, so both forms
+    pick the same split.  The first call for a ``params`` on a device
+    uploads them: make it outside a graph capture."""
+    return _prefix_partition(
+        counts, pim_time_by_count, _params_tensor(params, counts.device), mode=mode
+    )
+
+
+def sieve_partition_dynamic(
+    counts: torch.Tensor,  # (E,) token count per local expert
+    pim_time_by_count: torch.Tensor,  # (maxc+1,) float32 seconds
+    params_arr: torch.Tensor,  # (len(SieveParams.FIELDS),) packed float32
+    mode: str = "argmin",
+) -> dict:
+    """:func:`sieve_partition_torch` with the cost scalars as a tensor
+    (``SieveState.params``): a refresh that ``copy_``-s new scalars into
+    it changes the split of a captured graph without a new capture."""
+    return _prefix_partition(counts, pim_time_by_count, params_arr.float(), mode=mode)
 
 
 def dual_path_split(

@@ -1,11 +1,12 @@
-"""Health detection for the serving engine's measured cost loop (port's
-copy of ``repro.faults.health``, cut to what the engine runs).
+"""Health detection for the serving engine's measured cost loop and the
+chaos harness (port's copy of ``repro.faults.health``).
 
 :class:`HealthMonitor` keeps one EMA drift/spike monitor
 (:class:`StragglerMonitor`) per named target and adds:
 
-* a state machine per target (``healthy -> degraded -> healthy``) with
-  hysteresis: ``confirm`` consecutive breaches to flag, ``recover``
+* a state machine per target (``healthy -> degraded -> healthy``, plus
+  an explicit ``failed`` state that only :meth:`mark_recovered` clears)
+  with hysteresis: ``confirm`` consecutive breaches to flag, ``recover``
   consecutive in-bound observations to clear, so one outlier never flips
   the state;
 * breaches do not pollute the EMA baseline, so a long degradation is
@@ -14,8 +15,9 @@ copy of ``repro.faults.health``, cut to what the engine runs).
 * a staleness watchdog (:meth:`watch`) over monotone counters: a feed
   that silently stops advancing is a fault even though no sample ever
   looked wrong;
-* a bounded transition log with timestamps, and optional telemetry
-  points (``health/<target>`` series).
+* a bounded transition log with timestamps, from which harnesses read
+  time-to-detect and time-to-clear, and optional telemetry points
+  (``health/<target>`` series).
 """
 
 from __future__ import annotations
@@ -25,8 +27,9 @@ from typing import Dict, List, Optional
 
 HEALTHY = "healthy"
 DEGRADED = "degraded"
+FAILED = "failed"
 
-_STATUS_CODE = {HEALTHY: 0.0, DEGRADED: 1.0}
+_STATUS_CODE = {HEALTHY: 0.0, DEGRADED: 1.0, FAILED: 2.0}
 
 
 class StragglerMonitor:
@@ -161,6 +164,9 @@ class HealthMonitor:
         st = self._state(target)
         st.last_value = value
         breach = st.monitor.observe(st.monitor.n, value)
+        if st.status == FAILED:
+            # an explicitly failed target only recovers via mark_recovered
+            return st.status
         if breach:
             st.bad_streak += 1
             st.good_streak = 0
@@ -196,12 +202,52 @@ class HealthMonitor:
         return stale
 
     # ------------------------------------------------------------------
+    def mark_failed(self, target: str, t: float = 0.0, reason: str = "") -> None:
+        self._set(self._state(target), target, FAILED, t, reason or "failed")
+
+    def mark_recovered(self, target: str, t: float = 0.0, reason: str = "") -> None:
+        st = self._state(target)
+        st.bad_streak = st.good_streak = 0
+        st.stale_checks = 0
+        self._set(st, target, HEALTHY, t, reason or "recovered")
+
+    # ------------------------------------------------------------------
     def status(self, target: str) -> str:
         st = self._targets.get(target)
         return st.status if st is not None else HEALTHY
 
     def is_healthy(self, target: str) -> bool:
         return self.status(target) == HEALTHY
+
+    def targets(self) -> List[str]:
+        return sorted(self._targets)
+
+    def status_counts(self, prefix: str = "") -> Dict[str, int]:
+        """Census of per-target statuses (optionally restricted to targets
+        whose name starts with ``prefix``): ``counts[FAILED] == total``
+        means the pool is gone."""
+        counts = {HEALTHY: 0, DEGRADED: 0, FAILED: 0}
+        for name, st in self._targets.items():
+            if prefix and not name.startswith(prefix):
+                continue
+            counts[st.status] = counts.get(st.status, 0) + 1
+        return counts
+
+    def time_to_detect(self, target: str, fault_t: float) -> Optional[float]:
+        """Time from ``fault_t`` to the first non-healthy transition of
+        ``target`` at or after it; None if never detected."""
+        for tr in self.transitions:
+            if tr.target == target and tr.new != HEALTHY and tr.t >= fault_t:
+                return tr.t - fault_t
+        return None
+
+    def time_to_clear(self, target: str, clear_t: float) -> Optional[float]:
+        """Time from ``clear_t`` to the first healthy transition of
+        ``target`` at or after it; None if it never recovered."""
+        for tr in self.transitions:
+            if tr.target == target and tr.new == HEALTHY and tr.t >= clear_t:
+                return tr.t - clear_t
+        return None
 
     # ---- persistence (engine snapshots) -----------------------
     def state_dict(self) -> dict:

@@ -1,5 +1,13 @@
-"""Crash recovery for the serving engine (counterpart of the snapshot part
-of ``repro.recovery``): a JSON/npy codec with per-leaf sha256 and atomic
-commits, and engine snapshot/restore on torch tensors."""
+"""Crash recovery for the serving engine (counterpart of
+``repro.recovery``): a JSON/npy codec with per-leaf sha256 and atomic
+commits, engine snapshot/restore on torch tensors, and the recovery
+journal's deterministic record and replay of recovery decisions."""
 
-from .snapshot import list_snapshots, restore_engine_snapshot, save_engine_snapshot  # noqa: F401
+from .journal import RecoveryJournal, ReplayMismatch  # noqa: F401
+from .snapshot import (  # noqa: F401
+    SNAPSHOT_VERSION,
+    latest_snapshot,
+    list_snapshots,
+    restore_engine_snapshot,
+    save_engine_snapshot,
+)

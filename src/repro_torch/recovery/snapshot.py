@@ -79,6 +79,11 @@ def list_snapshots(snap_dir: str) -> List[Tuple[int, str]]:
     return committed_dirs(snap_dir, _SNAP_PREFIX)
 
 
+def latest_snapshot(snap_dir: str) -> Optional[int]:
+    snaps = list_snapshots(snap_dir)
+    return snaps[-1][0] if snaps else None
+
+
 def _tree_leaves(tree) -> List[torch.Tensor]:
     """Tensor leaves of nested dicts (by sorted key), lists and tuples."""
     if torch.is_tensor(tree):

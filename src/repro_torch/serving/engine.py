@@ -3,9 +3,11 @@ loop (counterpart of ``repro.serving.engine``).
 
 Per step it admits requests into KV slots and prefills them, runs one
 batched decode step whose aux output carries the per-layer expert token
-counts, feeds those counts through the host Sieve scheduler into the EMA
-cost table, and, under ``expert_exec="dual_path_cost"``, re-exports the
-table into the device-resident ``SieveState`` every
+counts, feeds those counts through the host scheduler (``policy=``, any
+name of ``core.scheduler.POLICIES``: Sieve's greedy by default, its
+argmin refinement, the paper's baselines and the two dual-path rules)
+into the EMA cost table, and, under ``expert_exec="dual_path_cost"``,
+re-exports the table into the device-resident ``SieveState`` every
 ``sieve_refresh_every`` steps.  The table's observations come from the
 DRAM-timing PIM model (``cost_source="model"``) or, with
 ``cost_source="measured"``, from stage probes timed on the device at each
@@ -54,7 +56,7 @@ import torch
 
 from repro_torch.core.cost_model import CostModel, MoELayerSpec, SystemSpec, b200_pim_system
 from repro_torch.core.cost_table import CostTable
-from repro_torch.core.scheduler import schedule
+from repro_torch.core.scheduler import POLICIES, schedule
 from repro_torch.core.scheduler_torch import SieveParams, SieveState, export_cost_table
 from repro_torch.faults.health import HealthMonitor
 from repro_torch.kernels import ops
@@ -133,6 +135,8 @@ class ServingEngine:
             raise ValueError(
                 f"cost_source must be one of {COST_SOURCES}, got {cost_source!r}"
             )
+        if lm.arch.moe is not None and policy not in POLICIES:
+            raise ValueError(f"unknown policy {policy!r}; expected one of {POLICIES}")
         self.lm = lm
         self.params = params
         self.cfg = batching
@@ -414,7 +418,9 @@ class ServingEngine:
         probes (``"measured"``; under quarantine the table takes the
         roofline instead)."""
         kw = {}
-        if self.policy == "dual_cost":
+        if self.policy in ("dual_threshold", "dual_cost"):
+            # the host decision trail evaluates the same feasibility
+            # window as the decode step's on-device split
             moe = self.lm.arch.moe
             kw = {"tail_tokens": moe.dual_tail_tokens, "max_head": moe.dual_max_head}
         measured = self.cost_source == "measured"

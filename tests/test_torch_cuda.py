@@ -993,3 +993,81 @@ class TestDeepseekDecodeStep:
         assert all(n == 0 for k, n in captured.items() if k not in kernels), captured
         print(f"\ndeepseek-v2 2 layers, REPRO_FUSED_SWIGLU={fused}: replayed against eager over "
               f"{len(steps[1])} decode steps, logits and caches bitwise equal: {bitwise}")
+
+
+def _decode_counts(seed: int, E: int, k: int, n_tok: int = 8):
+    """A decode step's per-expert counts: ``n_tok`` tokens, each to ``k``
+    distinct experts."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return np.bincount(np.concatenate([rng.choice(E, k, replace=False) for _ in range(n_tok)]),
+                       minlength=E).astype(np.int32)
+
+
+@pytest.mark.cuda
+class TestSievePartition:
+    @pytest.mark.parametrize("E,dims", [(128, (2048, 768, 8)), (160, (5120, 1536, 6))])
+    def test_replayed_split_equals_host_sieve(self, cuda, E, dims):
+        """``sieve_partition_torch`` and ``sieve_partition_dynamic``, greedy
+        and argmin, captured once and replayed with new counts written in
+        place: the GPU set equals the host ``sieve_schedule``'s on every
+        count vector (a cost table fed by the DRAM-timing model)."""
+        import numpy as np
+
+        from repro_torch.core import cost_model as cm_mod
+        from repro_torch.core.cost_table import CostTable
+        from repro_torch.core.scheduler import sieve_schedule
+        from repro_torch.core.scheduler_torch import (
+            SieveParams, make_sieve_state, sieve_partition_dynamic, sieve_partition_torch,
+        )
+        from repro_torch.sim.dram import PimGemvModel
+
+        d, f, k = dims
+        cm = cm_mod.CostModel(system=cm_mod.b200_pim_system(),
+                              layer=cm_mod.MoELayerSpec(d_model=d, d_ff=f, n_experts=E, top_k=k))
+        table, pim = CostTable(fallback=cm.t_pim_gemv_roofline), PimGemvModel(cm.system.pim)
+        batches = [_decode_counts(s, E, k) for s in range(24)]
+        for c in batches:
+            for n in c[c > 0]:
+                table.update(int(n), pim.expert_time(cm.layer, int(n)))
+        state = make_sieve_state(table, cm, 1024, device=cuda)
+        params = SieveParams.from_cost_model(cm, 0)
+        counts = torch.zeros((E,), dtype=torch.int32, device=cuda)
+        for mode in ("greedy", "argmin"):
+            for call in (lambda: sieve_partition_torch(counts, state.pim_time_by_count, params, mode),
+                         lambda: sieve_partition_dynamic(counts, *state, mode)):
+                call()
+                torch.cuda.synchronize()
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    res = call()
+                for c in batches:
+                    counts.copy_(torch.as_tensor(c))
+                    graph.replay()
+                    host = sieve_schedule(c, cm, table, mode=mode)
+                    assert int(res["split"]) == host.meta["split"]
+                    got = np.nonzero(res["gpu_mask"].cpu().numpy())[0]
+                    assert set(got.tolist()) == set(host.gpu_experts.tolist())
+
+
+@pytest.mark.cuda
+class TestEngineChaos:
+    def test_scenarios_detect_clamp_and_restore(self, cuda):
+        """``run_engine_chaos`` on the card (bf16, the proxy widened to the
+        kernels' smallest instances) under tests/test_faults.py's checks,
+        with one capture throughout."""
+        from repro_torch.faults import ENGINE_SCENARIOS, run_engine_chaos
+
+        control = run_engine_chaos("pim-brownout-engine", n_steps=28, seed=0, refresh=4, magnitude=1.0)
+        assert control["gpu_only_step"] is None
+        for scenario in ENGINE_SCENARIOS:
+            r = run_engine_chaos(scenario, n_steps=28, seed=0, refresh=4)
+            assert r["gpu_only_step"] is not None and r["gpu_only_step"] - r["fault_t"] <= 4
+            assert r["cache_at_end"] == 1 and r["cache_misses_after_fault"] == 0
+            assert r["recover_step"] is not None and r["restored"]
+            assert all(rec["quarantined"] == rec["gpu_only"] for rec in r["trajectory"])
+            if scenario == "probe-poison":
+                assert r["feed_rejected"] > 0
+            else:
+                assert r["tokens"] == control["tokens"]

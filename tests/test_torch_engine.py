@@ -48,7 +48,8 @@ def _tokens(finished):
 
 @pytest.mark.parametrize(
     "mode,policy",
-    [("dual_path_cost", "sieve"), ("dual_path_cost", "dual_cost"), ("dual_path", "sieve"), ("dense", "sieve")],
+    [("dual_path_cost", "sieve"), ("dual_path_cost", "dual_cost"), ("dual_path", "sieve"), ("dense", "sieve"),
+     ("dual_path", "dual_threshold"), ("dual_path_cost", "pimoe")],
 )
 def test_greedy_tokens_match_jax_engine(mode, policy):
     je, te = _engines(mode, policy)

@@ -7,7 +7,7 @@ import pytest
 import torch
 from _hypothesis_compat import given, settings, strategies as st
 
-from _torch_port import pin_threads, t
+from _torch_port import pin_threads, proxy_arch, t
 
 pin_threads()
 jax = pytest.importorskip("jax")
@@ -16,8 +16,11 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import cost_model as jcm, cost_table as jct  # noqa: E402
 from repro.core import scheduler as jsched, scheduler_jax as jsj  # noqa: E402
 from repro.sim.dram import PimGemvModel as JPim  # noqa: E402
+from repro_torch.configs import get_arch as tget  # noqa: E402
 from repro_torch.core import cost_model as tcm, cost_table as tct  # noqa: E402
 from repro_torch.core import scheduler as tsched, scheduler_torch as tst  # noqa: E402
+from repro_torch.models import LM as TLM  # noqa: E402
+from repro_torch.serving import BatchingConfig, ServingEngine  # noqa: E402
 from repro_torch.sim.dram import PimGemvModel as TPim  # noqa: E402
 
 LAYER = dict(d_model=2048, d_ff=768, n_experts=128, top_k=8)
@@ -88,9 +91,18 @@ class TestHostCopies:
             np.testing.assert_array_equal(jp.pim_experts, tp.pim_experts)
             assert (jp.t_gpu, jp.t_pim, jp.t_comm) == (tp.t_gpu, tp.t_pim, tp.t_comm)
 
-    def test_unported_policy_raises(self):
-        with pytest.raises(ValueError, match="not ported"):
-            tsched.schedule("pimoe", np.ones(8), _models(tcm))
+    def test_unknown_policy_raises(self):
+        """Every name of ``POLICIES`` is taken, by ``schedule()`` and the
+        engine alike, and any other name raises in both."""
+        assert tsched.POLICIES == jsched.POLICIES
+        with pytest.raises(ValueError, match="unknown policy"):
+            tsched.schedule("best", np.ones(8), _models(tcm))
+        lm = TLM(proxy_arch(tget), dtype=torch.float32, device="cpu")
+        batching = BatchingConfig(n_slots=2, max_seq=16)
+        with pytest.raises(ValueError, match="unknown policy"):
+            ServingEngine(lm, {}, batching, policy="best")
+        for policy in tsched.POLICIES:
+            assert ServingEngine(lm, {}, batching, policy=policy).policy == policy
 
 
 def _state(seed: int, maxc: int = 64):
