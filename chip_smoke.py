@@ -125,7 +125,28 @@ Phases, each fatal on failure:
    and keep one capture; its tokens are compared with a x1 control (a
    count, not asserted: the clamp moves rows between two bf16 kernels).
    Last, ``run_engine_chaos(device="cuda")`` at proxy size under each
-   scenario with tests/test_faults.py's checks.
+   scenario with tests/test_faults.py's checks;
+9. expert parallelism, last, once every other model is freed: the fused
+   head and tail at the all-to-all layout's decode shape (128 segments
+   sharing 16 experts' weights through ``rhs_of_group``) held and timed as
+   phase 3's rows; one process's eager decode step at 24 layers; then
+   qwen3-moe at full width, cut to 24 of 48 layers, as a (1, 8) mesh of
+   eight ranks spawned by ``repro_torch.launch.mesh.run_on_mesh`` (on one
+   card all share ``cuda:0`` on gloo; with eight cards each has its own on
+   NCCL), 16 experts a rank, decode sequence-parallel over 128 of the 1024
+   positions a rank.  Each rank draws its own experts keyed from seed 0 and
+   runs 8 prompts of 128-512 tokens and 16 greedy decode steps four ways
+   (replicated dispatch fused and three-call, all-to-all fused, and fused
+   from an empty int8 KV cache), each with its launch counters zeroed just
+   before: every token valid, on every rank and step the head's and tail's
+   rows and the drops adding up to the assignments routed to its experts,
+   only the path's kernels launched, and the counts equal on every rank
+   and adding up to tokens x top-k per layer.  A 2-layer slice as the mesh
+   and as one process on the card agree within the bf16 tolerance with
+   exact counts on both bodies, and the sequence-parallel attention from
+   an int8 cache stays within the reference's relative 0.03 of a bf16
+   cache.  Each rank's MoE and collective time per step print beside the
+   one-process step (timings, not checks).
 
 It prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -1179,10 +1200,10 @@ class RowCounter:
         head, tail = self.orig
         rows = self.rows
 
-        def head_stage(slab, wg, wu, wd, sizes):
+        def head_stage(slab, wg, wu, wd, sizes, rhs_of_group=None):
             rows[self.slot, 0] += sizes.sum()
             rows[self.slot, 2] += (sizes > 0).sum()
-            return head(slab, wg, wu, wd, sizes)
+            return head(slab, wg, wu, wd, sizes, rhs_of_group)
 
         def tail_stage(toks, wg, wu, wd, eids, valid):
             rows[self.slot, 1] += valid.sum()
@@ -2716,6 +2737,680 @@ def phase_deepseek() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: expert parallelism
+# ---------------------------------------------------------------------------
+
+# qwen3-moe at full width on a (1, 8) mesh, the expert-parallel layout of an
+# eight-GPU node: 16 experts a rank.  Depth is cut to 24 of 48 layers so the
+# eight ranks fit one 80 GB card when they share it
+EP_SHAPE = (1, 8)
+EP_LAYERS = 24
+EP_SLOTS, EP_MAX_SEQ, EP_STEPS = 8, 1024, 16
+EP_PATHS = {"1": ("swiglu_gmm_capacity", "swiglu_gemv"), "0": ("gmm_capacity", "expert_gemv")}
+# (run, REPRO_EP_MODE, REPRO_FUSED_SWIGLU, REPRO_KV_INT8)
+EP_RUNS = (
+    ("psum_fused", "psum", "1", "0"),
+    ("psum_three_call", "psum", "0", "0"),
+    ("a2a_fused", "a2a", "1", "0"),
+    ("int8_fused", "psum", "1", "1"),
+)
+EP_SUFFIX = "_ep_a2a"  # phase 9's kernel rows at the all-to-all segment shape
+EP_PARITY_PROMPT = 32  # tokens of each of the 8 prompts of the 2-layer parity
+EP_INT8_STEPS = 8  # decode steps of the 2-layer int8 check
+
+
+def ep_arch(n_layers: int = EP_LAYERS):
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch("qwen3-moe-30b-a3b"), n_layers=n_layers)
+
+
+def _ep_prompts(arch, seed: int = 0):
+    """The 8 prompts of phase 9: 128-512 tokens, multiples of 8 so the
+    all-to-all body (which needs the tokens to divide over the 8 ranks) runs
+    at prefill too."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, arch.vocab_size, int(n)).astype(np.int64)
+            for n in rng.integers(16, 65, EP_SLOTS) * 8]
+
+
+@contextlib.contextmanager
+def _env(**values):
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+class EPProbe:
+    """What one rank's MoE path did in each step of an expert-parallel run:
+    its head's live rows and its tail's valid rows, the rows that arrived
+    in its experts' buffers, its dispatch's overflow drops and its
+    executor's drops (summed on the card, read once a step), the device
+    time of its MoE layers (CUDA events around each ``moe_block``) and the
+    host time of its collectives.  It wraps module functions of
+    ``repro_torch.models`` until :meth:`remove`."""
+
+    KEYS = ("head", "tail", "arrived", "disp_drop", "exec_drop")
+
+    def __init__(self, device):
+        import torch
+
+        from repro_torch.models import collectives, moe, transformer
+
+        self.device = device
+        self.records = []
+        self._saved = []
+        self._reset()
+
+        def wrap(mod, name, make):
+            orig = getattr(mod, name)
+            self._saved.append((mod, name, orig))
+            setattr(mod, name, make(orig))
+
+        def head(orig):
+            def head_stage(slab, wg, wu, wd, sizes, rhs_of_group=None):
+                self.t["head"] += sizes.sum()
+                return orig(slab, wg, wu, wd, sizes, rhs_of_group)
+            return head_stage
+
+        def tail(orig):
+            def tail_stage(toks, wg, wu, wd, eids, valid):
+                self.t["tail"] += valid.sum()
+                return orig(toks, wg, wu, wd, eids, valid)
+            return tail_stage
+
+        def dispatch(orig):
+            def run(*args, **kw):
+                d = orig(*args, **kw)
+                self.t["disp_drop"] += d.n_dropped
+                return d
+            return run
+
+        def executor(orig):
+            def run(params, buf, rows, cfg, sieve=None):
+                y, dropped = orig(params, buf, rows, cfg, sieve=sieve)
+                self.t["arrived"] += rows.sum()
+                self.t["exec_drop"] += dropped
+                return y, dropped
+            return run
+
+        def block(orig):
+            def moe_block(*args, **kw):
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = orig(*args, **kw)
+                e1.record()
+                self.events.append((e0, e1))
+                return out
+            return moe_block
+
+        def timed(orig):
+            def run(*args, **kw):
+                t0 = time.perf_counter()
+                out = orig(*args, **kw)
+                self.coll_s += time.perf_counter() - t0
+                return out
+            return run
+
+        wrap(moe, "head_stage", head)
+        wrap(moe, "tail_stage", tail)
+        wrap(moe, "dispatch", dispatch)
+        wrap(moe, "experts_ffn_exec", executor)
+        wrap(moe, "experts_ffn_dual_segmented", executor)
+        wrap(transformer, "moe_block", block)
+        for name in ("all_reduce", "all_gather", "all_to_all"):
+            wrap(collectives, name, timed)
+
+    def _reset(self) -> None:
+        import torch
+
+        self.t = {k: torch.zeros((), dtype=torch.int64, device=self.device) for k in self.KEYS}
+        self.events, self.coll_s = [], 0.0
+
+    def end_step(self, kind: str, aux, n_tokens: int, local: slice, step_s: float) -> dict:
+        """Close the step: its numbers with the global per-layer counts of
+        ``aux`` and the assignments routed to this rank's experts."""
+        import torch
+
+        torch.cuda.synchronize()
+        rec = {k: int(v) for k, v in self.t.items()}
+        counts = aux.counts.cpu()
+        rec.update(kind=kind, tokens=n_tokens, counts=counts.numpy(), dropped=int(aux.dropped),
+                   routed_local=int(counts[:, local].sum()),
+                   moe_ms=sum(a.elapsed_time(b) for a, b in self.events),
+                   coll_ms=1e3 * self.coll_s, step_ms=1e3 * step_s)
+        self.records.append(rec)
+        self._reset()
+        return rec
+
+    def remove(self) -> None:
+        for mod, name, orig in reversed(self._saved):
+            setattr(mod, name, orig)
+
+
+def _ep_check_step(rec: dict, run: str, a2a: bool, top_k: int) -> None:
+    """One rank's step: every row that reached its experts ran in the head or
+    the tail or was dropped by the executor; with replicated dispatch its
+    rows plus its dispatch drops are the assignments routed to its experts
+    (with the all-to-all the sources drop before the exchange); the global
+    counts add up to the step's tokens times top-k on every layer."""
+    if rec["head"] + rec["tail"] + rec["exec_drop"] != rec["arrived"]:
+        raise RuntimeError(f"{run} {rec['kind']}: head {rec['head']} + tail {rec['tail']} + executor "
+                           f"drops {rec['exec_drop']} != {rec['arrived']} rows in this rank's buffers")
+    if not a2a and rec["arrived"] + rec["disp_drop"] != rec["routed_local"]:
+        raise RuntimeError(f"{run} {rec['kind']}: {rec['arrived']} rows + {rec['disp_drop']} dispatch drops "
+                           f"!= {rec['routed_local']} assignments routed to this rank's experts")
+    if a2a and rec["arrived"] > rec["routed_local"]:
+        raise RuntimeError(f"{run} {rec['kind']}: more rows arrived than were routed to this rank")
+    per_layer = rec["counts"].sum(axis=1)
+    if not (per_layer == rec["tokens"] * top_k).all():
+        raise RuntimeError(f"{run} {rec['kind']}: per-layer counts {per_layer.tolist()} != "
+                           f"{rec['tokens']} tokens x top-{top_k}")
+
+
+def _greedy(logits, vocab: int, run: str):
+    import torch
+
+    if not torch.isfinite(logits).all():
+        raise RuntimeError(f"{run}: non-finite logits")
+    tok = torch.argmax(logits[:, -1, :vocab].float(), dim=-1)
+    if not ((tok >= 0) & (tok < vocab)).all():
+        raise RuntimeError(f"{run}: a token outside the vocabulary")
+    return tok.to(torch.int32)
+
+
+def _ep_serve(lm, params, mi, prompts, run: str, a2a: bool, int8: bool, path) -> dict:
+    """One phase-9 run on this rank: the 8 prompts prefilled one by one into
+    the slots of a rank-local cache (none with int8: its cache starts empty,
+    as the reference's int8 path does), then ``EP_STEPS`` greedy decode
+    steps of all 8 slots, with the launch counters zeroed just before."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.sharding import expert_rows
+
+    arch, dev = lm.arch, lm.device
+    local = expert_rows(arch.moe.n_experts, mi)
+    t_run = time.perf_counter()
+    probe = EPProbe(dev)
+    ops.reset_launches()
+    cache = lm.init_cache(EP_SLOTS, EP_MAX_SEQ)
+    if int8:
+        tok = torch.as_tensor([int(p[0]) for p in prompts], dtype=torch.int32, device=dev)
+        pos = torch.zeros(EP_SLOTS, dtype=torch.int32, device=dev)
+    else:
+        toks = []
+        for i, prompt in enumerate(prompts):
+            t0 = time.perf_counter()
+            logits, c, aux = lm.prefill(params, {"tokens": torch.as_tensor(prompt, device=dev)[None]},
+                                        max_seq=EP_MAX_SEQ)
+            torch.cuda.synchronize()
+            rec = probe.end_step("prefill", aux, len(prompt), local, time.perf_counter() - t0)
+            _ep_check_step(rec, run, a2a, arch.moe.top_k)
+            for key in cache:
+                for dst, src in zip(cache[key], c[key]):
+                    dst[:, i].copy_(src[:, 0])
+            toks.append(_greedy(logits, arch.vocab_size, run))
+            del c
+        tok = torch.cat(toks)
+        pos = torch.as_tensor([len(p) for p in prompts], dtype=torch.int32, device=dev)
+    generated = []
+    for _ in range(EP_STEPS):
+        t0 = time.perf_counter()
+        logits, cache, aux = lm.decode_step(params, {"tokens": tok[:, None], "position": pos}, cache)
+        torch.cuda.synchronize()
+        rec = probe.end_step("decode", aux, EP_SLOTS, local, time.perf_counter() - t0)
+        _ep_check_step(rec, run, a2a, arch.moe.top_k)
+        tok = _greedy(logits, arch.vocab_size, run)
+        generated.append(tok.cpu().numpy())
+        pos = pos + 1
+    launches = dict(ops.LAUNCHES)
+    probe.remove()
+    for name, n in launches.items():
+        if (name in path) != (n > 0):
+            raise RuntimeError(f"{run}: kernel {name} launched {n} times; the path's kernels are {path}")
+    return {"steps": probe.records, "launches": launches, "tokens": generated,
+            "wall_s": time.perf_counter() - t_run}
+
+
+def _tape_route(choices: list, replay: bool = False):
+    """``moe.route`` recording each call's top-k choices into ``choices``
+    or, with ``replay``, taking them from it in call order: the weights
+    from this run's own router probabilities, the counts from the taken
+    choices (``RoutingTape`` for one process).  Restores the router on
+    exit."""
+    import torch
+
+    from repro_torch.models import moe
+
+    route = moe.route
+    calls = iter(list(choices))
+
+    def taped(x, w, cfg):
+        r = route(x, w, cfg)
+        if not replay:
+            choices.append(r.expert_idx)
+            return r
+        idx = next(calls).to(x.device)
+        top_p = torch.softmax(x.float() @ w.float(), dim=-1).gather(1, idx.long())
+        weights = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+        counts = torch.zeros_like(r.counts).index_add_(0, idx.reshape(-1).long(),
+                                                       torch.ones_like(idx.reshape(-1)))
+        return r._replace(expert_idx=idx, weights=weights.to(x.dtype), counts=counts)
+
+    @contextlib.contextmanager
+    def installed():
+        moe.route = taped
+        try:
+            yield choices
+        finally:
+            moe.route = route
+
+    return installed()
+
+
+def _ep_parity(lm, params, mi) -> dict:
+    """The first two layers of this rank's weights as a (1, 8) mesh, on each
+    EP body (both decode sequence-parallel), against the same two layers as
+    one process on rank 0's card, drawn keyed from the same seed with all
+    experts: 8 prompts of ``EP_PARITY_PROMPT`` tokens, then one decode
+    step.  Both sides take a capacity no batch here fills: the all-to-all
+    body sizes capacity per source rank, so only a run with no drops equals
+    one process.
+
+    In bfloat16 the two sides round differently: each rank splits its own
+    experts between the head and the tail kernel where one process splits
+    all of them, and decode attention is the dense kernel (bf16
+    probabilities into the value product) in one process and float32
+    einsums on the mesh.  A near-tie in a router's top-k then flips, and a
+    flip moves a whole expert's output.  So the mesh is held as phase 4
+    holds the card to the CPU: the first layer's prefill counts exact
+    (both sides route the same inputs there), at most 2% of all routed
+    assignments moved between the two sides' own choices, and, with the
+    mesh's choices replayed in the one process, logits within 5% of the
+    largest logit and cosine 0.999.  The largest difference and the share
+    of logits within ``TOL`` are recorded.
+
+    Then the int8 cache, as the reference's test holds it
+    (tests/test_perf_paths.py:126): the first layer's sequence-parallel
+    attention, ``EP_INT8_STEPS`` steps from an empty int8 cache and from an
+    empty bf16 one on the same inputs, within relative 0.03 on every step.
+    The 2-layer model's logits from the two caches are recorded per step
+    beside whether the two routed alike."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import LM
+    from repro_torch.models import collectives as coll
+    from repro_torch.models.attention import gqa_decode_seqpar
+
+    dev = lm.device
+    arch = lm.arch
+    small = dataclasses.replace(arch, n_layers=2, moe=dataclasses.replace(arch.moe, min_capacity=4096))
+    p2 = dict(params, blocks=params["blocks"][:2])
+    rng = np.random.default_rng(3)
+    prompt = torch.as_tensor(rng.integers(0, arch.vocab_size, (EP_SLOTS, EP_PARITY_PROMPT)), device=dev)
+    tok = torch.as_tensor(rng.integers(0, arch.vocab_size, (EP_SLOTS, 1)), dtype=torch.int32, device=dev)
+    pos = torch.full((EP_SLOTS,), EP_PARITY_PROMPT, dtype=torch.int32, device=dev)
+
+    def run(model, weights, tape):
+        with tape as choices:
+            logits_p, cache, aux_p = model.prefill(weights, {"tokens": prompt}, max_seq=2 * EP_PARITY_PROMPT)
+            logits_d, _, aux_d = model.decode_step(weights, {"tokens": tok, "position": pos}, cache)
+        return {"choices": choices, "logits": [t[..., : arch.vocab_size].float().cpu() for t in (logits_p, logits_d)],
+                "counts": [aux_p.counts.cpu(), aux_d.counts.cpu()]}
+
+    mesh = {}
+    for ep in ("psum", "a2a"):
+        with _env(REPRO_EP_MODE=ep, REPRO_FUSED_SWIGLU="1"):
+            mesh[ep] = run(LM(small, torch.bfloat16, dev, mesh_info=mi), p2, _tape_route([]))
+        if ep == "a2a":  # each rank routed its own slice of the tokens: gather them
+            mesh[ep]["choices"] = [coll.all_gather(c, mi.model_group).reshape(-1, c.shape[-1])
+                                   for c in mesh[ep]["choices"]]
+
+    # the int8 cache against bf16: the first layer's attention, then the model
+    a, T_loc = arch.attn, EP_MAX_SEQ // mi.ep_size
+    kv = (EP_SLOTS, T_loc, a.n_kv_heads, a.d_head)
+    bf16 = [torch.zeros(kv, dtype=torch.bfloat16, device=dev) for _ in range(2)]
+    q8 = [torch.zeros(kv, dtype=torch.int8, device=dev) for _ in range(2)]
+    q8 += [torch.zeros(kv[:3], dtype=torch.float32, device=dev) for _ in range(2)]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    attn_rel = []
+    for i in range(EP_INT8_STEPS):
+        x = torch.randn((EP_SLOTS, 1, arch.d_model), generator=gen, device=dev).to(torch.bfloat16)
+        p = torch.full((EP_SLOTS,), i, dtype=torch.int32, device=dev)
+        y_ref = gqa_decode_seqpar(p2["blocks"][0]["attn"], x, p, bf16[0], bf16[1], a, mi).float()
+        y_q = gqa_decode_seqpar(p2["blocks"][0]["attn"], x, p, q8[0], q8[1], a, mi,
+                                kv_scales=(q8[2], q8[3])).float()
+        attn_rel.append(float((y_ref - y_q).abs().max() / y_ref.abs().max()))
+    if not all(rel < 0.03 for rel in attn_rel):
+        raise RuntimeError(f"int8 KV attention off the bf16 cache by more than 0.03: {attn_rel}")
+    steps = {}
+    model = LM(small, torch.bfloat16, dev, mesh_info=mi)
+    for int8 in ("0", "1"):
+        with _env(REPRO_KV_INT8=int8, REPRO_EP_MODE="psum", REPRO_FUSED_SWIGLU="1"):
+            cache = model.init_cache(EP_SLOTS, EP_MAX_SEQ)
+            steps[int8] = []
+            for i in range(EP_INT8_STEPS):
+                p = torch.full((EP_SLOTS,), i, dtype=torch.int32, device=dev)
+                logits, cache, aux = model.decode_step(p2, {"tokens": prompt[:, i:i + 1].to(torch.int32),
+                                                            "position": p}, cache)
+                steps[int8].append((logits[..., : arch.vocab_size].float().cpu(), aux.counts.cpu()))
+    out = {"int8_attention_rel": attn_rel,
+           "int8_steps": [(float((a - b).abs().max() / a.abs().max()), bool(torch.equal(ca, cb)))
+                          for (a, ca), (b, cb) in zip(steps["0"], steps["1"])]}
+    if mi.model_index != 0:
+        return out
+    ref_lm = LM(small, torch.bfloat16, dev)
+    ref_params = ref_lm.init(seed=0, keyed=True)
+    with _env(REPRO_FUSED_SWIGLU="1"):
+        own = run(ref_lm, ref_params, _tape_route([]))
+        for ep, got in mesh.items():
+            want = run(ref_lm, ref_params, _tape_route(got["choices"], replay=True))
+            out.update(_ep_parity_compare(ep, got, own, want))
+    return out
+
+
+def _ep_parity_compare(ep: str, got: dict, own: dict, want: dict) -> dict:
+    """``_ep_parity``'s rule for one EP body: ``got`` the mesh's run, ``own``
+    one process on its own routing, ``want`` one process on the mesh's."""
+    import torch
+
+    out = {}
+    if not torch.equal(got["choices"][0].cpu(), own["choices"][0].cpu()):
+        raise RuntimeError(f"parity {ep}: the first layer's prefill routing differs from one process")
+    if not torch.equal(got["counts"][0][0], own["counts"][0][0]):
+        raise RuntimeError(f"parity {ep}: the first layer's prefill counts differ from one process")
+    moved = total = 0
+    for g, w in zip(got["choices"], own["choices"]):
+        g, w = g.cpu(), w.cpu()
+        moved += sum(len(set(a.tolist()) - set(b.tolist())) for a, b in zip(g, w))
+        total += g.numel()
+    out[f"{ep}_moved_share"] = moved / total
+    if moved / total > 0.02:
+        raise RuntimeError(f"parity {ep}: {moved} of {total} routed assignments moved against one process")
+    for stage, g, w in zip(("prefill", "decode"), got["logits"], want["logits"]):
+        err = float((g - w).abs().max())
+        scale = float(w.abs().max())
+        cos = float(torch.nn.functional.cosine_similarity(g.flatten(), w.flatten(), dim=0))
+        within = float(torch.isclose(g, w, **TOL).float().mean())
+        out.update({f"{ep}_{stage}_max_abs_err": err, f"{ep}_{stage}_max_logit": scale,
+                    f"{ep}_{stage}_cosine": cos, f"{ep}_{stage}_share_within_tol": within})
+        if not torch.isfinite(g).all() or err > 5e-2 * scale or cos < 0.999:
+            raise RuntimeError(f"parity {ep} {stage}: the mesh's logits differ from one process on the "
+                               f"mesh's routing by {err} (largest logit {scale}, cosine {cos})")
+    return out
+
+
+def _ep_rank(mesh, n_layers: int) -> dict:
+    """Everything one rank of phase 9 runs: its weights, the four runs with
+    their checks, and the 2-layer parity."""
+    import torch
+
+    from repro_torch.launch.mesh import mesh_info_for
+    from repro_torch.models import LM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch = ep_arch(n_layers)
+    mi = mesh_info_for(mesh, EP_SLOTS)
+    lm = LM(arch, torch.bfloat16, mesh.device, mesh_info=mi)
+    t0 = time.perf_counter()
+    params = lm.init(seed=0)  # keyed: this rank's experts only
+    torch.cuda.synchronize()
+    out = {"rank": mesh.rank, "init_s": time.perf_counter() - t0,
+           "weights_gb": torch.cuda.memory_allocated() / 1e9, "runs": {}}
+    prompts = _ep_prompts(arch)
+    for run, ep, fused, int8 in EP_RUNS:
+        with _env(REPRO_EP_MODE=ep, REPRO_FUSED_SWIGLU=fused, REPRO_KV_INT8=int8):
+            out["runs"][run] = _ep_serve(lm, params, mi, prompts, run, ep == "a2a", int8 == "1",
+                                         EP_PATHS[fused])
+    free, total = torch.cuda.mem_get_info()
+    out.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9, card_used_gb=(total - free) / 1e9)
+    t0 = time.perf_counter()
+    out["parity"] = _ep_parity(lm, params, mi)
+    out["parity_s"] = time.perf_counter() - t0
+    return out
+
+
+def _one_process_step(arch, n: int = 10) -> dict:
+    """Eager full-batch decode steps of the one-process model at phase 9's
+    depth (keyed weights, all experts), host clock around each synchronised
+    step, and its MoE layers' device time (CUDA events): the EP step's
+    comparison.  Its weights are freed after."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import LM
+
+    lm = LM(arch, torch.bfloat16, "cuda")
+    params = lm.init(seed=0, keyed=True)
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    rng = np.random.default_rng(4)
+    cache = lm.init_cache(EP_SLOTS, EP_MAX_SEQ)
+    pos = torch.as_tensor(rng.integers(128, 513, EP_SLOTS), dtype=torch.int32, device="cuda")
+    tok = torch.as_tensor(rng.integers(0, arch.vocab_size, (EP_SLOTS, 1)), dtype=torch.int32, device="cuda")
+    probe = EPProbe(torch.device("cuda"))
+    step_ms, moe_ms = [], []
+    with _env(REPRO_FUSED_SWIGLU="1"):
+        for i in range(n + 2):
+            t0 = time.perf_counter()
+            _, cache, aux = lm.decode_step(params, {"tokens": tok, "position": pos + i}, cache)
+            torch.cuda.synchronize()
+            rec = probe.end_step("decode", aux, EP_SLOTS, slice(None), time.perf_counter() - t0)
+            if i >= 2:
+                step_ms.append(rec["step_ms"])
+                moe_ms.append(rec["moe_ms"])
+    probe.remove()
+    del lm, params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"weights_gb": weights_gb, "step_ms": spread(step_ms), "moe_ms": spread(moe_ms)}
+
+
+def phase_ep_kernels(arch) -> dict:
+    """The fused head and tail at the all-to-all layout's decode shape on
+    one rank of the (1, 8) mesh: G = 16 local experts x 8 source segments
+    of ``capacity(1)`` rows, the groups sharing the 16 experts' weights
+    through ``rhs_of_group``.  Live segments follow one decode step's
+    routing of 8 tokens (one from each source rank); the head row puts
+    every live segment in the head, the tail row streams every live row.
+    Each is held against its plain version and timed against ``torch.bmm``
+    SwiGLU on the gathered weights; the bound counts each live expert's
+    weights once, as ``weight_of_group`` charges them."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.moe import capacity
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    ep = EP_SHAPE[1]
+    E, K, Fd, N = arch.moe.n_experts, arch.d_model, arch.moe.d_expert, arch.d_model
+    E_loc = E // ep
+    G, C = E_loc * ep, capacity(1, arch.moe, E)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    rng = np.random.default_rng(9)
+    seg = np.zeros((E_loc, ep), np.int64)  # (local expert, source rank): rows
+    for s in range(ep):
+        chosen = rng.choice(E, size=arch.moe.top_k, replace=False)
+        seg[chosen[chosen < E_loc], s] = 1
+    sizes_np = seg.reshape(G)
+    live_experts = int((seg.sum(1) > 0).sum())
+    rows = int(sizes_np.sum())
+    wg, wu = rnd((E_loc, K, Fd), K**-0.5), rnd((E_loc, K, Fd), K**-0.5)
+    wd = rnd((E_loc, Fd, N), Fd**-0.5)
+    rhs = torch.arange(E_loc, dtype=torch.int32, device=dev).repeat_interleave(ep)
+    sizes = torch.as_tensor(sizes_np, dtype=torch.int32, device=dev)
+    buf = rnd((G, C, K)) * (torch.arange(C, device=dev)[None, :, None] < sizes[:, None, None])
+    dead = torch.arange(C, device=dev)[None, :] >= sizes[:, None]
+    idx = rhs.long()
+    results = {}
+
+    want = ref.fused_swiglu_gmm_ref(buf, wg, wu, wd, sizes, rhs)
+    err = _repeat_compare("swiglu_gmm_capacity at the a2a segment shape",
+                          lambda: ops.swiglu_gmm_capacity(buf, wg, wu, wd, sizes, rhs), want, zero_rows=dead)
+
+    def library_head():
+        h = F.silu(torch.bmm(buf, wg[idx])) * torch.bmm(buf, wu[idx])
+        return torch.bmm(h, wd[idx]) * (~dead)[..., None]
+
+    results["swiglu_gmm_capacity"] = dict(
+        max_abs_err=err,
+        host_us=host_us(lambda: ops.swiglu_gmm_capacity(buf, wg, wu, wd, sizes, rhs)),
+        **timings(ms=lambda: ops.swiglu_gmm_capacity(buf, wg, wu, wd, sizes, rhs),
+                  plain_ms=lambda: ref.fused_swiglu_gmm_ref(buf, wg, wu, wd, sizes, rhs),
+                  library_ms=library_head),
+        bytes=live_experts * 3 * K * Fd * 2 + rows * K * 2 + G * C * N * 2 + 2 * G * 4,
+        flops=2 * rows * 3 * K * Fd,
+        shape=f"buf ({G},{C},{K}) over {E_loc} experts' weights through rhs_of_group, "
+              f"{int((sizes_np > 0).sum())} live segments of {live_experts} experts, {rows} live rows",
+    )
+    toks = buf[:, 0]
+    valid = sizes.clone()
+    want = ref.fused_swiglu_gemv_ref(toks.contiguous(), wg, wu, wd, rhs, valid)
+    err = _compare("swiglu_gemv at the a2a segment shape", ops.swiglu_gemv(toks, wg, wu, wd, rhs, valid),
+                   want, zero_rows=valid == 0)
+
+    def library_tail():
+        h = F.silu(torch.bmm(toks[:, None], wg[idx])) * torch.bmm(toks[:, None], wu[idx])
+        return torch.bmm(h, wd[idx])[:, 0] * valid[:, None]
+
+    results["swiglu_gemv"] = dict(
+        max_abs_err=err,
+        host_us=host_us(lambda: ops.swiglu_gemv(toks, wg, wu, wd, rhs, valid)),
+        **timings(ms=lambda: ops.swiglu_gemv(toks, wg, wu, wd, rhs, valid),
+                  plain_ms=lambda: ref.fused_swiglu_gemv_ref(toks, wg, wu, wd, rhs, valid),
+                  library_ms=library_tail),
+        bytes=live_experts * 3 * K * Fd * 2 + rows * K * 2 + G * N * 2 + G * 8,
+        flops=2 * rows * 3 * K * Fd,
+        shape=f"tokens ({G},{K}) of the segments' first rows, eids over {E_loc} experts, {rows} valid rows "
+              f"of {live_experts} experts",
+    )
+    for name, r in results.items():
+        _log_row(f"{name}{EP_SUFFIX}", r)
+    del wg, wu, wd
+    torch.cuda.empty_cache()
+    return {f"{name}{EP_SUFFIX}": dict(r, kernel=name) for name, r in results.items()}
+
+
+def phase_ep(card: str) -> dict:
+    """Phase 9: qwen3-moe at full width, cut to ``EP_LAYERS`` layers, as a
+    (1, 8) mesh of ranks spawned by ``run_on_mesh``; on one card all eight
+    share it on gloo, on eight or more each has its own on NCCL.  Every
+    rank draws its 16 experts (and the replicated rest) keyed from seed 0,
+    runs the four ``EP_RUNS`` with their checks and the 2-layer parity; a
+    rank that fails fails the phase.  Then the checks across ranks: equal
+    counts on every step, and the ranks' drops adding up to the global
+    drop count."""
+    import torch
+
+    from repro_torch.launch.mesh import run_on_mesh
+
+    world = EP_SHAPE[0] * EP_SHAPE[1]
+    arch = ep_arch()
+    if torch.cuda.device_count() >= world:
+        backend, devices = "nccl", [f"cuda:{r}" for r in range(world)]
+        layout = f"one card per rank on nccl ({torch.cuda.device_count()} cards)"
+    else:
+        backend, devices = "gloo", "cuda:0"
+        layout = (f"all {world} ranks share cuda:0 on gloo: every collective is staged through host "
+                  "memory, so its times say nothing of NVLink")
+    log(f"expert parallelism: {arch.name} full width (d_model {arch.d_model}, {arch.moe.n_experts} experts "
+        f"top-{arch.moe.top_k}, d_expert {arch.moe.d_expert}, {arch.attn.n_heads} heads on "
+        f"{arch.attn.n_kv_heads} kv heads), {arch.n_layers} of 48 layers, a {EP_SHAPE} mesh: "
+        f"{arch.moe.n_experts // EP_SHAPE[1]} experts a rank, sequence-parallel decode over "
+        f"{EP_MAX_SEQ // EP_SHAPE[1]} of {EP_MAX_SEQ} positions a rank; {layout}")
+    t0 = time.perf_counter()
+    one = _one_process_step(arch)
+    one["wall_s"] = time.perf_counter() - t0
+    log(f"expert parallelism: one process at {arch.n_layers} layers ({one['weights_gb']:.1f} GB of weights): "
+        f"eager full-batch decode step {one['step_ms']['median']:.1f} ms ({one['step_ms']['min']:.1f}-"
+        f"{one['step_ms']['max']:.1f}), MoE layers {one['moe_ms']['median']:.1f} ms of device time | {card}")
+    t0 = time.perf_counter()
+    try:
+        ranks = run_on_mesh(_ep_rank, EP_SHAPE, backend, devices, args=(arch.n_layers,), timeout_s=600)
+    except Exception as e:  # a rank's failure, with its traceback
+        fail(f"phase 9 (expert parallelism): {e}")
+    out = {"backend": backend, "layout": layout, "wall_s": time.perf_counter() - t0, "one_process": one,
+           "ranks": [], "runs": {}}
+    for run, ep, _, _ in EP_RUNS:
+        recs = [r["runs"][run]["steps"] for r in ranks]
+        for i, step in enumerate(zip(*recs)):
+            if any(not (s["counts"] == step[0]["counts"]).all() for s in step[1:]):
+                fail(f"{run} step {i}: the ranks report different counts")
+            local_drops = sum(s["disp_drop"] + s["exec_drop"] for s in step)
+            if local_drops != step[0]["dropped"]:
+                fail(f"{run} step {i}: the ranks' drops add up to {local_drops}, the global count is "
+                     f"{step[0]['dropped']}")
+            if ep == "a2a" and sum(s["routed_local"] - s["arrived"] for s in step) != sum(
+                    s["disp_drop"] for s in step):
+                fail(f"{run} step {i}: the rows lost before the exchange are not the sources' drops")
+        if any(r["runs"][run]["tokens"][-1].tolist() != ranks[0]["runs"][run]["tokens"][-1].tolist()
+               for r in ranks):
+            fail(f"{run}: the ranks generated different tokens")
+        dec = [[s for s in rr if s["kind"] == "decode"] for rr in recs]
+        pre = [s for s in recs[0] if s["kind"] == "prefill"]
+        summary = {
+            "launches_rank0": ranks[0]["runs"][run]["launches"],
+            "decode_step_ms": spread([s["step_ms"] for rr in dec for s in rr[2:]]),
+            "decode_moe_ms": spread([s["moe_ms"] for rr in dec for s in rr[2:]]),
+            "decode_coll_ms": spread([s["coll_ms"] for rr in dec for s in rr[2:]]),
+            "prefill_ms": [s["step_ms"] for s in pre],
+            "head_rows": sum(s["head"] for rr in recs for s in rr),
+            "tail_rows": sum(s["tail"] for rr in recs for s in rr),
+            "dropped": sum(s["dropped"] for s in recs[0]),
+            "routed": sum(int(s["counts"].sum()) for s in recs[0]),
+            "wall_s": max(r["runs"][run]["wall_s"] for r in ranks),
+        }
+        if summary["head_rows"] == 0 or summary["tail_rows"] == 0:
+            fail(f"{run}: the head or the tail never had a row ({summary})")
+        out["runs"][run] = summary
+        log(f"ep {run}: decode step {summary['decode_step_ms']['median']:.1f} ms "
+            f"({summary['decode_step_ms']['min']:.1f}-{summary['decode_step_ms']['max']:.1f}, host clock, all "
+            f"ranks, steps 3-{EP_STEPS}), a rank's MoE layers {summary['decode_moe_ms']['median']:.1f} ms "
+            f"(CUDA events), its collectives {summary['decode_coll_ms']['median']:.1f} ms (host clock); "
+            f"prefill {min(summary['prefill_ms'] or [0]):.0f}-{max(summary['prefill_ms'] or [0]):.0f} ms a "
+            f"prompt; head rows {summary['head_rows']}, tail rows {summary['tail_rows']}, dropped "
+            f"{summary['dropped']} of {summary['routed']}; rank 0 launches {summary['launches_rank0']}; run "
+            f"{summary['wall_s']:.1f} s | {card}")
+    for r in ranks:
+        out["ranks"].append({k: r[k] for k in ("rank", "init_s", "weights_gb", "peak_gb", "card_used_gb",
+                                               "parity_s")})
+    par = out["parity"] = ranks[0]["parity"]
+    log(f"ep memory: a rank's weights {ranks[0]['weights_gb']:.2f} GB, peak {max(r['peak_gb'] for r in ranks):.2f} "
+        f"GB; the card's used memory after the runs {max(r['card_used_gb'] for r in ranks):.1f} GB; rank init "
+        f"{max(r['init_s'] for r in ranks):.1f} s, parity {max(r['parity_s'] for r in ranks):.1f} s; the "
+        f"one-process step {one['wall_s']:.1f} s; the ranks' wall {out['wall_s']:.1f} s")
+    log(f"ep parity, 2-layer slice as a (1, 8) mesh against one process: " + ", ".join(
+        f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}" for k, v in par.items()
+        if not k.startswith("int8")))
+    log(f"ep int8 KV, rank 0: first layer's attention, relative error per step "
+        + ", ".join(f"{a:.4f}" for a in par["int8_attention_rel"]) + " (bound 0.03); the 2-layer logits "
+        "(relative error, routed alike) per step " + ", ".join(f"({a:.4f}, {b})" for a, b in par["int8_steps"]))
+    ratio = out["runs"]["psum_fused"]["decode_step_ms"]["median"] / one["step_ms"]["median"]
+    out["ep_over_one_process"] = ratio
+    log(f"ep psum_fused decode step over the one-process eager step at {arch.n_layers} layers: x{ratio:.2f} "
+        f"({layout}) | {card}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> None:
@@ -2768,6 +3463,9 @@ def main() -> None:
     log(f"qwen3-moe weights freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
     families = phase_families()
     deepseek = phase_deepseek()
+    # phase 9 last: its eight ranks share the card once every other model is freed
+    kernels.update(phase_ep_kernels(ep_arch()))
+    ep = phase_ep(card)
 
     # each kernel's launches come from the run of its own path
     launches = {k: serve["dense"]["launches"][k] for k in DENSE_FUSED_PATH}
@@ -2777,6 +3475,7 @@ def main() -> None:
     launches["decode_attention_paged_dh64"] = granite["paged"]["launches"]["decode_attention_paged"]
     launches.update({f"{k}{DSV2_SUFFIX}": deepseek["fused"]["launches"][k] for k in DSV2_FUSED_PATH})
     launches.update({f"{k}{DSV2_SUFFIX}": deepseek["three_call"]["launches"][k] for k in DSV2_THREE_CALL_PATH})
+    launches.update({f"{k}{EP_SUFFIX}": ep["runs"]["a2a_fused"]["launches_rank0"][k] for k in EP_PATHS["1"]})
     for name, r in kernels.items():
         if "path_launches" in r:
             launches[name] = r["path_launches"]
@@ -2794,7 +3493,7 @@ def main() -> None:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, device=kind, build=build_info, kernels=kernels, held=held, serve=serve, families=families,
-        deepseek=deepseek,
+        deepseek=deepseek, ep=ep,
     ), indent=1, default=str))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -13,6 +13,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.moe import LOCAL_MESH, MeshInfo
+from repro_torch.models.sharding import rank_cut
 
 # leaves the reference keeps in float32 whatever the model dtype: norm
 # scales/biases, the router (repro/models/moe.py:75) and MLA's latent norm
@@ -39,16 +41,21 @@ def _unstack(tree, i: int):
     return tree[i]
 
 
-def params_from_numpy(tree: Dict[str, Any], device,
-                      dtype: torch.dtype) -> Dict[str, Any]:
+def params_from_numpy(tree: Dict[str, Any], device, dtype: torch.dtype,
+                      mesh_info: MeshInfo = LOCAL_MESH) -> Dict[str, Any]:
     """Convert a JAX ``LM.init`` tree (leaves as numpy arrays) into the
     port's parameter dict.  The scan-stacked ``tree["blocks"]`` and, with
     a dense prefix, ``tree["prefix_blocks"]`` (leading layer axis,
     ``repro/models/model.py:124-135``) become lists of per-layer dicts; the
     router and the norm scales stay float32, other floating leaves take
     ``dtype``.  ``device`` is resolved as every entry point resolves it:
-    ``"cuda"`` without a GPU raises."""
+    ``"cuda"`` without a GPU raises.
+
+    With ``mesh_info`` the result is that rank's parameters
+    (``sharding.rank_cut``: its experts, every other leaf whole), cut on
+    the host before anything is copied to ``device``."""
     device = resolve_device(device)
+    tree = rank_cut(tree, mesh_info)
     out = {k: _convert(v, device, dtype, k) for k, v in tree.items() if k not in _STACKED}
     for key in _STACKED:
         if key in tree:

@@ -136,11 +136,18 @@ def _prefix_partition(
     min_split: Optional[torch.Tensor] = None,
     max_split: Optional[int] = None,
     mode: str = "argmin",
+    weight_of_group: Optional[torch.Tensor] = None,  # (E,) 0/1: charges weight bytes?
 ) -> dict:
     """Prefix-family split of T_total = max(T_GPU, T_PIM, T_Comm), clamped
     to ``[min_split, max_split]``; float32 throughout, as in JAX.
     ``mode="argmin"`` takes the window's first minimum, ``"greedy"`` the
-    paper's first split whose successor does not strictly improve."""
+    paper's first split whose successor does not strictly improve.
+
+    ``weight_of_group`` marks the entries that charge their expert's
+    ``expert_param_bytes`` in T_GPU's memory term.  ``None`` charges every
+    active entry (entries are whole experts); the all-to-all layout's
+    segments pass the first segment of each expert, so an expert whose
+    segments all enter the head is charged its shared weights once."""
     if mode not in ("greedy", "argmin"):
         raise ValueError(f"unknown mode {mode!r}")
     p = {f: params[i] for i, f in enumerate(SieveParams.FIELDS)}
@@ -157,7 +164,11 @@ def _prefix_partition(
     zero = torch.zeros(1, dtype=torch.int32, device=dev)
     cum_tokens = torch.cat([zero, torch.cumsum(sc, 0, dtype=torch.int32)])
     cum_padded = torch.cat([zero, torch.cumsum(padded, 0, dtype=torch.int32)])
-    cum_live = torch.cat([zero, torch.cumsum(active.to(torch.int32), 0, dtype=torch.int32)])
+    if weight_of_group is None:
+        live = active.to(torch.int32)
+    else:
+        live = torch.where(active, weight_of_group[order].to(torch.int32), 0)
+    cum_live = torch.cat([zero, torch.cumsum(live, 0, dtype=torch.int32)])
 
     t_gpu_comp = (
         p["flops_per_row"] * cum_padded.float() + p["gpu_base_flops"]
@@ -288,20 +299,22 @@ def dual_path_split_cost(
     params_arr: torch.Tensor,  # packed SieveParams (SieveState.params)
     tail_tokens: int = 1,
     max_head: Optional[int] = None,
+    weight_of_group: Optional[torch.Tensor] = None,  # (E,) 0/1 weight-byte mask
 ) -> dict:
     """Cost-driven head/tail partition (``expert_exec="dual_path_cost"``).
 
     Same contract as :func:`dual_path_split`; the prefix boundary is the
     cost-model argmin, clamped below by the experts that must be in the
     head (more than ``tail_tokens`` rows) and above by ``max_head``
-    (``None`` = no budget, ``0`` = empty head, as in JAX)."""
+    (``None`` = no budget, ``0`` = empty head, as in JAX).
+    ``weight_of_group``: see :func:`_prefix_partition`."""
     E = rows.shape[0]
     rows = rows.to(torch.int32)
     n_over = (rows > tail_tokens).sum(dtype=torch.int32)
     cap = None if (max_head is None or max_head >= E) else int(max_head)
     part = _prefix_partition(
         rows, pim_time_by_count, params_arr.float(),
-        min_split=n_over, max_split=cap,
+        min_split=n_over, max_split=cap, weight_of_group=weight_of_group,
     )
     head = part["gpu_mask"]
     tail = (rows > 0) & ~head

@@ -280,6 +280,93 @@ def gqa_decode_paged(
 
 
 # ---------------------------------------------------------------------------
+# Sequence-parallel decode (the KV cache split over the model group's ranks)
+# ---------------------------------------------------------------------------
+
+
+def quantize_kv_row(row: torch.Tensor):
+    """Per-(token, head) int8 quantisation: row (B, 1, K, dh) -> (int8 row,
+    float32 scale (B, 1, K))."""
+    rf = row.float()
+    scale = torch.clamp(rf.abs().amax(-1, keepdim=True), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(rf / scale), -127, 127).to(torch.int8)
+    return q, scale[..., 0]
+
+
+def _write_owned(cache: torch.Tensor, row: torch.Tensor, idx: torch.Tensor,
+                 own: torch.Tensor) -> None:
+    """``cache[b, idx[b]] = row[b]`` where ``own[b]``, in place, with no host
+    synchronisation (an unowned slot writes its old value back)."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    old = cache[rows, idx]
+    keep = own.reshape((-1,) + (1,) * (old.ndim - 1))
+    cache[rows, idx] = torch.where(keep, row.to(cache.dtype), old)
+
+
+def gqa_decode_seqpar(
+    params: dict,
+    x: torch.Tensor,  # (B, 1, d): this rank's rows
+    position: torch.Tensor,  # (B,) global positions
+    cache_k: torch.Tensor,  # (B, T_loc, K, dh): this rank's slice of positions
+    cache_v: torch.Tensor,
+    cfg: AttnConfig,
+    mi,  # MeshInfo
+    use_rope: bool = True,
+    kv_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (B, T_loc, K) f32 each
+) -> torch.Tensor:
+    """Sequence-parallel decode attention (``repro.models.attention.
+    gqa_decode_seqpar``): the KV cache is split along the sequence over the
+    model group, rank m holding positions [m * T_loc, (m + 1) * T_loc).
+
+    A rank writes the new K/V row in place only if it owns the position,
+    computes the partial online softmax (m, l, acc) in float32 over its
+    slice, masked by global position, and the partials merge exactly over
+    the group: the max of ``m``, then the sum of ``l`` and ``acc`` rescaled
+    to it.  With ``kv_scales`` the cache is int8 and the
+    per-(token, head) scales fold into the scores and into ``p``.  Plain
+    PyTorch, as the reference is einsum work with no kernel."""
+    from . import collectives as coll
+
+    q, k1, v1 = gqa_project_qkv(params, x, position[:, None] if use_rope else None, cfg,
+                                None, use_rope)
+    B, T_loc, K, dh = cache_k.shape
+    local = position.long() - mi.model_index * T_loc
+    own = (local >= 0) & (local < T_loc)
+    idx = torch.clamp(local, 0, T_loc - 1)
+    int8_kv = kv_scales is not None
+    if int8_kv:
+        k1, k1s = quantize_kv_row(k1)
+        v1, v1s = quantize_kv_row(v1)
+        _write_owned(kv_scales[0], k1s[:, 0], idx, own)
+        _write_owned(kv_scales[1], v1s[:, 0], idx, own)
+    _write_owned(cache_k, k1[:, 0], idx, own)
+    _write_owned(cache_v, v1[:, 0], idx, own)
+
+    H = q.shape[2]
+    G = H // K
+    qf = q.reshape(B, K, G, dh).float()
+    s = torch.einsum("bkgd,btkd->bkgt", qf, cache_k.float())
+    if int8_kv:  # fold the per-(token, head) dequantisation scales in
+        s = s * kv_scales[0].transpose(1, 2)[:, :, None, :]
+    s = s / float(dh) ** 0.5
+    gpos = mi.model_index * T_loc + torch.arange(T_loc, device=x.device)
+    mask = gpos[None, :] <= position.long()[:, None]
+    s = torch.where(mask[:, None, None], s, NEG_INF)
+    m = s.amax(-1)  # (B, K, G)
+    p = torch.exp(s - m[..., None])
+    pv = p * kv_scales[1].transpose(1, 2)[:, :, None, :] if int8_kv else p
+    l = p.sum(-1)
+    acc = torch.einsum("bkgt,btkd->bkgd", pv, cache_v.float())
+    # merge the partials over the group (the exact flash merge); l and acc
+    # travel in one sum
+    m_all = coll.all_reduce(m, mi.model_group, "max")
+    corr = torch.exp(m - m_all)
+    merged = coll.all_reduce(torch.cat([acc, l[..., None]], -1) * corr[..., None], mi.model_group)
+    o = merged[..., :-1] / torch.clamp(merged[..., -1], min=1e-30)[..., None]
+    return o.reshape(B, 1, H * dh).to(x.dtype) @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
 # MLA (DeepSeek-V2)
 # ---------------------------------------------------------------------------
 

@@ -1,6 +1,5 @@
-"""Mixture-of-Experts layer on one device: router, capacity dispatch and
-the Sieve dual-path executor (counterpart of ``repro.models.moe``, its
-non-EP path).
+"""Mixture-of-Experts layer: router, capacity dispatch, the Sieve dual-path
+executor and expert parallelism (counterpart of ``repro.models.moe``).
 
 * Router: float32 logits, top-k, renormalised weights, GShard aux loss.
 * Dispatch: capacity scatter into an ``(E, C, d)`` buffer, sort-free
@@ -14,8 +13,18 @@ non-EP path).
   runs head and tail as three calls each (gate, up, down) of the grouped
   matmul and expert GEMV kernels instead of the fused SwiGLU kernels.
 
+* Expert parallelism: on a mesh of ``torch.distributed`` ranks
+  (:class:`MeshInfo`, built by :mod:`repro_torch.launch.mesh`) each rank
+  holds ``E / ep`` experts.  The replicated-dispatch body routes on every
+  model rank, dispatches into its local experts and sums the partial
+  outputs over the model group; the all-to-all body
+  (``REPRO_EP_MODE=a2a``) shards the tokens, exchanges capacity buffers
+  with the expert owners and runs every (local expert, source rank)
+  segment as a group of its own (:func:`experts_ffn_dual_segmented`).
+
 Every op is on fixed shapes and data-independent control flow, so a MoE
-layer issues no host synchronisation.
+layer on one device issues no host synchronisation (the collectives of
+the mesh bodies do).
 """
 
 from __future__ import annotations
@@ -35,7 +44,33 @@ from repro_torch.core.scheduler_torch import (
     make_sieve_state,
 )
 from repro_torch.kernels import ops
+from . import collectives as coll
 from .layers import he_init
+
+
+class MeshInfo(NamedTuple):
+    """Where this rank sits on the mesh (``repro.models.moe.MeshInfo``):
+    the process groups of its mesh axes and its index on each.  The default
+    is one process (``LOCAL_MESH``).
+
+    ``model_group`` holds the ranks of this rank's data row (the expert and
+    sequence parallel axis), ``data_group`` the ranks that share its model
+    index over the data axes that shard the batch (none when the batch is
+    replicated), ``token_group`` both together (the all-to-all body's
+    reductions)."""
+
+    model_group: Optional[object] = None
+    data_group: Optional[object] = None
+    token_group: Optional[object] = None
+    model_index: int = 0
+    data_index: int = 0
+    ep_size: int = 1
+    dp_size: int = 1
+    backend: Optional[str] = None
+    device: Optional[torch.device] = None
+
+
+LOCAL_MESH = MeshInfo()
 
 
 def init_moe(gen, arch: ArchConfig, dtype, device) -> dict:
@@ -113,50 +148,66 @@ def capacity(T: int, cfg: MoEConfig, n_experts: int) -> int:
 _COUNTING_DISPATCH_MAX_ELEMS = 4_000_000
 
 
-def dispatch(x: torch.Tensor, r: RouterOut, n_experts: int, cap: int) -> Dispatched:
-    """Scatter tokens into an (E, cap, d) buffer.  An assignment's slot is
-    its rank among same-expert assignments in token order."""
+def dispatch(x: torch.Tensor, r: RouterOut, n_experts: int, cap: int,
+             expert_offset: int = 0, n_local: Optional[int] = None) -> Dispatched:
+    """Scatter tokens into an (n_local, cap, d) buffer.  An assignment's slot
+    is its rank among same-expert assignments in token order.
+
+    With ``expert_offset``/``n_local`` set, only assignments to the local
+    experts [offset, offset + n_local) are dispatched (the expert-parallel
+    case); the others get ``slot_of = -1`` and are not counted as drops (a
+    remote rank handles them)."""
     T = x.shape[0]
     k = r.expert_idx.shape[1]
-    if T * k * (n_experts + 1) > _COUNTING_DISPATCH_MAX_ELEMS:
-        return dispatch_argsort(x, r, n_experts, cap)
-    return dispatch_counting(x, r, n_experts, cap)
+    nE = n_experts if n_local is None else n_local
+    if T * k * (nE + 1) > _COUNTING_DISPATCH_MAX_ELEMS:
+        return dispatch_argsort(x, r, n_experts, cap, expert_offset, n_local)
+    return dispatch_counting(x, r, n_experts, cap, expert_offset, n_local)
 
 
 def _scatter(x, token_of, slot, keep, nE, cap) -> torch.Tensor:
     d = x.shape[1]
     vals = x[token_of] * keep[:, None].to(x.dtype)
     buf = torch.zeros((nE * cap + 1, d), dtype=x.dtype, device=x.device)
-    # dropped assignments all land on the trash row nE * cap with zeros
+    # dropped and remote assignments all land on the trash row nE * cap
     buf[slot.long()] = vals
     return buf[: nE * cap].reshape(nE, cap, d)
 
 
-def dispatch_counting(x: torch.Tensor, r: RouterOut, n_experts: int, cap: int) -> Dispatched:
+def _local_keys(r: RouterOut, n_experts: int, expert_offset: int, n_local: Optional[int]):
+    """Each assignment's local expert (``nE`` for a remote one), whether it
+    is local, and ``nE``."""
+    nE = n_experts if n_local is None else n_local
+    e_flat = r.expert_idx.reshape(-1).to(torch.int64) - expert_offset
+    valid = (e_flat >= 0) & (e_flat < nE)
+    return torch.where(valid, e_flat, nE), valid, nE
+
+
+def dispatch_counting(x: torch.Tensor, r: RouterOut, n_experts: int, cap: int,
+                      expert_offset: int = 0, n_local: Optional[int] = None) -> Dispatched:
     """Counting-scatter dispatch: pos[i] = #{j < i : e[j] == e[i]}."""
     T = x.shape[0]
     k = r.expert_idx.shape[1]
-    nE = n_experts
-    e_key = r.expert_idx.reshape(-1).to(torch.int64)
+    e_key, valid, nE = _local_keys(r, n_experts, expert_offset, n_local)
     onehot = e_key[:, None] == torch.arange(nE + 1, device=x.device)[None, :]
     running = torch.cumsum(onehot.to(torch.int32), dim=0, dtype=torch.int32) - 1
     pos = torch.gather(running, 1, e_key[:, None])[:, 0]
-    keep = pos < cap
+    keep = (pos < cap) & valid
     slot = torch.where(keep, e_key.to(torch.int32) * cap + pos, nE * cap).to(torch.int32)
     token_of = torch.arange(T * k, device=x.device) // k
     buf = _scatter(x, token_of, slot, keep, nE, cap)
     slot_of = torch.where(keep, slot, -1).reshape(T, k)
-    n_dropped = (~keep).sum(dtype=torch.int32)
+    n_dropped = (~keep & valid).sum(dtype=torch.int32)  # overflow only, not remote
     return Dispatched(buf, slot_of, n_dropped)
 
 
-def dispatch_argsort(x: torch.Tensor, r: RouterOut, n_experts: int, cap: int) -> Dispatched:
+def dispatch_argsort(x: torch.Tensor, r: RouterOut, n_experts: int, cap: int,
+                     expert_offset: int = 0, n_local: Optional[int] = None) -> Dispatched:
     """Stable-sort dispatch (the original formulation, the oracle)."""
     T = x.shape[0]
     k = r.expert_idx.shape[1]
     Tk = T * k
-    nE = n_experts
-    e_key = r.expert_idx.reshape(-1).to(torch.int64)
+    e_key, _, nE = _local_keys(r, n_experts, expert_offset, n_local)  # remote sort last
     order = torch.sort(e_key, stable=True).indices
     e_sorted = e_key[order]
     counts = torch.zeros((nE + 1,), dtype=torch.int64, device=x.device).index_add_(
@@ -164,25 +215,30 @@ def dispatch_argsort(x: torch.Tensor, r: RouterOut, n_experts: int, cap: int) ->
     )
     starts = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)[:-1]])
     pos_sorted = torch.arange(Tk, device=x.device) - starts[e_sorted]
-    keep = pos_sorted < cap
+    local = e_sorted < nE
+    keep = (pos_sorted < cap) & local
     slot_sorted = torch.where(keep, e_sorted * cap + pos_sorted, nE * cap)
     slot_flat = torch.empty_like(slot_sorted)
     slot_flat[order] = slot_sorted
     buf = _scatter(x, order // k, slot_sorted.to(torch.int32), keep, nE, cap)
     slot_of = torch.where(slot_flat == nE * cap, -1, slot_flat).to(torch.int32).reshape(T, k)
-    n_dropped = (~keep).sum(dtype=torch.int32)
+    n_dropped = (~keep & local).sum(dtype=torch.int32)  # overflow only, not remote
     return Dispatched(buf, slot_of, n_dropped)
 
 
 def combine(y_buf: torch.Tensor, slot_of: torch.Tensor, weights: torch.Tensor,
-            T: int) -> torch.Tensor:
+            T: int, sum_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Each token's weighted sum of its experts' rows.  ``sum_dtype``
+    (float32) returns the sum unrounded: the partial that the replicated
+    dispatch body reduces over the model group before it rounds once, as
+    one process rounds its whole sum once."""
     E, C, d = y_buf.shape
     flat = y_buf.reshape(E * C, d)
     idx = torch.clamp(slot_of, min=0).long()
     gathered = flat[idx.reshape(-1)].reshape(T, -1, d)
     mask = (slot_of >= 0)[..., None].to(flat.dtype)
     w = weights[..., None].to(flat.dtype)
-    return torch.sum(gathered * mask * w, dim=1)
+    return torch.sum(gathered * mask * w, dim=1, dtype=sum_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -264,18 +320,19 @@ def tail_stage(toks, wg, wu, wd, eids, valid):
     return ops.expert_gemv(F.silu(gate) * up, wd, eids, valid)
 
 
-def head_stage(slab, wg, wu, wd, sizes):
+def head_stage(slab, wg, wu, wd, sizes, rhs_of_group=None):
     """Head stage: grouped SwiGLU over the capacity slab (three grouped
-    matmuls in the three-call form)."""
+    matmuls in the three-call form).  ``rhs_of_group`` maps each group to
+    its weight row (groups that share an expert's weights)."""
     if _fused_swiglu_default():
-        return ops.swiglu_gmm_capacity(slab, wg, wu, wd, sizes)
-    gate = ops.gmm_capacity(slab, wg, sizes)
-    up = ops.gmm_capacity(slab, wu, sizes)
-    return ops.gmm_capacity(F.silu(gate) * up, wd, sizes)
+        return ops.swiglu_gmm_capacity(slab, wg, wu, wd, sizes, rhs_of_group)
+    gate = ops.gmm_capacity(slab, wg, sizes, rhs_of_group)
+    up = ops.gmm_capacity(slab, wu, sizes, rhs_of_group)
+    return ops.gmm_capacity(F.silu(gate) * up, wd, sizes, rhs_of_group)
 
 
 def _dual_split(rows, cfg: MoEConfig, tau: int, max_head: Optional[int],
-                sieve: Optional[SieveState]) -> dict:
+                sieve: Optional[SieveState], weight_of_group=None) -> dict:
     if cfg.expert_exec == "dual_path_cost":
         if sieve is None:
             raise ValueError(
@@ -284,7 +341,7 @@ def _dual_split(rows, cfg: MoEConfig, tau: int, max_head: Optional[int],
             )
         return dual_path_split_cost(
             rows, sieve.pim_time_by_count, sieve.params,
-            tail_tokens=tau, max_head=max_head,
+            tail_tokens=tau, max_head=max_head, weight_of_group=weight_of_group,
         )
     return dual_path_split(rows, tail_tokens=tau, max_head=max_head)
 
@@ -328,16 +385,77 @@ def experts_ffn_dual(
     return y.to(buf.dtype), split["n_dropped"]
 
 
+def experts_ffn_dual_segmented(
+    params: dict,
+    buf: torch.Tensor,  # (E, S, C, d): S capacity segments per local expert
+    sizes: torch.Tensor,  # (E, S) live rows per (expert, segment)
+    cfg: MoEConfig,
+    sieve: Optional[SieveState] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dual-path execution over the all-to-all layout: after the exchange
+    each local expert's rows arrive as one capacity segment per source
+    rank, and every (expert, segment) pair is a group of its own (a hot
+    expert's one-row segment from a quiet rank still takes the GEMV path).
+    The groups share their expert's weights through the head kernel's
+    ``rhs_of_group`` table, with no copy of the weights.
+
+    ``cfg.dual_max_head`` counts experts, so the head budget is that many
+    experts' segments; the split charges an expert's weight bytes once, at
+    its most popular segment (``weight_of_group``).  The tail streams each
+    segment's first ``dual_tail_tokens`` rows against the segment's
+    expert.  Returns ``(y_buf, n_exec_dropped)``."""
+    E, S, C, d = buf.shape
+    G = E * S
+    tau = int(min(max(cfg.dual_tail_tokens, 0), C))
+    # head budget in segment units: H experts' worth of capacity slabs
+    Hg = cfg.dual_max_head * S if 0 < cfg.dual_max_head * S < G else G
+    dev = buf.device
+    rows_g = sizes.reshape(G).to(torch.int32)
+    e_of_g = torch.arange(E, dtype=torch.int32, device=dev).repeat_interleave(S)
+    # an expert's first most popular segment charges its weight bytes
+    first_seg = torch.zeros((E, S), dtype=torch.int32, device=dev).scatter_(
+        1, torch.argmax(sizes, dim=1)[:, None], 1
+    ).reshape(G)
+    split = _dual_split(rows_g, cfg, tau, (Hg if Hg < G else None), sieve,
+                        weight_of_group=first_seg)
+    head_sizes_full = torch.where(split["head_mask"], rows_g, 0).to(torch.int32)
+
+    wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
+    slab_full = buf.reshape(G, C, d)
+    if Hg < G:
+        # compact: the Hg most popular segments' slabs; each keeps its
+        # expert's weight row through the rhs_of_group table
+        hid = split["order"][:Hg]
+        y_head = head_stage(slab_full[hid], wg, wu, wd, head_sizes_full[hid], e_of_g[hid])
+        y = torch.zeros((G, C, d), dtype=y_head.dtype, device=dev)
+        y[hid] = y_head
+    else:
+        y = head_stage(slab_full, wg, wu, wd, head_sizes_full, e_of_g)
+
+    if tau > 0:
+        live = torch.arange(tau, device=dev)[None, :] < torch.clamp(rows_g, max=tau)[:, None]
+        valid = (split["tail_mask"][:, None] & live).reshape(G * tau).to(torch.int32)
+        ty = tail_stage(slab_full[:, :tau].reshape(G * tau, d), wg, wu, wd,
+                        e_of_g.repeat_interleave(tau), valid)
+        y[:, :tau] += ty.reshape(G, tau, d).to(y.dtype)
+    return y.reshape(E, S, C, d).to(buf.dtype), split["n_dropped"]
+
+
 _EXEC_MODES = ("dense", "dual_path", "dual_path_cost")
+_DUAL_MODES = ("dual_path", "dual_path_cost")
+
+
+def _check_expert_exec(cfg: MoEConfig) -> None:
+    if cfg.expert_exec not in _EXEC_MODES:
+        raise ValueError(
+            f"unknown MoEConfig.expert_exec {cfg.expert_exec!r}; expected one of {_EXEC_MODES}"
+        )
 
 
 def experts_ffn_exec(params: dict, buf: torch.Tensor, rows: torch.Tensor,
                      cfg: MoEConfig, sieve: Optional[SieveState] = None):
     """Dispatch on ``cfg.expert_exec``; returns (y_buf, n_exec_dropped)."""
-    if cfg.expert_exec not in _EXEC_MODES:
-        raise ValueError(
-            f"unknown MoEConfig.expert_exec {cfg.expert_exec!r}; expected one of {_EXEC_MODES}"
-        )
+    _check_expert_exec(cfg)
     if cfg.expert_exec == "dense":
         return experts_ffn(params, buf), torch.zeros((), dtype=torch.int32, device=buf.device)
     sieve = resolve_sieve_state(cfg, buf.shape[-1], sieve, buf.device)
@@ -365,14 +483,114 @@ def moe_local(params: dict, x: torch.Tensor, arch: ArchConfig,
     return MoEOut(y, r.aux_loss, r.counts, disp.n_dropped + exec_dropped)
 
 
+def _ep_body(params: dict, x: torch.Tensor, arch: ArchConfig, mi: MeshInfo,
+             sieve: Optional[SieveState] = None) -> MoEOut:
+    """Replicated-dispatch expert parallelism (``repro.models.moe._ep_body``).
+
+    ``x`` (T, d) is this rank's data shard, the same on every rank of its
+    model group; the rank holds experts [m * E_loc, (m + 1) * E_loc).  The
+    router runs on every model rank (so each knows the whole routing map,
+    the paper's AllGather ③), each rank dispatches only the assignments to
+    its experts (⑤) and runs them (⑦), and the partial outputs are summed
+    over the model group (⑨/⑩): each token's k experts live on at most k
+    ranks.  Any batch size works, single-token decode included."""
+    cfg = arch.moe
+    E = cfg.n_experts
+    E_loc = E // mi.ep_size
+    T = x.shape[0]
+    r = route(x, params["w_router"], cfg)
+    cap = capacity(T, cfg, E)
+    off = mi.model_index * E_loc
+    disp = dispatch(x, r, E, cap, expert_offset=off, n_local=E_loc)
+    # the rows in this rank's buffer: its slice of the routed counts, clipped
+    local_rows = torch.clamp(r.counts[off:off + E_loc], max=cap)
+    y_buf, exec_dropped = experts_ffn_exec(params, disp.buf, local_rows, cfg, sieve)
+    y_partial = combine(y_buf, disp.slot_of, r.weights, T, sum_dtype=torch.float32)
+    y, dropped = coll.all_reduce_sum([y_partial, disp.n_dropped + exec_dropped], mi.model_group)
+    # global counts per expert (the Sieve scheduler's input): the router
+    # saw this data shard's tokens, so sum over the data group
+    counts, aux, dropped = coll.all_reduce_sum([r.counts, r.aux_loss, dropped], mi.data_group)
+    return MoEOut(y.to(x.dtype), aux / mi.dp_size, counts, dropped)
+
+
+def _ep_a2a_body(params: dict, x: torch.Tensor, arch: ArchConfig, mi: MeshInfo,
+                 sieve: Optional[SieveState] = None) -> MoEOut:
+    """All-to-all expert parallelism (``repro.models.moe._ep_a2a_body``,
+    ``REPRO_EP_MODE=a2a``).
+
+    ``x`` (T, d) is this rank's shard of the tokens over data x model.  The
+    rank routes its own tokens into a full-E capacity buffer, sends each
+    expert owner its experts' slabs (⑤: (ep, E_loc, cap, d) becomes
+    (E_loc, ep, cap, d), segment s from source rank s), runs the segments,
+    and the reverse exchange (⑨) brings each token's rows home for the
+    combine.  The segment sizes come from the routing map gathered over the
+    model group (③)."""
+    cfg = arch.moe
+    nm = mi.ep_size
+    E = cfg.n_experts
+    E_loc = E // nm
+    T, d = x.shape
+    r = route(x, params["w_router"], cfg)
+    cap = capacity(T, cfg, E)
+    disp = dispatch(x, r, E, cap)
+
+    # ⑤ dispatch: recv[s] is source rank s's slab of this rank's experts
+    recv = coll.all_to_all(disp.buf.reshape(nm, E_loc, cap, d), mi.model_group)
+    buf = recv.permute(1, 0, 2, 3).contiguous()  # (E_loc, nm, cap, d)
+
+    _check_expert_exec(cfg)
+    exec_dropped = torch.zeros((), dtype=torch.int32, device=x.device)
+    if cfg.expert_exec in _DUAL_MODES:
+        counts_all = coll.all_gather(r.counts, mi.model_group)  # (nm, E)
+        off = mi.model_index * E_loc
+        sizes = torch.clamp(counts_all[:, off:off + E_loc].T, max=cap)  # (E_loc, nm)
+        sieve = resolve_sieve_state(cfg, d, sieve, x.device)
+        y_buf, exec_dropped = experts_ffn_dual_segmented(params, buf, sizes, cfg, sieve=sieve)
+    else:
+        y_buf = experts_ffn(params, buf.reshape(E_loc, nm * cap, d))
+
+    # ⑨ combine: the reverse exchange, expert owner i's rows of this
+    # rank's tokens in row i
+    y_buf = y_buf.reshape(E_loc, nm, cap, d).permute(1, 0, 2, 3).contiguous()
+    y_buf = coll.all_to_all(y_buf, mi.model_group).reshape(E, cap, d)
+    y = combine(y_buf, disp.slot_of, r.weights, T)
+    counts, aux, dropped = coll.all_reduce_sum([r.counts, r.aux_loss, disp.n_dropped + exec_dropped],
+                                               mi.token_group)
+    return MoEOut(y, aux / (mi.dp_size * nm), counts, dropped)
+
+
+def _routed_params(params: dict) -> dict:
+    return {k: params[k] for k in ("w_router", "w_gate", "w_up", "w_down")}
+
+
 def moe_block(params: dict, x: torch.Tensor, arch: ArchConfig,
-              sieve: Optional[SieveState] = None) -> MoEOut:
-    """Routed experts plus shared experts (every token visits those)."""
+              mi: MeshInfo = LOCAL_MESH, sieve: Optional[SieveState] = None) -> MoEOut:
+    """Routed experts (expert-parallel on a mesh) plus shared experts,
+    which every token visits and every rank holds whole.
+
+    ``x`` is this rank's rows of the batch.  Expert parallelism runs when
+    the model group has more than one rank and divides the experts;
+    ``REPRO_EP_MODE=a2a`` takes the all-to-all body when the mesh also
+    divides the tokens (JAX's test, on the global batch), the replicated
+    dispatch body otherwise.  Every rank gets the whole ``y`` of its rows
+    and the global counts."""
     cfg = arch.moe
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
     sieve = resolve_sieve_state(cfg, d, sieve, x.device)
-    routed = moe_local(params, xt, arch, sieve=sieve)
+    routed_params = _routed_params(params)
+    if mi.ep_size > 1 and cfg.n_experts % mi.ep_size == 0:
+        use_a2a = os.environ.get("REPRO_EP_MODE", "psum") == "a2a" and (B * S) % mi.ep_size == 0
+        if use_a2a:
+            # the tokens of this data row, split over its model ranks
+            n = (B * S) // mi.ep_size
+            part = _ep_a2a_body(routed_params, xt[mi.model_index * n:(mi.model_index + 1) * n],
+                                arch, mi, sieve=sieve)
+            routed = part._replace(y=coll.all_gather(part.y, mi.model_group).reshape(B * S, d))
+        else:
+            routed = _ep_body(routed_params, xt, arch, mi, sieve=sieve)
+    else:
+        routed = moe_local(routed_params, xt, arch, sieve=sieve)
     y = routed.y
     if cfg.n_shared:
         sp = params["shared"]

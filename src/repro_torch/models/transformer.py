@@ -11,7 +11,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from . import attention as attn_lib
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
-from .moe import MoEOut, init_moe, moe_block
+from .moe import LOCAL_MESH, MeshInfo, MoEOut, init_moe, moe_block
 
 
 class BlockAux(NamedTuple):
@@ -46,9 +46,10 @@ def init_attn_mlp_block(gen, arch: ArchConfig, moe: bool, dtype, device) -> dict
     return p
 
 
-def _ffn(p: dict, x: torch.Tensor, h: torch.Tensor, arch: ArchConfig, moe: bool, sieve):
+def _ffn(p: dict, x: torch.Tensor, h: torch.Tensor, arch: ArchConfig, moe: bool, sieve,
+         mi: MeshInfo):
     if moe:
-        out: MoEOut = moe_block(p["moe"], h, arch, sieve=sieve)
+        out: MoEOut = moe_block(p["moe"], h, arch, mi, sieve=sieve)
         return x + out.y, BlockAux(out.aux_loss, out.counts, out.n_dropped)
     return x + apply_mlp(p["mlp"], h, arch.act), _zero_aux(x.device)
 
@@ -63,9 +64,11 @@ def attn_mlp_block_seq(
     kv_chunk: int = 1024,
     sieve=None,
     mrope_positions=None,  # (3, B, S): M-RoPE position streams (vlm)
+    mi: MeshInfo = LOCAL_MESH,
 ):
     """Full-sequence block (prefill).  Returns (x, cache, aux), the cache
-    ``(k, v)`` or, for MLA, ``(c_kv, k_rope)``."""
+    ``(k, v)`` or, for MLA, ``(c_kv, k_rope)``.  On a mesh ``x`` is this
+    rank's rows and the MoE is expert-parallel."""
     h = apply_norm(p["norm1"], x, arch.norm)
     if arch.attn.kind == "mla":
         a, *cache = attn_lib.mla_prefill(p["attn"], h, positions, arch.attn, q_chunk, kv_chunk)
@@ -76,7 +79,7 @@ def attn_mlp_block_seq(
         )
     x = x + a
     h = apply_norm(p["norm2"], x, arch.norm)
-    x, aux = _ffn(p, x, h, arch, moe, sieve)
+    x, aux = _ffn(p, x, h, arch, moe, sieve, mi)
     return x, tuple(cache), aux
 
 
@@ -91,10 +94,19 @@ def attn_mlp_block_decode(
     sieve=None,
     paged=None,  # (block_tables, owner, block_pos): the cache is a block pool
     mrope_positions=None,  # (3, B, 1): M-RoPE position streams (vlm)
+    mi: MeshInfo = LOCAL_MESH,
+    seq_par: bool = False,  # the cache is this rank's slice of positions
 ):
-    """One-token block.  Returns (x, aux); the cache is written in place."""
+    """One-token block.  Returns (x, aux); the cache is written in place.
+    ``seq_par``: the GQA cache ``(k, v)``, or int8 ``(k, v, k_scale,
+    v_scale)``, holds this rank's slice of the positions, and attention
+    merges over the model group (``gqa_decode_seqpar``)."""
     h = apply_norm(p["norm1"], x, arch.norm)
-    if arch.attn.kind == "mla":
+    if seq_par:
+        scales = (cache[2], cache[3]) if len(cache) == 4 else None  # int8 KV
+        a = attn_lib.gqa_decode_seqpar(p["attn"], h, position, cache[0], cache[1], arch.attn, mi,
+                                       kv_scales=scales)
+    elif arch.attn.kind == "mla":
         a = attn_lib.mla_decode(p["attn"], h, position, cache[0], cache[1], arch.attn)
     elif paged is not None:
         a = attn_lib.gqa_decode_paged(p["attn"], h, position, cache[0], cache[1], paged, arch.attn,
@@ -104,4 +116,4 @@ def attn_mlp_block_decode(
                                 mrope_positions)
     x = x + a
     h = apply_norm(p["norm2"], x, arch.norm)
-    return _ffn(p, x, h, arch, moe, sieve)
+    return _ffn(p, x, h, arch, moe, sieve, mi)

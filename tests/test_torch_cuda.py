@@ -523,6 +523,33 @@ class TestRouterTies:
         assert r.expert_idx[1, :2].tolist() == [5, 77]
 
 
+@pytest.mark.cuda
+class TestExpertParallel:
+    @pytest.mark.parametrize("fused", ["1", "0"])
+    def test_mesh_bodies_match_plain_path(self, cuda, fused):
+        """Four ranks share the card on gloo as a (2, 2) mesh: the
+        replicated-dispatch and all-to-all ``moe_block`` at proxy size, fused
+        and three-call, equal the same ranks' CPU plain path (y within the
+        bf16 tolerance; counts, drops exact), and each rank launched its
+        path's kernels and no other."""
+        import _torch_ep_ranks
+        from repro_torch.kernels import build
+        from repro_torch.launch.mesh import run_on_mesh
+
+        build.build(build.KERNELS)  # once, before the ranks load the libraries
+        ranks = run_on_mesh(_torch_ep_ranks.cuda_rank_main, (2, 2), "gloo", "cuda:0", args=(fused,))
+        path = ("swiglu_gmm_capacity", "swiglu_gemv") if fused == "1" else ("gmm_capacity", "expert_gemv")
+        for r in ranks:
+            for ep, got in r.items():
+                (y, aux, counts, dropped), (y_c, aux_c, counts_c, dropped_c) = got["card"], got["cpu"]
+                assert torch.isfinite(y.float()).all()
+                assert torch.allclose(y.float(), y_c.float(), **TOL), (ep, float((y.float() - y_c.float()).abs().max()))
+                assert torch.equal(counts, counts_c) and int(dropped) == int(dropped_c), ep
+                assert torch.allclose(aux, aux_c, rtol=1e-4, atol=1e-6)
+                assert all(got["launches"][k] > 0 for k in path), (ep, got["launches"])
+                assert all(n == 0 for k, n in got["launches"].items() if k not in path), (ep, got["launches"])
+
+
 def _card_proxy():
     """The qwen3-moe proxy of the CPU tests with the head dim the attention
     kernels take (128; the proxy's 32 is refused on the card)."""

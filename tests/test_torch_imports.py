@@ -40,13 +40,15 @@ def test_the_check_sees_the_whole_port():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "moe.py", "ops.py", "scheduler_torch.py", "chip_smoke.py", "codec.py",
             "snapshot.py", "probes.py", "health.py", "timing_feed.py", "plan.py", "inject.py",
-            "chaos.py", "journal.py", "scheduler.py", "cost_model.py"} <= names
+            "chaos.py", "journal.py", "scheduler.py", "cost_model.py", "mesh.py", "sharding.py",
+            "collectives.py"} <= names
 
 
 def test_fault_and_recovery_modules_import_with_jax_blocked():
-    """The fault plan, injector, chaos harness and recovery journal import
-    (and the chaos harness's CPU entry point resolves) in a process where
-    importing JAX or the JAX package fails."""
+    """The fault plan, injector, chaos harness and recovery journal, and
+    the mesh, sharding and collectives modules of expert parallelism,
+    import (and the chaos harness's CPU entry point resolves) in a process
+    where importing JAX or the JAX package fails."""
     code = (
         "import sys\n"
         "class Block:\n"
@@ -58,6 +60,9 @@ def test_fault_and_recovery_modules_import_with_jax_blocked():
         "import repro_torch.faults.chaos, repro_torch.recovery.journal\n"
         "from repro_torch.faults import EngineChaos, make_plan, run_engine_chaos\n"
         "from repro_torch.recovery import RecoveryJournal\n"
+        "from repro_torch.launch.mesh import make_mesh, mesh_info_for, run_on_mesh\n"
+        "from repro_torch.models.sharding import rank_cut\n"
+        "from repro_torch.models.collectives import all_to_all\n"
     ) % (FORBIDDEN,)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
