@@ -28,9 +28,10 @@ Phases, each fatal on failure:
    beyond qwen3-moe's shapes, each held and timed the same way: dense,
    split-KV and paged attention at granite-3-2b's decode shape (the dh-64
    instance), at zamba2-7b's shared-attention shape (the dh-112
-   instance) and with a 32-head query group at dh 128 (the last two on
-   their entry points),
-   ``gmm_ragged`` at the decode gate call's routing, and the four MoE
+   instance; its split-KV and paged rows on their entry points) and with
+   a 32-head query group at dh 128 (on its entry points), the dense
+   kernel at whisper-base's decoder shape (dh 64, 8 heads on 8 kv heads,
+   4 slots of 448), ``gmm_ragged`` at the decode gate call's routing, and the four MoE
    kernels (fused head and tail, grouped matmul, expert GEMV) again at
    deepseek-v2-236b's shapes (160 experts top-6, d_model 5120, d_expert
    1536; phase 7's model); the rows without a
@@ -126,11 +127,29 @@ Phases, each fatal on failure:
    count, not asserted: the clamp moves rows between two bf16 kernels).
    Last, ``run_engine_chaos(device="cuda")`` at proxy size under each
    scenario with tests/test_faults.py's checks;
+10. the hybrid, ssm and audio families, after phase 7 frees deepseek-v2:
+   zamba2-7b (81 blocks: 13 segments of the shared attention block and 5
+   Mamba2 blocks, and a 3-block tail), rwkv6-7b (32 blocks) and
+   whisper-base (6 encoder and 6 decoder layers) at full width and depth,
+   bf16 weights from ``LM.init(seed=0)``, each freed before the next is
+   built.  Each prefills 4 prompts (256 tokens; whisper 64 tokens over
+   1500 seeded stub frames) into a decode cache and decodes 32 greedy
+   steps eagerly, with the launch counts zeroed before the prefill: every
+   token in the vocabulary and every logit finite, and exactly 13
+   (zamba2) and 6 (whisper) decode-attention launches a step and no other
+   kernel (rwkv6: none, as no Pallas kernel covers RWKV6 in the
+   reference).  It prints the weight bytes, the peak allocated, the
+   prefill time, the decode step (median and min-max) and tokens/s beside
+   the weight-read bound (weights, and whisper's cross K/V, at 3.35 TB/s),
+   and a profile of 4 more steps.  Then prefill against step-by-step
+   decode over 32 tokens at full depth (the bf16 rule of
+   ``_recurrent_consistency``), and a 2-block slice on the card against the
+   CPU plain path by the phase-4 rule;
 9. expert parallelism, last, once every other model is freed: the fused
    head and tail at the all-to-all layout's decode shape (128 segments
    sharing 16 experts' weights through ``rhs_of_group``) held and timed as
-   phase 3's rows; one process's eager decode step at 24 layers; then
-   qwen3-moe at full width, cut to 24 of 48 layers, as a (1, 8) mesh of
+   phase 3's rows; one process's eager decode step at 12 layers; then
+   qwen3-moe at full width, cut to 12 of 48 layers, as a (1, 8) mesh of
    eight ranks spawned by ``repro_torch.launch.mesh.run_on_mesh`` (on one
    card all share ``cuda:0`` on gloo; with eight cards each has its own on
    NCCL), 16 experts a rank, decode sequence-parallel over 128 of the 1024
@@ -148,7 +167,8 @@ Phases, each fatal on failure:
    cache.  Each rank's MoE and collective time per step print beside the
    one-process step (timings, not checks).
 
-It prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
+It logs the elapsed seconds at the end of each group of phases, and
+prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -957,13 +977,15 @@ def _entry_point_launches(call, n: int) -> int:
 
 
 def _attention_instance(tag: str, B: int, H: int, Kv: int, dh: int, kinds, seed: int,
-                        timed: bool = True) -> dict:
-    """Rows of the attention kernels at one head dim and group size: each
-    of ``kinds`` ("dense", "split", "paged") held against its plain version
-    at the serving lengths and at edge lengths (three launches on the same
-    buffers, bitwise equal, exact zeros on length-0 rows), then timed
-    beside the plain version and SDPA (over the gathered pool for paged).
-    ``timed=False``: held only, each kernel's row its largest error."""
+                        timed: bool = True, T: int = 1024, serving=None) -> dict:
+    """Rows of the attention kernels at one head dim and group size over
+    ``B`` slots of ``T`` positions: each of ``kinds`` ("dense", "split",
+    "paged") held against its plain version at the serving lengths (seeded
+    in (T/8, T/2 + 32], or ``serving``) and at edge lengths (three
+    launches on the same buffers, bitwise equal, exact zeros on length-0
+    rows), then timed beside the plain version and SDPA (over the gathered
+    pool for paged).  ``timed=False``: held only, each kernel's row its
+    largest error."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -973,15 +995,15 @@ def _attention_instance(tag: str, B: int, H: int, Kv: int, dh: int, kinds, seed:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    G, T, page = H // Kv, 1024, 16
+    G, page = H // Kv, 16
     max_blocks, n_pool = T // page, B * (T // page) + 1
 
     def rnd(shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
     rng = np.random.default_rng(seed)
-    serving = rng.integers(129, 545, B)
-    edges = np.r_[0, 1, 63, 64, 65, T, T - 1, 500][:B]
+    serving = rng.integers(T // 8 + 1, T // 2 + 33, B) if serving is None else np.asarray(serving)
+    edges = np.r_[0, 1, 63, 64, 65, T, T - 1, min(500, T)][:B]
     q = rnd((B, H, dh))
     ck, cv = rnd((B, T, Kv, dh)), rnd((B, T, Kv, dh))
     pk, pv = rnd((n_pool, page, Kv, dh)), rnd((n_pool, page, Kv, dh))
@@ -1121,22 +1143,28 @@ def phase_kernel_instances(arch) -> dict:
     kernels (dense, split-KV, paged) at granite-3-2b's decode shape (dh
     64, 4 query heads per kv head), at zamba2-7b's shared-attention shape
     (the dh-112 instance, 32 heads on 32 kv heads) and with a 32-head
-    group at dh 128 (two head groups of the grid), the last two on their
-    entry points, and gmm_ragged.  The entry-point-only rows are then driven as one decode
-    step would drive them, counts zeroed just before."""
+    group at dh 128 (two head groups of the grid), the dense kernel at
+    whisper-base's decode shape (dh 64, 8 heads on 8 kv heads), and
+    gmm_ragged.  The rows with no model caller are then driven as one
+    decode step would drive them, counts zeroed just before."""
+    import numpy as np
     import torch
 
     rows = {}
     rows.update(_attention_instance("dh64", 8, 32, 8, 64, ("dense", "split", "paged"), seed=64))
     rows.update(_attention_instance("dh112", 8, 32, 32, 112, ("dense", "split", "paged"), seed=112))
     rows.update(_attention_instance("g32", 8, 32, 1, 128, ("dense", "split", "paged"), seed=32))
+    # whisper-base's decoder self-attention (phase 10): 4 slots of its 448
+    # learned positions, at the lengths of the middle of phase 10's decode
+    rows.update(_attention_instance(WHISPER_ROW, 4, 8, 8, 64, ("dense",), seed=164, T=448,
+                                    serving=np.full(4, 64 + RECURRENT_STEPS // 2)))
     rows.update(_ragged_row(arch))
     # (row, launches of one decode step): the split-KV kernel per layer of
-    # granite-3-2b (40), zamba2-7b's 13 shared-attention applications, the
+    # granite-3-2b (40), zamba2-7b's 13 shared-attention applications
+    # (the dense kernel's launches come from phase 10's zamba2 run), the
     # 32-head group per layer of granite-3-8b (40, its width: 32 heads of
     # 128), gmm_ragged per layer of qwen3-moe (48)
     for name, n, counter in (("decode_attention_split_dh64", 40, "decode_attention_split"),
-                             ("decode_attention_dh112", 13, "decode_attention"),
                              ("decode_attention_split_dh112", 13, "decode_attention_split"),
                              ("decode_attention_paged_dh112", 13, "decode_attention_paged"),
                              ("decode_attention_split_g32", 40, "decode_attention_split"),
@@ -1577,6 +1605,29 @@ def _two_layers(arch, params):
     return small, gp
 
 
+def _logit_distance(got, want, vocab: int):
+    """(max |err|, the largest |logit| of ``want``, cosine) of two logit
+    tensors over the vocabulary; non-finite logits fail the run."""
+    import torch
+
+    g, w = got.float().cpu()[..., :vocab], want.float().cpu()[..., :vocab]
+    if not torch.isfinite(g).all() or not torch.isfinite(w).all():
+        fail("logits are not finite")
+    cos = float(torch.nn.functional.cosine_similarity(g.flatten(), w.flatten(), dim=0))
+    return float((g - w).abs().max()), float(w.abs().max()), cos
+
+
+def _hold_logits(run: str, stage: str, got, want, vocab: int) -> dict:
+    """The phase-4 rule on bf16 logits of two computations of one function:
+    max |err| at most 5% of the largest logit, cosine at least 0.999."""
+    err, scale, cos = _logit_distance(got, want, vocab)
+    log(f"{run} {stage}: max |err| {err:.4g} (max |logit| {scale:.3g}, relative {err / scale:.4g}), "
+        f"cosine {cos:.6f}")
+    if err > 5e-2 * scale or cos < 0.999:
+        fail(f"{run} {stage}: the logits disagree (max |err| {err:.4g} of {scale:.3g}, cosine {cos:.6f})")
+    return {f"{stage}_max_abs_err": err, f"{stage}_rel_err": err / scale, f"{stage}_cosine": cos}
+
+
 def phase_reference(lm, params, paged: bool, run=None) -> dict:
     """A 2-layer slice of the served weights on the card against the plain
     path on the CPU: prefill logits, and the logits of one decode step
@@ -1609,21 +1660,11 @@ def phase_reference(lm, params, paged: bool, run=None) -> dict:
     # two plain-path variants on one CPU); a faulty router moves far more
     if out["ref_routing_moved_share"] > 0.02:
         fail(f"{run}: the card's routing disagrees with the CPU plain path's")
+    # bf16 through two full-width layers on two devices: the products
+    # round at other places, so hold the logits to 5% of their range
     for stage, g, w in zip(("prefill", "decode"), got, want):
-        g, w = g.float().cpu()[..., : arch.vocab_size], w.float()[..., : arch.vocab_size]
-        if not torch.isfinite(g).all():
-            fail(f"{run} {stage} logits are not finite")
-        err = float((g - w).abs().max())
-        scale = float(w.abs().max())
-        cos = float(torch.nn.functional.cosine_similarity(g.flatten(), w.flatten(), dim=0))
-        out[f"ref_{stage}_max_abs_err"] = err
-        out[f"ref_{stage}_cosine"] = cos
-        log(f"reference {run}: 2-layer {stage} logits, card vs CPU plain path: max |err| {err:.4g} "
-            f"(max |logit| {scale:.3g}), cosine {cos:.6f}")
-        # bf16 through two full-width layers on two devices: the products
-        # round at other places, so hold the logits to 5% of their range
-        if err > 5e-2 * scale or cos < 0.999:
-            fail(f"{run} {stage} logits of the card disagree with the CPU plain path")
+        out.update({f"ref_{k}": v for k, v in _hold_logits(
+            f"reference {run}: 2-layer logits, card vs CPU plain path", stage, g, w, arch.vocab_size).items()})
     return out
 
 
@@ -1693,7 +1734,6 @@ def _profile_steps(eng, n_steps: int) -> dict:
     """``n_steps`` decode steps on the host clock, then ``n_steps`` under
     ``torch.profiler`` (see ``phase_profile``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     run_sieve, sieve_s = eng._run_sieve, [0.0]
 
@@ -1710,13 +1750,26 @@ def _profile_steps(eng, n_steps: int) -> dict:
     torch.cuda.synchronize()
     plain_step_ms = 1e3 * (time.perf_counter() - t0) / n_steps
     sieve_ms = 1e3 * sieve_s[0] / n_steps
+    prof = _profile_window(eng.step, n_steps)
+    del eng._run_sieve
+    return dict(plain_step_ms=plain_step_ms, host_sieve_ms=sieve_ms, **prof)
+
+
+def _profile_window(step, n_steps: int) -> dict:
+    """``n_steps`` calls of ``step`` under ``torch.profiler``: the step's
+    wall time, the device's busy time and idle share (a busy time above
+    the wall time is a counting fault and fails the run), kernels and
+    launch calls per step, the top device and host rows and the port's
+    own kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
-            eng.step()
+            step()
         torch.cuda.synchronize()
         step_ms = 1e3 * (time.perf_counter() - t0) / n_steps
-    del eng._run_sieve
     rows = prof.key_averages()
 
     def dev_us(e):
@@ -1735,7 +1788,6 @@ def _profile_steps(eng, n_steps: int) -> dict:
         return sum(e.count for e in rows if e.key == key) // n_steps
 
     return dict(
-        plain_step_ms=plain_step_ms, host_sieve_ms=sieve_ms,
         step_ms=step_ms, device_ms=device_ms,
         kernels_per_step=sum(e.count for e in on_device if not e.key.startswith("Mem")) // n_steps,
         launches_per_step=host_calls("cudaLaunchKernel"),
@@ -1769,12 +1821,19 @@ def _port_kernel_of(key: str):
     return m.group(1) + (m.group(2) or "") if m and m.group(1) in _port_kernel_names() else None
 
 
-def _to_cpu(tree):
+def _tree_map(fn, tree):
+    """``fn`` on every tensor of a tree of dicts, lists and tuples."""
     if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_to_cpu(v) for v in tree]
-    return tree.cpu()
+        return [_tree_map(fn, v) for v in tree]
+    if isinstance(tree, tuple):
+        return tuple(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _to_cpu(tree):
+    return _tree_map(lambda t: t.cpu(), tree)
 
 
 def _prefill_decode(lm, params, prompt, tok, paged: bool, stub=None):
@@ -2557,17 +2616,9 @@ def _family_reference(lm, params, paged: bool) -> dict:
     want = _prefill_decode(cpu, _to_cpu(gp), prompt, tok, paged,
                            None if stub is None else {k: v.cpu() for k, v in stub.items()})
     out = {}
+    what = f"reference {run}: 2-layer logits{' (vision-patch stub)' if stub is not None else ''}, card vs CPU"
     for stage, g, w in zip(("prefill", "decode"), got, want):
-        g, w = g.float().cpu()[..., : arch.vocab_size], w.float()[..., : arch.vocab_size]
-        if not torch.isfinite(g).all():
-            fail(f"{run} {stage} logits are not finite")
-        err, scale = float((g - w).abs().max()), float(w.abs().max())
-        cos = float(torch.nn.functional.cosine_similarity(g.flatten(), w.flatten(), dim=0))
-        out[f"ref_{stage}_max_abs_err"], out[f"ref_{stage}_cosine"] = err, cos
-        log(f"reference {run}: 2-layer {stage} logits{' (vision-patch stub)' if stub is not None else ''}, "
-            f"card vs CPU plain path: max |err| {err:.4g} (max |logit| {scale:.3g}), cosine {cos:.6f}")
-        if err > 5e-2 * scale or cos < 0.999:
-            fail(f"{run} {stage} logits of the card disagree with the CPU plain path")
+        out.update({f"ref_{k}": v for k, v in _hold_logits(what, stage, g, w, arch.vocab_size).items()})
     return out
 
 
@@ -2737,14 +2788,247 @@ def phase_deepseek() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the hybrid, ssm and audio families
+# ---------------------------------------------------------------------------
+
+# (config, prompt tokens, audio frames, kernel launches per decode step):
+# zamba2's 13 shared-attention applications, whisper's 6 decoder layers;
+# rwkv6 runs no kernel (no Pallas kernel covers RWKV6 in the reference)
+RECURRENT = (
+    ("zamba2-7b", 256, None, {"decode_attention": 13}),
+    ("rwkv6-7b", 256, None, {}),
+    ("whisper-base", 64, 1500, {"decode_attention": 6}),
+)
+RECURRENT_BATCH, RECURRENT_STEPS = 4, 32
+CONSISTENCY_TOKENS = 32  # prefill against step-by-step decode over these
+# the encoder's 1500 frames take chunks that divide them, as the
+# reference's flash_attention requires (its default 1024 does not)
+WHISPER_CHUNK = 750
+WHISPER_ROW = "dh64_g1"  # phase 3's tag of the attention row at whisper-base's decode shape
+
+
+def _recurrent_lm(arch, device: str):
+    import torch
+
+    from repro_torch.models import LM
+
+    chunk = dict(q_chunk=WHISPER_CHUNK, kv_chunk=WHISPER_CHUNK) if arch.family == "audio" else {}
+    return LM(arch, torch.bfloat16, device, **chunk)
+
+
+def _tree_bytes(tree) -> int:
+    sizes = []
+    _tree_map(lambda t: sizes.append(t.numel() * t.element_size()), tree)
+    return sum(sizes)
+
+
+def _recurrent_batch(lm, B: int, P: int, frames, seed: int) -> dict:
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, lm.arch.vocab_size, (B, P)), device=lm.device)}
+    if frames:
+        batch.update(lm.stub_inputs(B, frames, seed=seed))
+    return batch
+
+
+def _slice_of(arch, params):
+    """A 2-block slice of a model, as a config and its weights: zamba2's
+    first segment (the shared attention and one Mamba2 block), rwkv6's first
+    two blocks, whisper's first encoder and first decoder layer."""
+    gp = {k: v for k, v in params.items() if k not in ("mamba_seg", "mamba_tail", "blocks", "enc_blocks")}
+    if arch.family == "hybrid":
+        gp["mamba_seg"] = [params["mamba_seg"][0][:1]]
+        return dataclasses.replace(arch, n_layers=2, attn_every=2), gp
+    if arch.family == "ssm":
+        gp["blocks"] = params["blocks"][:2]
+        return dataclasses.replace(arch, n_layers=2), gp
+    gp["enc_blocks"], gp["blocks"] = params["enc_blocks"][:1], params["blocks"][:1]
+    return dataclasses.replace(arch, n_layers=1, enc_layers=1), gp
+
+
+def _recurrent_slice(arch, params, frames) -> dict:
+    """The 2-block slice on the card against the CPU plain path on the same
+    weights (the phase-4 rule): prefill logits of a 32-token prompt (and,
+    for whisper, its frames), and one decode step after it."""
+    import torch
+
+    small, gp = _slice_of(arch, params)
+    out, logits = {}, {}
+    for device, tree in (("cuda", gp), ("cpu", _to_cpu(gp))):
+        lm = _recurrent_lm(small, device)
+        batch = _recurrent_batch(lm, 1, 32, frames, seed=1)
+        lp, cache, _ = lm.prefill(tree, batch, max_seq=33)
+        step = {"tokens": batch["tokens"][:, :1],
+                "position": torch.full((1,), 32, dtype=torch.int32, device=lm.device)}
+        ld, _, _ = lm.decode_step(tree, step, cache)
+        logits[device] = (lp, ld)
+    for stage, g, w in zip(("prefill", "decode"), logits["cuda"], logits["cpu"]):
+        out.update({f"ref_{k}": v for k, v in _hold_logits(
+            f"{arch.name} 2-block slice, card vs CPU plain path", stage, g, w, arch.vocab_size).items()})
+    return out
+
+
+def _recurrent_consistency(lm, params, frames) -> dict:
+    """Prefill against step-by-step decode over the same
+    ``CONSISTENCY_TOKENS`` tokens on the card at full depth, as
+    tests/test_consistency.py holds the reference (there in float32 at 2-5
+    blocks, relative 2e-3; whisper decodes against the prefill's cross
+    K/V).
+
+    The bf16 tolerance.  bf16's own error grows with depth on these
+    random-weight models: against a float32 prefill of the same weights
+    (upcast, on the card) the bf16 prefill's logits were off by 7.4% of
+    the largest logit for zamba2-7b, 70% (cosine 0.81) for rwkv6-7b and
+    0.7% for whisper-base on an H100 (PERF.md), while float32 prefill and
+    float32 step-by-step decode agreed to 1.2e-5 (zamba2) and 7.7e-7
+    (whisper).  So two bf16 computations of the function cannot
+    meet the phase-4 rule at full depth, and the rule here holds the bf16
+    decode to the float32 prefill: its max |err| at most 1.5x the bf16
+    prefill's (or 5% of the largest logit) and its cosine distance at most
+    2x the prefill's (or 1e-3): decode is as accurate as prefill.  The
+    bf16 prefill against the bf16 decode is recorded beside it."""
+    import torch
+
+    from repro_torch.models import LM
+
+    arch, V = lm.arch, lm.arch.vocab_size
+    batch = _recurrent_batch(lm, RECURRENT_BATCH, CONSISTENCY_TOKENS, frames, seed=2)
+    logits_pf, pcache, _ = lm.prefill(params, batch)
+    cache = lm.init_cache(RECURRENT_BATCH, CONSISTENCY_TOKENS)
+    if "cross" in cache:
+        cache["cross"] = pcache["cross"]
+    for i in range(CONSISTENCY_TOKENS):
+        step = {"tokens": batch["tokens"][:, i:i + 1],
+                "position": torch.full((RECURRENT_BATCH,), i, dtype=torch.int32, device=lm.device)}
+        logits, cache, _ = lm.decode_step(params, step, cache)
+    del pcache, cache
+    f32 = LM(arch, torch.float32, lm.device, q_chunk=lm.q_chunk, kv_chunk=lm.kv_chunk)
+    p32 = _tree_map(lambda t: t.float(), params)
+    logits_f32, _, _ = f32.prefill(p32, {k: v.float() if v.is_floating_point() else v for k, v in batch.items()})
+    del p32
+    torch.cuda.empty_cache()
+    pd = _logit_distance(logits, logits_pf, V)
+    pf_err, scale, pf_cos = _logit_distance(logits_pf, logits_f32, V)
+    dec_err, _, dec_cos = _logit_distance(logits, logits_f32, V)
+    run = f"{arch.name} prefill vs step-by-step decode ({CONSISTENCY_TOKENS} tokens, full depth)"
+    log(f"{run}: bf16 prefill vs bf16 decode max |err| {pd[0]:.4g} (max |logit| {pd[1]:.3g}, relative "
+        f"{pd[0] / pd[1]:.4g}), cosine {pd[2]:.6f}; against the float32 prefill: bf16 prefill relative "
+        f"{pf_err / scale:.4g} cosine {pf_cos:.6f}, bf16 decode relative {dec_err / scale:.4g} cosine {dec_cos:.6f}")
+    if dec_err > max(1.5 * pf_err, 5e-2 * scale) or 1 - dec_cos > max(2 * (1 - pf_cos), 1e-3):
+        fail(f"{run}: decode is less accurate than prefill against the float32 prefill")
+    return dict(consistency_max_abs_err=pd[0], consistency_rel_err=pd[0] / pd[1], consistency_cosine=pd[2],
+                f32_prefill_rel_err=pf_err / scale, f32_prefill_cosine=pf_cos,
+                f32_decode_rel_err=dec_err / scale, f32_decode_cosine=dec_cos)
+
+
+def _recurrent_model(name: str, P: int, frames, per_step: dict, card: str) -> dict:
+    """One family's model at full width and depth: weights, a prefill of 4
+    prompts with a decode cache, 32 greedy decode steps (eager) with the
+    launch counts zeroed before the prefill and read after the last step,
+    a profile of 4 more steps, the consistency check and the 2-block
+    slice."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+
+    arch = get_arch(name)
+    t0 = time.perf_counter()
+    lm = _recurrent_lm(arch, "cuda")
+    params = lm.init(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = _tree_bytes(params)
+    B, V = RECURRENT_BATCH, arch.vocab_size
+    batch = _recurrent_batch(lm, B, P, frames, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()  # counts from here on are this run's
+    t0 = time.perf_counter()
+    logits, cache, _ = lm.prefill(params, batch, max_seq=P + RECURRENT_STEPS + 4)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    if tuple(logits.shape) != (B, 1, lm.vocab_padded):
+        fail(f"{name} prefill: logits {tuple(logits.shape)}")
+    tok = logits[:, 0, :V].argmax(-1)
+    generated, step_ms, finite = [tok], [], [torch.isfinite(logits[..., :V]).all()]
+    position = torch.full((B,), P, dtype=torch.int32, device=lm.device)
+
+    def step():  # one greedy decode step at ``position``, then the next position
+        nonlocal tok, logits
+        logits, _, _ = lm.decode_step(params, {"tokens": tok[:, None], "position": position}, cache)
+        tok = logits[:, 0, :V].argmax(-1)
+        position.add_(1)
+
+    for _ in range(RECURRENT_STEPS):
+        t1 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t1))
+        generated.append(tok)
+        finite.append(torch.isfinite(logits[..., :V]).all())
+    launches = {k: n for k, n in ops.LAUNCHES.items() if n}
+    peak = torch.cuda.max_memory_allocated()
+    tokens = torch.stack(generated, 1).cpu()
+    if not bool(torch.stack(finite).all()) or not bool(((tokens >= 0) & (tokens < V)).all()):
+        fail(f"{name}: non-finite logits or a token outside the vocabulary")
+    want = {k: n * RECURRENT_STEPS for k, n in per_step.items()}
+    if launches != want:
+        fail(f"{name}: launches {launches} over prefill and {RECURRENT_STEPS} decode steps; {want} required")
+    read_bytes = weight_bytes + (_tree_bytes(cache["cross"]) if "cross" in cache else 0)
+    bound_ms = 1e3 * read_bytes / PEAK_HBM_BYTES
+    sp = spread(step_ms[2:])
+    out = dict(
+        n_layers=arch.n_layers, weight_bytes=weight_bytes, init_s=init_s, peak_allocated_bytes=peak,
+        prefill_tokens=B * P, frames=frames, prefill_ms=prefill_ms, decode_step_ms=sp,
+        decode_tok_per_s=1e3 * B * RECURRENT_STEPS / sum(step_ms),
+        decode_read_bytes=read_bytes, decode_bound_ms=bound_ms, step_over_bound=sp["median"] / bound_ms,
+        launches=launches, launches_per_decode_step={k: n / RECURRENT_STEPS for k, n in launches.items()},
+    )
+    log(f"{name}: {arch.n_layers} blocks{f' + {arch.enc_layers} encoder layers' if arch.encdec else ''}, "
+        f"d_model {arch.d_model}; weights {weight_bytes / 1e9:.3f} GB (init {init_s:.1f} s), peak allocated "
+        f"{peak / 1e9:.3f} GB | {card}")
+    log(f"{name}: prefill of {B} x {P} tokens{f' over {frames} frames' if frames else ''} {prefill_ms:.1f} ms; "
+        f"{RECURRENT_STEPS} greedy decode steps (eager, host clock): median {sp['median']:.2f} ms "
+        f"({sp['min']:.2f}-{sp['max']:.2f}, steps 3-{RECURRENT_STEPS}), {out['decode_tok_per_s']:.1f} tokens/s; "
+        f"weight-read bound {bound_ms:.4f} ms ({read_bytes / 1e9:.4f} GB{' with the cross K/V' if frames else ''} "
+        f"at 3.35 TB/s), step / bound {out['step_over_bound']:.1f} | {card}")
+    if per_step:
+        log(f"{name}: launches per decode step {out['launches_per_decode_step']} (prefill runs no kernel)")
+    else:
+        log(f"{name}: no kernel launched: RWKV6 has no Pallas kernel in the reference, so the port runs no "
+            "kernel counterpart on this path (plain PyTorch, as plain jnp there)")
+    prof = _profile_window(step, 4)
+    out["profile"] = {k: v for k, v in prof.items() if k != "top_host"}
+    log(f"{name}: profiled decode step {prof['step_ms']:.2f} ms, device busy {prof['device_ms']:.2f} ms, "
+        f"idle share {prof['idle_share']:.3f}, {prof['kernels_per_step']} kernels a step")
+    for key, calls, ms in prof["top_device"][:6]:
+        log(f"  device {ms:8.3f} ms/step {calls:6d} calls  {key[:90]}")
+    out.update(_recurrent_consistency(lm, params, frames))
+    out.update(_recurrent_slice(arch, params, frames))
+    del lm, params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_recurrent(card: str) -> dict:
+    """Phase 10: zamba2-7b, rwkv6-7b and whisper-base at full width and
+    depth, one after the other, each freed before the next is built."""
+    return {name: _recurrent_model(name, P, frames, per_step, card) for name, P, frames, per_step in RECURRENT}
+
+
+# ---------------------------------------------------------------------------
 # phase 9: expert parallelism
 # ---------------------------------------------------------------------------
 
 # qwen3-moe at full width on a (1, 8) mesh, the expert-parallel layout of an
-# eight-GPU node: 16 experts a rank.  Depth is cut to 24 of 48 layers so the
-# eight ranks fit one 80 GB card when they share it
+# eight-GPU node: 16 experts a rank.  Depth is cut to 12 of 48 layers: the
+# eight ranks must share one 80 GB card (24 layers fit), and at 24 the
+# phase took 277 s of a script that should stay within half its 1200 s
 EP_SHAPE = (1, 8)
-EP_LAYERS = 24
+EP_LAYERS = 12
 EP_SLOTS, EP_MAX_SEQ, EP_STEPS = 8, 1024, 16
 EP_PATHS = {"1": ("swiglu_gmm_capacity", "swiglu_gemv"), "0": ("gmm_capacity", "expert_gemv")}
 # (run, REPRO_EP_MODE, REPRO_FUSED_SWIGLU, REPRO_KV_INT8)
@@ -3421,6 +3705,13 @@ def main() -> None:
                     help="the parent commit's kernels/csrc directory: time its dense, split-KV and "
                          "paged decode attention in turns beside the new ones (phase 3)")
     args = ap.parse_args()
+    t0, elapsed = time.perf_counter(), {}
+
+    def done(phase: str) -> None:
+        """Log and keep the script's elapsed seconds at the end of ``phase``."""
+        elapsed[phase] = time.perf_counter() - t0
+        log(f"[{elapsed[phase]:.1f} s] {phase} done")
+
     card = phase_device()
     sys.path.insert(0, str(SRC))
     import torch
@@ -3431,6 +3722,7 @@ def main() -> None:
 
     arch = get_arch("qwen3-moe-30b-a3b")
     build_info = phase_build()
+    done("build")
     parent = load_parent(args.parent_csrc) if args.parent_csrc else None
     kernels = phase_kernels(arch, parent)
     # the four MoE kernels again at deepseek-v2's shapes (phase 7's model)
@@ -3439,6 +3731,7 @@ def main() -> None:
     kernels.update(phase_moe_kernels(deepseek_arch(), gen, DSV2_SUFFIX))
     kernels.update(phase_kernel_instances(arch))
     held = phase_family_shapes()
+    done("kernels (phase 3)")
     lm, params = build_model(arch)
     serve = {}
     with fused_swiglu("1"):
@@ -3450,22 +3743,29 @@ def main() -> None:
         serve["policies"] = phase_policies(serve["dense"], arch.moe, "qwen3-moe")
         serve["dual_threshold"] = phase_dual_threshold(lm, params, dense, serve["dense"])
         serve["chaos"] = phase_chaos(lm, params, dense)
+    done("qwen3-moe dense (phases 4, 5, 8)")
     with fused_swiglu("0"):
         paged = BatchingConfig(n_slots=8, max_seq=1024, paged=True, page_size=16)
         serve["paged"] = phase_serve(lm, params, paged, PAGED_UNFUSED_PATH)
         serve["paged"].update(phase_reference(lm, params, paged=True))
         serve["paged"]["runtime"] = phase_runtime(lm, params, paged, PAGED_UNFUSED_PATH, kernels)
     serve["in_turns"] = phase_ab(lm, params)
+    done("qwen3-moe paged and in turns (phases 4, 5)")
     # qwen3's 61.2 GB of weights go before any other model is built
     del lm, params
     gc.collect()
     torch.cuda.empty_cache()
     log(f"qwen3-moe weights freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
     families = phase_families()
+    done("families (phase 6)")
     deepseek = phase_deepseek()
+    done("deepseek-v2 (phase 7)")
+    recurrent = phase_recurrent(card)
+    done("recurrent families (phase 10)")
     # phase 9 last: its eight ranks share the card once every other model is freed
     kernels.update(phase_ep_kernels(ep_arch()))
     ep = phase_ep(card)
+    done("expert parallelism (phase 9)")
 
     # each kernel's launches come from the run of its own path
     launches = {k: serve["dense"]["launches"][k] for k in DENSE_FUSED_PATH}
@@ -3473,6 +3773,8 @@ def main() -> None:
     granite = families["granite-3-2b"]
     launches["decode_attention_dh64"] = granite["dense"]["launches"]["decode_attention"]
     launches["decode_attention_paged_dh64"] = granite["paged"]["launches"]["decode_attention_paged"]
+    launches["decode_attention_dh112"] = recurrent["zamba2-7b"]["launches"]["decode_attention"]
+    launches[f"decode_attention_{WHISPER_ROW}"] = recurrent["whisper-base"]["launches"]["decode_attention"]
     launches.update({f"{k}{DSV2_SUFFIX}": deepseek["fused"]["launches"][k] for k in DSV2_FUSED_PATH})
     launches.update({f"{k}{DSV2_SUFFIX}": deepseek["three_call"]["launches"][k] for k in DSV2_THREE_CALL_PATH})
     launches.update({f"{k}{EP_SUFFIX}": ep["runs"]["a2a_fused"]["launches_rank0"][k] for k in EP_PATHS["1"]})
@@ -3493,7 +3795,7 @@ def main() -> None:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, device=kind, build=build_info, kernels=kernels, held=held, serve=serve, families=families,
-        deepseek=deepseek, ep=ep,
+        deepseek=deepseek, recurrent=recurrent, ep=ep, elapsed_s=elapsed,
     ), indent=1, default=str))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

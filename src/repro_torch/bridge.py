@@ -15,13 +15,17 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.moe import LOCAL_MESH, MeshInfo
 from repro_torch.models.sharding import rank_cut
+from repro_torch.models.ssm import FLOAT32_LEAVES as _SSM_FLOAT32_LEAVES
 
 # leaves the reference keeps in float32 whatever the model dtype: norm
-# scales/biases, the router (repro/models/moe.py:75) and MLA's latent norm
-# scales (repro/models/attention.py:61, 66)
-_FLOAT32_LEAVES = ("scale", "bias", "w_router", "q_norm_scale", "kv_norm_scale")
+# scales/biases, the router (repro/models/moe.py:75), MLA's latent norm
+# scales (repro/models/attention.py:61, 66) and the Mamba2 and RWKV6
+# leaves of repro/models/ssm.py:36-53, 265-293
+_FLOAT32_LEAVES = ("scale", "bias", "w_router", "q_norm_scale", "kv_norm_scale") + _SSM_FLOAT32_LEAVES
 # the scan-stacked block trees (leading layer axis), unstacked into lists
-_STACKED = ("blocks", "prefix_blocks")
+_STACKED = ("blocks", "prefix_blocks", "mamba_tail", "enc_blocks")
+# zamba2's doubly stacked segments (segment axis, then block axis)
+_STACKED_TWICE = ("mamba_seg",)
 
 
 def _leaf(name: str, a, device, dtype) -> torch.Tensor:
@@ -32,6 +36,8 @@ def _leaf(name: str, a, device, dtype) -> torch.Tensor:
 def _convert(tree, device, dtype, name: str = ""):
     if isinstance(tree, dict):
         return {k: _convert(v, device, dtype, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_convert(v, device, dtype, name) for v in tree]
     return _leaf(name, tree, device, dtype)
 
 
@@ -41,13 +47,30 @@ def _unstack(tree, i: int):
     return tree[i]
 
 
+def _n_stacked(tree) -> int:
+    """The length of the leading axis that every leaf of ``tree`` shares."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return len(np.asarray(tree))
+
+
+def _as_lists(tree, depth: int):
+    """A tree stacked ``depth`` times, as nested lists of per-block trees."""
+    if depth == 0:
+        return tree
+    return [_as_lists(_unstack(tree, i), depth - 1) for i in range(_n_stacked(tree))]
+
+
 def params_from_numpy(tree: Dict[str, Any], device, dtype: torch.dtype,
                       mesh_info: MeshInfo = LOCAL_MESH) -> Dict[str, Any]:
     """Convert a JAX ``LM.init`` tree (leaves as numpy arrays) into the
-    port's parameter dict.  The scan-stacked ``tree["blocks"]`` and, with
-    a dense prefix, ``tree["prefix_blocks"]`` (leading layer axis,
-    ``repro/models/model.py:124-135``) become lists of per-layer dicts; the
-    router and the norm scales stay float32, other floating leaves take
+    port's parameter dict.  The scan-stacked block trees (leading layer
+    axis, ``repro/models/model.py:124-165``: ``blocks``, a dense prefix's
+    ``prefix_blocks``, zamba2's ``mamba_tail``, whisper's ``enc_blocks``)
+    become lists of per-layer dicts, and zamba2's ``mamba_seg``, stacked
+    over segments and then blocks, a list of lists; zamba2's
+    ``shared_attn`` stays one dict.  The leaves the reference keeps in
+    float32 (``_FLOAT32_LEAVES``) stay float32, other floating leaves take
     ``dtype``.  ``device`` is resolved as every entry point resolves it:
     ``"cuda"`` without a GPU raises.
 
@@ -56,10 +79,5 @@ def params_from_numpy(tree: Dict[str, Any], device, dtype: torch.dtype,
     the host before anything is copied to ``device``."""
     device = resolve_device(device)
     tree = rank_cut(tree, mesh_info)
-    out = {k: _convert(v, device, dtype, k) for k, v in tree.items() if k not in _STACKED}
-    for key in _STACKED:
-        if key in tree:
-            blocks = tree[key]
-            n_layers = len(np.asarray(blocks["norm1"]["scale"]))
-            out[key] = [_convert(_unstack(blocks, i), device, dtype) for i in range(n_layers)]
-    return out
+    depth = {**dict.fromkeys(_STACKED, 1), **dict.fromkeys(_STACKED_TWICE, 2)}
+    return {k: _convert(_as_lists(v, depth.get(k, 0)), device, dtype, k) for k, v in tree.items()}

@@ -1,3 +1,3 @@
 """Architecture configs ported so far."""
 
-from .base import ArchConfig, AttnConfig, MLAConfig, MoEConfig, get_arch  # noqa: F401
+from .base import ArchConfig, AttnConfig, MLAConfig, MoEConfig, SSMConfig, get_arch  # noqa: F401

@@ -3,8 +3,9 @@
 Counterpart of ``repro.configs.base``, cut to what the port serves: the
 decoder-only ``moe``, ``dense`` and ``vlm`` families with GQA attention
 (M-RoPE and the vision-patch stub included) or DeepSeek-V2's MLA, and
-MoE models' leading dense blocks (``first_k_dense``).  SSM and the
-encoder-decoder fields join when those families are ported.
+MoE models' leading dense blocks (``first_k_dense``); the ``hybrid``
+(Mamba2 with a shared attention block), ``ssm`` (RWKV6) and ``audio``
+(encoder-decoder, audio-frame stub) families.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ class MLAConfig:
 
 @dataclass(frozen=True)
 class AttnConfig:
-    kind: str = "gqa"  # "gqa" | "mla"
+    kind: str = "gqa"  # "gqa" | "mla" | "none"
     n_heads: int = 0
     n_kv_heads: int = 0
     d_head: int = 0
@@ -61,22 +62,43 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    kind: str = "mamba2"  # "mamba2" | "rwkv6"
+    d_state: int = 64
+    head_dim: int = 64
+    expand: int = 2
+    conv_width: int = 4
+    n_groups: int = 1
+    # rwkv6
+    decay_lora: int = 64
+    wkv_chunk: int = 128
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # "moe" | "dense" | "vlm" are ported
+    family: str  # "moe" | "dense" | "vlm" | "hybrid" | "ssm" | "audio"
     n_layers: int
     d_model: int
     d_ff: int
     vocab_size: int
     attn: AttnConfig = field(default_factory=AttnConfig)
     moe: Optional[MoEConfig] = None
-    norm: str = "rmsnorm"
-    act: str = "swiglu"
-    pos: str = "rope"  # "rope" | "mrope"
+    ssm: Optional[SSMConfig] = None
+    norm: str = "rmsnorm"  # "rmsnorm" | "layernorm"
+    act: str = "swiglu"  # "swiglu" | "gelu"
+    pos: str = "rope"  # "rope" | "mrope" | "learned" | "none"
     tie_embeddings: bool = False
-    # modality frontends are stubs: the model takes precomputed patch
-    # embeddings instead of raw pixels
-    modality_stub: Optional[str] = None  # "vision_patches"
+    # encoder-decoder (whisper)
+    encdec: bool = False
+    enc_layers: int = 0
+    enc_seq: int = 1500  # encoder positions of the decode shapes (whisper)
+    # hybrid (zamba2): one shared attention+MLP block applied every
+    # ``attn_every`` backbone blocks (weights shared across applications)
+    attn_every: int = 0
+    # modality frontends are stubs: the model takes precomputed frame or
+    # patch embeddings instead of raw audio or pixels
+    modality_stub: Optional[str] = None  # "audio_frames" | "vision_patches"
     source: str = ""
     notes: str = ""
 
@@ -93,7 +115,9 @@ class ArchConfig:
             d_model=64,
             d_ff=128,
             vocab_size=256,
-            attn=dataclasses.replace(
+        )
+        if a.kind != "none":
+            kw["attn"] = dataclasses.replace(
                 a,
                 n_heads=4,
                 n_kv_heads=min(max(a.n_kv_heads, 1), 2) if a.kind == "gqa" else 0,
@@ -105,14 +129,23 @@ class ArchConfig:
                 if a.mla is not None
                 else None,
                 mrope_sections=(4, 2, 2) if a.mrope_sections else None,
-            ),
-        )
+            )
         if self.moe is not None:
             kw["moe"] = dataclasses.replace(
                 self.moe, n_experts=8, top_k=2, d_expert=32,
                 n_shared=min(self.moe.n_shared, 1),
                 first_k_dense=min(self.moe.first_k_dense, 1),
             )
+        if self.ssm is not None:
+            kw["ssm"] = dataclasses.replace(
+                self.ssm, d_state=16, head_dim=16, decay_lora=8, wkv_chunk=16
+            )
+        if self.encdec:
+            kw["enc_layers"] = 2
+            kw["enc_seq"] = 16
+        if self.attn_every:
+            kw["attn_every"] = 2
+            kw["n_layers"] = 5
         kw.update(overrides)
         return dataclasses.replace(self, **kw)
 
@@ -125,6 +158,9 @@ _MODULE_OF = {
     "qwen1.5-0.5b": "qwen15_0_5b",
     "granite-3-8b": "granite_3_8b",
     "qwen2-vl-7b": "qwen2_vl_7b",
+    "zamba2-7b": "zamba2_7b",
+    "rwkv6-7b": "rwkv6_7b",
+    "whisper-base": "whisper_base",
 }
 
 

@@ -1,6 +1,6 @@
-"""Attention: GQA (chunked online-softmax prefill, cached decode) and
-DeepSeek-V2's MLA (counterpart of ``repro.models.attention``, its GQA and
-MLA parts).
+"""Attention: GQA (chunked online-softmax prefill, cached decode),
+DeepSeek-V2's MLA and whisper's cross-attention (counterpart of
+``repro.models.attention``).
 
 Prefill attention (:func:`flash_attention`) is plain PyTorch, as it is
 plain jnp in the reference.  GQA decode attention goes through the
@@ -8,7 +8,7 @@ plain jnp in the reference.  GQA decode attention goes through the
 ``decode_attention_paged`` one (paged block pool), which run the CUDA
 kernels on the card and their plain versions on the CPU.  MLA decode is
 the matrix-absorbed form in float32 einsums, as the reference computes it
-outside any kernel.
+outside any kernel; cross-attention is the plain ``flash_attention``.
 """
 
 from __future__ import annotations
@@ -176,11 +176,13 @@ def gqa_decode(
     cache_v: torch.Tensor,
     cfg: AttnConfig,
     mrope_positions: Optional[torch.Tensor] = None,  # (3, B, 1)
+    use_rope: bool = True,
 ) -> torch.Tensor:
     """One decode step.  Writes the new (k, v) row at ``position`` into the
     cache in place (the JAX engine gets the same effect from buffer
-    donation) and returns the attention output."""
-    q, k1, v1 = gqa_project_qkv(params, x, position[:, None], cfg, mrope_positions)
+    donation) and returns the attention output.  ``use_rope=False``: no
+    rotation (whisper's decoder adds learned positions to its input)."""
+    q, k1, v1 = gqa_project_qkv(params, x, position[:, None], cfg, mrope_positions, use_rope)
     B = x.shape[0]
     rows = torch.arange(B, device=x.device)
     idx = position.long().clamp(0, cache_k.shape[1] - 1)  # JAX clamps the slice start
@@ -446,3 +448,50 @@ def mla_decode(
     w_uv = params["w_uv"].reshape(-1, H, m.v_head_dim).float()  # (c, H, v)
     o = torch.einsum("bhc,chv->bhv", ctx_lat, w_uv)
     return o.reshape(B, 1, -1).to(x.dtype) @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+
+def _divisor_chunk(n: int, target: int) -> int:
+    """Largest chunk <= target that divides n (1500 -> 750, etc.)."""
+    c = min(target, n)
+    while n % c:
+        c -= 1
+    return max(c, 1)
+
+
+def cross_attention(
+    params: dict,
+    x: torch.Tensor,  # (B, Sq, d)
+    enc_k: torch.Tensor,  # (B, Se, H, dh) projected from the encoder's states
+    enc_v: torch.Tensor,
+    cfg: AttnConfig,
+) -> torch.Tensor:
+    """Non-causal attention of the decoder's queries over the encoder's
+    K/V: the plain ``flash_attention``, as in the reference."""
+    B, Sq, _ = x.shape
+    q = (x @ params["wq"]).reshape(B, Sq, cfg.n_heads, cfg.d_head)
+    o = flash_attention(q, enc_k, enc_v, causal=False, q_chunk=_divisor_chunk(Sq, 1024),
+                        kv_chunk=_divisor_chunk(enc_k.shape[1], 1024))
+    return o.reshape(B, Sq, -1) @ params["wo"]
+
+
+def init_cross_attention(gen, cfg: AttnConfig, d_model: int, dtype, device) -> dict:
+    H, dh = cfg.n_heads, cfg.d_head
+    return {
+        "wq": he_init(gen, (d_model, H * dh), dtype, device),
+        "wk": he_init(gen, (d_model, H * dh), dtype, device),
+        "wv": he_init(gen, (d_model, H * dh), dtype, device),
+        "wo": he_init(gen, (H * dh, d_model), dtype, device),
+    }
+
+
+def project_cross_kv(params: dict, enc_states: torch.Tensor, cfg: AttnConfig):
+    """The encoder states' K and V, (B, Se, H, dh) each."""
+    B, Se, _ = enc_states.shape
+    k = (enc_states @ params["wk"]).reshape(B, Se, cfg.n_heads, cfg.d_head)
+    v = (enc_states @ params["wv"]).reshape(B, Se, cfg.n_heads, cfg.d_head)
+    return k, v

@@ -1,5 +1,5 @@
-"""Foundational layers: norms, dense MLP, embeddings, RoPE and M-RoPE
-(counterpart of ``repro.models.layers``).
+"""Foundational layers: norms, dense MLP, embeddings, RoPE, M-RoPE and
+sinusoidal positions (counterpart of ``repro.models.layers``).
 
 Plain functions on tensors.  Compute runs in the activation dtype with
 float32 islands where the JAX reference has them (norm statistics, rotary
@@ -21,31 +21,47 @@ def he_init(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
     return w.mul_(fan_in**-0.5).to(dtype)
 
 
-def init_norm(d: int, device) -> dict:
-    return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+def init_norm(d: int, kind: str, device) -> dict:
+    p = {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=torch.float32, device=device)
+    return p
 
 
 def apply_norm(params: dict, x: torch.Tensor, kind: str, eps: float = 1e-6) -> torch.Tensor:
-    if kind != "rmsnorm":
-        raise ValueError(f"norm {kind!r} is not ported (rmsnorm only)")
     xf = x.float()
-    var = (xf * xf).mean(-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (y * params["scale"].float()).to(x.dtype)
+    if kind == "rmsnorm":
+        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    elif kind == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, correction=0, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+    else:
+        raise ValueError(f"unknown norm {kind!r}")
+    y = y * params["scale"].float()
+    if kind == "layernorm":
+        y = y + params["bias"].float()
+    return y.to(x.dtype)
 
 
-def init_mlp(gen, d_model: int, d_ff: int, dtype, device) -> dict:
-    return {
+def init_mlp(gen, d_model: int, d_ff: int, act: str, dtype, device) -> dict:
+    p = {
         "w_up": he_init(gen, (d_model, d_ff), dtype, device),
         "w_down": he_init(gen, (d_ff, d_model), dtype, device),
-        "w_gate": he_init(gen, (d_model, d_ff), dtype, device),
     }
+    if act == "swiglu":
+        p["w_gate"] = he_init(gen, (d_model, d_ff), dtype, device)
+    return p
 
 
 def apply_mlp(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
-    if act != "swiglu":
-        raise ValueError(f"activation {act!r} is not ported (swiglu only)")
-    h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    up = x @ params["w_up"]
+    if act == "swiglu":
+        h = F.silu(x @ params["w_gate"]) * up
+    elif act == "gelu":
+        h = F.gelu(up, approximate="tanh")  # jax.nn.gelu's default
+    else:
+        raise ValueError(f"unknown act {act!r}")
     return h @ params["w_down"]
 
 
@@ -104,3 +120,11 @@ def apply_mrope(
     sin = torch.sin(ang)[..., None, :]
     xf1, xf2 = x[..., : d // 2].float(), x[..., d // 2:].float()
     return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(n_pos: int, d_model: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (encoder), float32."""
+    pos = torch.arange(n_pos, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d_model // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10000.0 ** (2 * dim / d_model))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

@@ -1,16 +1,25 @@
-"""LM facade: init / prefill / decode for the decoder-only families
-(counterpart of ``repro.models.model.LM``): ``moe``, ``dense``, and
-``vlm``, whose vision frontend is a stub (precomputed patch embeddings,
-:meth:`LM.stub_inputs`) and whose attention rotates by M-RoPE.  Attention
-is GQA, or DeepSeek-V2's MLA with its compressed ``(c_kv, k_rope)``
-cache; a MoE model's leading ``first_k_dense`` blocks are dense
-(``p["prefix_blocks"]``, cache ``"prefix"``), walked before the MoE
-blocks.
+"""LM facade: init / prefill / decode (counterpart of
+``repro.models.model.LM``) for six families:
+
+  * decoder-only attention (``moe``, ``dense``, ``vlm``): GQA, or
+    DeepSeek-V2's MLA with its compressed ``(c_kv, k_rope)`` cache; the
+    VLM's vision frontend is a stub (precomputed patch embeddings,
+    :meth:`LM.stub_inputs`) and its attention rotates by M-RoPE; a MoE
+    model's leading ``first_k_dense`` blocks are dense
+    (``p["prefix_blocks"]``, cache ``"prefix"``), walked before the MoE
+    blocks;
+  * ``hybrid`` (zamba2): segments of [one shared attention+MLP block +
+    (attn_every - 1) Mamba2 blocks], then a Mamba2 tail;
+  * ``ssm`` (rwkv6): RWKV6 blocks;
+  * ``audio`` (whisper): an encoder over stub frame embeddings, and a
+    decoder with cross-attention to it.
 
 Parameters are a dict like the JAX pytree, except that the scan-stacked
-``p["blocks"]`` and ``p["prefix_blocks"]`` become lists of per-layer
-dicts and the ``lax.scan`` over layers a Python loop.  The KV cache is
-updated in place.
+block trees become lists of per-layer dicts (zamba2's doubly stacked
+``mamba_seg`` a list of segments, each a list of blocks) and each
+``lax.scan`` over layers a Python loop.  Caches keep the reference's
+stacked layout (a leading layer axis; zamba2's Mamba states a segment and
+a block axis) and are updated in place.
 
 On a mesh (``LM(mesh_info=...)``, from :mod:`repro_torch.launch.mesh`)
 every rank runs the same entry points on the global batch, as the JAX
@@ -18,7 +27,8 @@ ones run under ``shard_map`` and GSPMD: a rank computes its rows of the
 batch, holds its experts (:mod:`repro_torch.models.sharding`) and its rows
 of the cache (and, when the kv heads do not divide the model group, its
 slice of the positions: sequence-parallel decode), and returns the global
-logits and step counts.
+logits and step counts.  The hybrid, ssm and audio families run on one
+process only.
 """
 
 from __future__ import annotations
@@ -34,9 +44,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from . import collectives as coll
 from . import transformer as tf
-from .layers import apply_norm, embed, init_norm, lm_logits
+from . import ssm
+from .attention import project_cross_kv
+from .layers import apply_norm, embed, init_norm, lm_logits, sinusoidal_positions
 from .moe import LOCAL_MESH, MeshInfo
 from .sharding import batch_rows, expert_rows, is_expert_leaf, leaf_seed, seq_positions
+from .ssm import Mamba2State, RWKV6State
 from .transformer import BlockAux
 
 
@@ -59,9 +72,30 @@ def _aggregate_aux(prefix_auxes: List[BlockAux], auxes: List[BlockAux]) -> StepA
     )
 
 
-# decoder-only families of attention + MLP/MoE blocks
-PORTED_FAMILIES = ("moe", "dense", "vlm")
+def _empty_aux(device) -> StepAux:
+    """The StepAux of a model with no MoE layer."""
+    return StepAux(torch.zeros((), dtype=torch.float32, device=device),
+                   torch.zeros((0, 1), dtype=torch.int32, device=device),
+                   torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _zamba_layout(arch: ArchConfig) -> Tuple[int, int, int]:
+    """(n_segments, mambas_per_segment, tail_mambas)."""
+    per = arch.attn_every - 1
+    nseg = arch.n_layers // arch.attn_every
+    return nseg, per, arch.n_layers - nseg * arch.attn_every
+
+
+# decoder-only families of attention + MLP/MoE blocks: the serving engine's
+DECODER_FAMILIES = ("moe", "dense", "vlm")
+# families whose decode cache holds state beyond K/V rows (Mamba2 and RWKV6
+# states; whisper's cross K/V): driven through prefill and decode_step only
+RECURRENT_FAMILIES = ("hybrid", "ssm", "audio")
+PORTED_FAMILIES = DECODER_FAMILIES + RECURRENT_FAMILIES
 PORTED_ATTENTION = ("gqa", "mla")
+# the attention the other families' blocks take (rwkv6 has none)
+_ATTENTION_OF = {"hybrid": ("gqa",), "audio": ("gqa",), "ssm": ("none",)}
+DEC_POSITIONS = 448  # whisper's learned decoder positions
 
 
 class LM:
@@ -74,11 +108,18 @@ class LM:
         kv_chunk: int = 1024,
         mesh_info: MeshInfo = LOCAL_MESH,
     ):
-        if arch.family not in PORTED_FAMILIES or arch.attn.kind not in PORTED_ATTENTION:
+        if (arch.family not in PORTED_FAMILIES
+                or arch.attn.kind not in _ATTENTION_OF.get(arch.family, PORTED_ATTENTION)):
             raise NotImplementedError(
                 f"family {arch.family!r} with {arch.attn.kind!r} attention is not "
-                f"ported yet (ported: {', '.join(PORTED_FAMILIES)} with "
-                f"{' or '.join(PORTED_ATTENTION)} attention)"
+                f"ported yet (ported: {', '.join(DECODER_FAMILIES)} with "
+                f"{' or '.join(PORTED_ATTENTION)} attention, hybrid and audio with gqa, "
+                "ssm with none)"
+            )
+        if arch.family in RECURRENT_FAMILIES and mesh_info != LOCAL_MESH:
+            raise NotImplementedError(
+                f"the {arch.family} family runs on one process: its mesh layout (the "
+                "reference shards the SSM heads under GSPMD) is not ported"
             )
         self.arch = arch
         # leading dense blocks of a MoE model (DeepSeek-V2: 1)
@@ -117,10 +158,28 @@ class LM:
 
         p: Dict[str, Any] = {
             "embed": normal((self.vocab_padded, arch.d_model), 0.02),
-            "final_norm": init_norm(arch.d_model, dev),
+            "final_norm": init_norm(arch.d_model, arch.norm, dev),
         }
         if not arch.tie_embeddings:
             p["w_out"] = normal((arch.d_model, self.vocab_padded), 0.02)
+        if arch.family == "hybrid":
+            nseg, per, tail = _zamba_layout(arch)
+            # one block applied at every segment, each with its own KV slot
+            p["shared_attn"] = tf.init_attn_mlp_block(gen, arch, False, dtype, dev)
+            p["mamba_seg"] = [[tf.init_mamba_block(gen, arch, dtype, dev) for _ in range(per)]
+                              for _ in range(nseg)]
+            if tail:
+                p["mamba_tail"] = [tf.init_mamba_block(gen, arch, dtype, dev) for _ in range(tail)]
+            return p
+        if arch.family == "ssm":
+            p["blocks"] = [tf.init_rwkv_block(gen, arch, dtype, dev) for _ in range(arch.n_layers)]
+            return p
+        if arch.family == "audio":
+            p["enc_blocks"] = [tf.init_enc_block(gen, arch, dtype, dev) for _ in range(arch.enc_layers)]
+            p["enc_norm"] = init_norm(arch.d_model, arch.norm, dev)
+            p["blocks"] = [tf.init_dec_block(gen, arch, dtype, dev) for _ in range(arch.n_layers)]
+            p["dec_pos"] = normal((DEC_POSITIONS, arch.d_model), 0.01)
+            return p
         moe = arch.moe is not None
         if self.n_prefix:
             p["prefix_blocks"] = [
@@ -139,11 +198,13 @@ class LM:
         at this rank's rows (``sharding.expert_rows``)."""
         dev = self.device
 
-        def draw(key, shape, scale, dtype):
+        def normals(key, shape):
             gen = torch.Generator(device=dev)
             gen.manual_seed(leaf_seed(seed, *key))
-            w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
-            return w.mul_(scale).to(dtype)
+            return torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
+
+        def draw(key, shape, scale, dtype):
+            return normals(key, shape).mul_(scale).to(dtype)
 
         def leaf(path, t):
             name = path[-1]
@@ -155,8 +216,12 @@ class LM:
                 rows = expert_rows(t.shape[0], self.mi)
                 return torch.stack([draw(path + (e,), t.shape[1:], t.shape[-2] ** -0.5, t.dtype)
                                     for e in range(rows.start, rows.stop)])
-            # embeddings, logits and the router: normal * 0.02; others He
-            scale = 0.02 if name in ("embed", "w_out", "w_router") else t.shape[-2] ** -0.5
+            if "mamba" in path or "rwkv" in path:
+                return ssm.init_leaf(name, t.shape, t.dtype, dev, lambda shape: normals(path, shape))
+            # embeddings, logits and the router: normal * 0.02; whisper's
+            # decoder positions: * 0.01; others He
+            scale = {"embed": 0.02, "w_out": 0.02, "w_router": 0.02, "dec_pos": 0.01}.get(
+                name, t.shape[-2] ** -0.5)
             return draw(path, t.shape, scale, t.dtype)
 
         def walk(tree, path=()):
@@ -202,7 +267,8 @@ class LM:
         scales, for GQA decoder-only families, as the reference's
         ``init_cache`` reads it; only the sequence-parallel decode reads
         such a cache."""
-        return os.environ.get("REPRO_KV_INT8", "0") == "1" and self.arch.attn.kind == "gqa"
+        return (os.environ.get("REPRO_KV_INT8", "0") == "1"
+                and self.arch.family in DECODER_FAMILIES and self.arch.attn.kind == "gqa")
 
     def init_cache(self, batch: int, max_seq: int) -> Dict[str, Any]:
         """Dense per-slot caches: ``(k, v)`` of ``(n, batch, max_seq, Kv,
@@ -213,7 +279,16 @@ class LM:
 
         On a mesh ``batch`` and ``max_seq`` are global and the cache is this
         rank's: its rows of the batch and, for sequence-parallel decode,
-        its slice of the positions."""
+        its slice of the positions.
+
+        The other families (the reference's layouts, zeroed): hybrid
+        ``{"mamba_seg": Mamba2State (n_seg, per, batch, ...), "attn": (k,
+        v) (n_seg, batch, max_seq, Kv, dh), "mamba_tail": Mamba2State
+        (tail, batch, ...)}``; ssm ``{"blocks": RWKV6State (n_layers,
+        batch, ...)}``; audio ``{"self": (k, v) (n_layers, batch, max_seq,
+        Kv, dh), "cross": (k, v) (n_layers, batch, enc_seq, H, dh)}``."""
+        if self.arch.family in RECURRENT_FAMILIES:
+            return self._state_cache(batch, max_seq)
         rows = batch_rows(batch, self.mi)
         if self._seq_par():
             positions = seq_positions(max_seq, self.mi)
@@ -232,6 +307,26 @@ class LM:
                                 [torch.int8, torch.int8, torch.float32, torch.float32])
         return self._caches([shape, shape])
 
+    def _kv(self, n: int, batch: int, T: int, heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        shape = (n, batch, T, heads, self.arch.attn.d_head)
+        return tuple(torch.zeros(shape, dtype=self.dtype, device=self.device) for _ in range(2))
+
+    def _state_cache(self, batch: int, max_seq: int) -> Dict[str, Any]:
+        arch, dtype, dev = self.arch, self.dtype, self.device
+        a = arch.attn
+        if arch.family == "hybrid":
+            nseg, per, tail = _zamba_layout(arch)
+            c = {"mamba_seg": ssm.mamba2_init_state(batch, arch.d_model, arch.ssm, dtype, dev, (nseg, per)),
+                 "attn": self._kv(nseg, batch, max_seq, a.n_kv_heads)}
+            if tail:
+                c["mamba_tail"] = ssm.mamba2_init_state(batch, arch.d_model, arch.ssm, dtype, dev, (tail,))
+            return c
+        if arch.family == "ssm":
+            return {"blocks": ssm.rwkv6_init_state(batch, arch.d_model, arch.ssm, dtype, dev,
+                                                   (arch.n_layers,))}
+        return {"self": self._kv(arch.n_layers, batch, max_seq, a.n_kv_heads),
+                "cross": self._kv(arch.n_layers, batch, arch.enc_seq, a.n_heads)}
+
     def init_paged_cache(self, n_pool: int, page: int) -> Dict[str, Any]:
         """Paged KV cache: per-layer shared block pools ``(n_layers, n_pool,
         page, Kv, dh)`` in place of the dense per-slot buffers.  The block
@@ -242,7 +337,7 @@ class LM:
         raises too)."""
         arch = self.arch
         a = arch.attn
-        if a.kind != "gqa":
+        if arch.family not in DECODER_FAMILIES or a.kind != "gqa":
             raise ValueError(
                 "paged KV cache requires a gqa decoder-only family "
                 f"(got family={arch.family}, attn={a.kind})"
@@ -310,22 +405,27 @@ class LM:
         return x, batch.get("mrope_positions")
 
     def stub_inputs(self, batch: int, seq: int, seed: int) -> Dict[str, torch.Tensor]:
-        """Seeded inputs of the vision-patch stub: ``embeds`` (batch, seq,
-        d_model) standing in for the vision tower's patch embeddings, and
+        """Seeded inputs of the modality stub: ``embeds`` (batch, seq,
+        d_model) standing in for the vision tower's patch embeddings or the
+        audio frontend's frame embeddings; for the vision stub also
         ``mrope_positions`` (3, batch, seq) that walk the patches of two or
         more frames row by row, so the temporal, height and width streams
-        differ (the counterpart of the ``vlm`` entries of
+        differ (the counterpart of the ``vlm`` and ``audio`` entries of
         ``repro.models.model.LM.input_specs``)."""
-        if self.arch.modality_stub != "vision_patches":
-            raise ValueError(f"{self.arch.name} has no vision-patch stub")
+        if self.arch.modality_stub not in ("vision_patches", "audio_frames"):
+            raise ValueError(f"{self.arch.name} has no modality stub: no vision-patch stub and no "
+                             "audio-frame stub")
         rng = np.random.default_rng(seed)
         emb = rng.standard_normal((batch, seq, self.arch.d_model)).astype(np.float32)
+        embeds = torch.from_numpy(emb).to(device=self.device, dtype=self.dtype)
+        if self.arch.modality_stub == "audio_frames":
+            return {"embeds": embeds}
         side = max(1, int(np.sqrt(seq / 2)))  # patches per row and column of a frame
         s = np.arange(seq)
         grid = np.stack([s // (side * side), s // side % side, s % side])  # t, h, w
         pos = np.broadcast_to(grid[:, None, :], (3, batch, seq)).astype(np.int32)
         return {
-            "embeds": torch.from_numpy(emb).to(device=self.device, dtype=self.dtype),
+            "embeds": embeds,
             "mrope_positions": torch.from_numpy(np.ascontiguousarray(pos)).to(self.device),
         }
 
@@ -343,7 +443,16 @@ class LM:
         positions that holds the prompt, as ``init_cache`` lays it out.  On
         a mesh the cache is this rank's: its rows of the batch, and with
         ``max_seq`` on the sequence-parallel path its slice of the
-        positions; the logits and the StepAux are global."""
+        positions; the logits and the StepAux are global.
+
+        The other families return their decode cache (``init_cache``'s
+        layout) with the prompt's states and K/V: the K/V of ``max_seq``
+        positions (of the prompt's by default), the Mamba2 and RWKV6
+        states after the prompt, whisper's cross K/V of its frames.  The
+        audio batch is ``embeds`` (B, frames, d) and the decoder's
+        ``tokens`` (B, S)."""
+        if self.arch.family in RECURRENT_FAMILIES:
+            return self._prefill_states(p, batch, max_seq)
         arch = self.arch
         batch = self._rank_batch(batch)
         x, mrope = self._embed_in(p, batch)
@@ -383,7 +492,13 @@ class LM:
 
         On a mesh the batch is global, ``cache`` is this rank's (as
         ``init_cache`` and ``prefill`` lay it out), the logits are global;
-        a cache split along the sequence decodes sequence-parallel."""
+        a cache split along the sequence decodes sequence-parallel.
+
+        The other families update every state and K/V leaf of ``cache`` in
+        place; whisper's decoder adds the learned position
+        ``dec_pos[position % 448]``."""
+        if self.arch.family in RECURRENT_FAMILIES:
+            return self._decode_states(p, batch, cache)
         arch = self.arch
         batch = self._rank_batch(batch)
         x, mrope = self._embed_in(p, batch)
@@ -416,3 +531,104 @@ class LM:
         x, auxes = walk(x, p["blocks"], cache["blocks"], moe)
         h = apply_norm(p["final_norm"], x, arch.norm)
         return self._all_rows(self._logits(p, h)), cache, _aggregate_aux(prefix_auxes, auxes)
+
+    # ------------------------------------------------------------------
+    # hybrid, ssm and audio families
+    # ------------------------------------------------------------------
+
+    def _walk_mamba(self, blocks, x, states: Mamba2State, step: bool) -> torch.Tensor:
+        """Mamba2 blocks from ``states`` (stacked over the blocks), each
+        block's new state written back in place."""
+        for i, blk in enumerate(blocks):
+            st = Mamba2State(*(leaf[i] for leaf in states))
+            x, new = tf.mamba_block(blk, x, self.arch, st, step)
+            for dst, src in zip(st, new):
+                dst.copy_(src)
+        return x
+
+    def _walk_hybrid_stack(self, p, x, positions, cache, step: bool) -> torch.Tensor:
+        """zamba2: each segment is the shared attention block, with the
+        segment's own KV slot, then its Mamba2 blocks; the Mamba2 tail
+        follows.  ``step``: one decode token at ``positions`` (B,); else the
+        prompt, whose K/V fill the slot's first positions."""
+        arch = self.arch
+        k_cache, v_cache = cache["attn"]
+        for s, seg in enumerate(p["mamba_seg"]):
+            if step:
+                x, _ = tf.attn_mlp_block_decode(p["shared_attn"], x, positions,
+                                                (k_cache[s], v_cache[s]), arch, False)
+            else:
+                x, (k, v), _ = tf.attn_mlp_block_seq(p["shared_attn"], x, positions, arch, False,
+                                                     q_chunk=self.q_chunk, kv_chunk=self.kv_chunk)
+                k_cache[s, :, : k.shape[1]].copy_(k)
+                v_cache[s, :, : v.shape[1]].copy_(v)
+            x = self._walk_mamba(seg, x, Mamba2State(*(leaf[s] for leaf in cache["mamba_seg"])), step)
+        if "mamba_tail" in cache:
+            x = self._walk_mamba(p["mamba_tail"], x, cache["mamba_tail"], step)
+        return x
+
+    def _walk_rwkv_stack(self, p, x, states: RWKV6State) -> torch.Tensor:
+        """RWKV6 blocks from ``states`` (stacked over the blocks), each
+        block's new state written back in place."""
+        for i, blk in enumerate(p["blocks"]):
+            st = RWKV6State(*(leaf[i] for leaf in states))
+            x, new = tf.rwkv_block(blk, x, self.arch, st)
+            for dst, src in zip(st, new):
+                dst.copy_(src)
+        return x
+
+    def _whisper_encode(self, p, frames: torch.Tensor) -> torch.Tensor:
+        arch = self.arch
+        x = frames.to(self.dtype)
+        x = x + sinusoidal_positions(x.shape[1], arch.d_model, x.device).to(x.dtype)[None]
+        for blk in p["enc_blocks"]:
+            x = tf.enc_block(blk, x, arch, q_chunk=self.q_chunk, kv_chunk=self.kv_chunk)
+        return apply_norm(p["enc_norm"], x, arch.norm)
+
+    def _prefill_states(self, p, batch: Dict[str, Any], max_seq: Optional[int]):
+        arch = self.arch
+        audio = arch.family == "audio"
+        x = embed(p["embed"], batch["tokens"]) if audio else self._embed_in(p, batch)[0]
+        B, S = x.shape[:2]
+        if max_seq is not None and max_seq < S:
+            raise ValueError(f"a cache of {max_seq} positions cannot hold a {S}-token prompt")
+        T = S if max_seq is None else max_seq
+        if arch.family == "hybrid":
+            cache = self.init_cache(B, T)
+            positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+            x = self._walk_hybrid_stack(p, x, positions, cache, step=False)
+        elif arch.family == "ssm":
+            cache = self.init_cache(B, 0)
+            x = self._walk_rwkv_stack(p, x, cache["blocks"])
+        else:
+            enc = self._whisper_encode(p, batch["embeds"])
+            x = x + p["dec_pos"][:S][None]
+            cache = {"self": self._kv(arch.n_layers, B, T, arch.attn.n_kv_heads)}
+            cross = []
+            for i, blk in enumerate(p["blocks"]):
+                enc_kv = project_cross_kv(blk["xattn"], enc, arch.attn)
+                x, (k, v) = tf.dec_block_seq(blk, x, enc_kv, arch, q_chunk=min(self.q_chunk, S),
+                                             kv_chunk=min(self.kv_chunk, S))
+                cache["self"][0][i, :, :S].copy_(k)
+                cache["self"][1][i, :, :S].copy_(v)
+                cross.append(enc_kv)
+            cache["cross"] = tuple(torch.stack(leaf) for leaf in zip(*cross))
+        h = apply_norm(p["final_norm"], x, arch.norm)
+        return self._logits(p, h[:, -1:, :]), cache, _empty_aux(x.device)
+
+    def _decode_states(self, p, batch: Dict[str, Any], cache: Dict[str, Any]):
+        arch = self.arch
+        x, _ = self._embed_in(p, batch)
+        position = batch["position"]
+        if arch.family == "hybrid":
+            x = self._walk_hybrid_stack(p, x, position, cache, step=True)
+        elif arch.family == "ssm":
+            x = self._walk_rwkv_stack(p, x, cache["blocks"])
+        else:
+            # structural clamp: the decoder has 448 learned positions
+            x = x + p["dec_pos"][position.long() % p["dec_pos"].shape[0]][:, None, :]
+            (sk, sv), (ck, cv) = cache["self"], cache["cross"]
+            for i, blk in enumerate(p["blocks"]):
+                x = tf.dec_block_decode(blk, x, position, (sk[i], sv[i]), (ck[i], cv[i]), arch)
+        h = apply_norm(p["final_norm"], x, arch.norm)
+        return self._logits(p, h), cache, _empty_aux(x.device)

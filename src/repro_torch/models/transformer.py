@@ -1,6 +1,11 @@
-"""Attention + (MoE | dense MLP) blocks (counterpart of
-``repro.models.transformer``, the ``attn_mlp`` block kind with GQA or
-MLA attention)."""
+"""Transformer blocks (counterpart of ``repro.models.transformer``).
+
+Block kinds:
+  * ``attn_mlp`` — (GQA | MLA) attention + (dense MLP | MoE)   [most archs]
+  * ``mamba``    — Mamba2 block                                 [zamba2]
+  * ``rwkv``     — RWKV6 time mix + channel mix                 [rwkv6]
+  * ``enc``/``dec`` — whisper encoder / decoder (with cross-attention)
+"""
 
 from __future__ import annotations
 
@@ -10,6 +15,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from . import attention as attn_lib
+from . import ssm as ssm_lib
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
 from .moe import LOCAL_MESH, MeshInfo, MoEOut, init_moe, moe_block
 
@@ -38,11 +44,12 @@ def init_attn_mlp_block(gen, arch: ArchConfig, moe: bool, dtype, device) -> dict
         attn = attn_lib.init_gqa(gen, arch.attn, d, dtype, device)
     else:
         raise ValueError(f"attention {arch.attn.kind!r} is not ported (gqa and mla only)")
-    p = {"norm1": init_norm(d, device), "norm2": init_norm(d, device), "attn": attn}
+    p = {"norm1": init_norm(d, arch.norm, device), "norm2": init_norm(d, arch.norm, device),
+         "attn": attn}
     if moe:
         p["moe"] = init_moe(gen, arch, dtype, device)
     else:
-        p["mlp"] = init_mlp(gen, d, arch.d_ff, dtype, device)
+        p["mlp"] = init_mlp(gen, d, arch.d_ff, arch.act, dtype, device)
     return p
 
 
@@ -117,3 +124,100 @@ def attn_mlp_block_decode(
     x = x + a
     h = apply_norm(p["norm2"], x, arch.norm)
     return _ffn(p, x, h, arch, moe, sieve, mi)
+
+
+# ---------------------------------------------------------------------------
+# mamba / rwkv blocks
+# ---------------------------------------------------------------------------
+
+
+def init_mamba_block(gen, arch: ArchConfig, dtype, device) -> dict:
+    return {
+        "norm": init_norm(arch.d_model, arch.norm, device),
+        "mamba": ssm_lib.init_mamba2(gen, arch.d_model, arch.ssm, dtype, device),
+    }
+
+
+def mamba_block(p, x, arch: ArchConfig, state, step: bool):
+    """Returns (x, new state): the sequence form from ``state`` (zeros
+    when None), or with ``step`` the one-token update."""
+    h = apply_norm(p["norm"], x, arch.norm)
+    if step:
+        y, new_state = ssm_lib.mamba2_step(p["mamba"], h, arch.ssm, state)
+    else:
+        y, new_state = ssm_lib.mamba2_seq(p["mamba"], h, arch.ssm, state)
+    return x + y, new_state
+
+
+def init_rwkv_block(gen, arch: ArchConfig, dtype, device) -> dict:
+    return {
+        "norm1": init_norm(arch.d_model, "layernorm", device),
+        "norm2": init_norm(arch.d_model, "layernorm", device),
+        "rwkv": ssm_lib.init_rwkv6(gen, arch.d_model, arch.d_ff, arch.ssm, dtype, device),
+    }
+
+
+def rwkv_block(p, x, arch: ArchConfig, state):
+    return ssm_lib.rwkv6_block_seq(p["rwkv"], x, arch.ssm, state, (p["norm1"], p["norm2"]))
+
+
+# ---------------------------------------------------------------------------
+# whisper encoder / decoder blocks
+# ---------------------------------------------------------------------------
+
+
+def init_enc_block(gen, arch: ArchConfig, dtype, device) -> dict:
+    d = arch.d_model
+    return {
+        "norm1": init_norm(d, arch.norm, device),
+        "attn": attn_lib.init_gqa(gen, arch.attn, d, dtype, device),
+        "norm2": init_norm(d, arch.norm, device),
+        "mlp": init_mlp(gen, d, arch.d_ff, arch.act, dtype, device),
+    }
+
+
+def enc_block(p, x, arch: ArchConfig, q_chunk: int = 1024, kv_chunk: int = 1024):
+    """Non-causal self-attention (no rotation) and the MLP."""
+    h = apply_norm(p["norm1"], x, arch.norm)
+    a, _, _ = attn_lib.gqa_prefill(p["attn"], h, None, arch.attn, causal=False,
+                                   q_chunk=q_chunk, kv_chunk=kv_chunk)
+    x = x + a
+    h = apply_norm(p["norm2"], x, arch.norm)
+    return x + apply_mlp(p["mlp"], h, arch.act)
+
+
+def init_dec_block(gen, arch: ArchConfig, dtype, device) -> dict:
+    d = arch.d_model
+    return {
+        "norm1": init_norm(d, arch.norm, device),
+        "attn": attn_lib.init_gqa(gen, arch.attn, d, dtype, device),
+        "norm_x": init_norm(d, arch.norm, device),
+        "xattn": attn_lib.init_cross_attention(gen, arch.attn, d, dtype, device),
+        "norm2": init_norm(d, arch.norm, device),
+        "mlp": init_mlp(gen, d, arch.d_ff, arch.act, dtype, device),
+    }
+
+
+def _cross_and_mlp(p, x, enc_kv, arch: ArchConfig):
+    h = apply_norm(p["norm_x"], x, arch.norm)
+    x = x + attn_lib.cross_attention(p["xattn"], h, enc_kv[0], enc_kv[1], arch.attn)
+    h = apply_norm(p["norm2"], x, arch.norm)
+    return x + apply_mlp(p["mlp"], h, arch.act)
+
+
+def dec_block_seq(p, x, enc_kv, arch: ArchConfig, q_chunk: int = 512, kv_chunk: int = 512):
+    """Decoder prefill: causal self-attention (whisper's positions are
+    learned and added to the input: no rotation), then cross-attention to
+    the encoder's ``enc_kv`` and the MLP.  Returns (x, (k, v))."""
+    h = apply_norm(p["norm1"], x, arch.norm)
+    a, k, v = attn_lib.gqa_prefill(p["attn"], h, None, arch.attn, causal=True,
+                                   q_chunk=q_chunk, kv_chunk=kv_chunk)
+    return _cross_and_mlp(p, x + a, enc_kv, arch), (k, v)
+
+
+def dec_block_decode(p, x, position, cache, enc_kv, arch: ArchConfig):
+    """One decoder token: the self-attention K/V row is written into
+    ``cache`` in place and attended through the decode-attention kernel."""
+    h = apply_norm(p["norm1"], x, arch.norm)
+    a = attn_lib.gqa_decode(p["attn"], h, position, cache[0], cache[1], arch.attn, use_rope=False)
+    return _cross_and_mlp(p, x + a, enc_kv, arch)

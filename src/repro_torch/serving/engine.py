@@ -60,7 +60,7 @@ from repro_torch.core.scheduler import POLICIES, schedule
 from repro_torch.core.scheduler_torch import SieveParams, SieveState, export_cost_table
 from repro_torch.faults.health import HealthMonitor
 from repro_torch.kernels import ops
-from repro_torch.models.model import LM
+from repro_torch.models.model import LM, RECURRENT_FAMILIES
 from repro_torch.sim.dram import PimGemvModel
 from repro_torch.telemetry import StageProbes, Telemetry, TimingFeed
 from repro_torch.telemetry import default as default_telemetry
@@ -131,6 +131,17 @@ class ServingEngine:
         health: Optional[HealthMonitor] = None,
         brownout_batch_max_new: int = 8,
     ):
+        if lm.arch.family in RECURRENT_FAMILIES:
+            # the reference engine cannot serve them either: its slot insert
+            # (repro/serving/engine.py:332-337) assumes (L, B, T, ...) cache
+            # leaves, which zamba2's (n_seg, per, B, ...) Mamba states are
+            # not, and no audio frames reach whisper's prefill
+            raise NotImplementedError(
+                f"ServingEngine does not serve the {lm.arch.family} family ({lm.arch.name}): "
+                "its slot insert assumes (layers, slots, positions, ...) cache leaves, which "
+                "the Mamba2 and RWKV6 states are not, and it passes no audio frames to "
+                "whisper's prefill; drive LM.prefill and LM.decode_step instead"
+            )
         if cost_source not in COST_SOURCES:
             raise ValueError(
                 f"cost_source must be one of {COST_SOURCES}, got {cost_source!r}"

@@ -1098,3 +1098,89 @@ class TestEngineChaos:
                 assert r["feed_rejected"] > 0
             else:
                 assert r["tokens"] == control["tokens"]
+
+
+# phase 10's decode-attention shapes (dh, Kv, G, T, lengths): zamba2-7b's
+# shared attention over 4 slots of 292 positions, whisper-base's decoder
+# over 4 slots of its 448 learned positions
+_RECURRENT_ATTENTION = {
+    "zamba2_dh112_g1": (112, 32, 1, 292, [257, 270, 288, 292]),
+    "whisper_dh64_g1": (64, 8, 1, 448, [0, 65, 96, 448]),
+}
+
+
+def _recurrent_slice(name: str):
+    """A 2-block slice of a recurrent family at full width: zamba2's shared
+    attention and one Mamba2 block, rwkv6's two blocks, whisper's one
+    encoder and one decoder layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    arch = get_arch(name)
+    if arch.family == "hybrid":
+        return dataclasses.replace(arch, n_layers=2, attn_every=2)
+    if arch.family == "audio":
+        return dataclasses.replace(arch, n_layers=1, enc_layers=1)
+    return dataclasses.replace(arch, n_layers=2)
+
+
+@pytest.mark.cuda
+class TestRecurrentFamilies:
+    @pytest.mark.parametrize("case", list(_RECURRENT_ATTENTION))
+    def test_decode_attention_at_the_model_shape(self, cuda, case):
+        dh, Kv, G, T, lens = _RECURRENT_ATTENTION[case]
+        g = torch.Generator(device=cuda).manual_seed(dh + T)
+        q = _rnd(g, (4, Kv * G, dh), cuda)
+        ck, cv = (_rnd(g, (4, T, Kv, dh), cuda) for _ in range(2))
+        L = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        ops.reset_launches()
+        _three_launches(lambda: ops.decode_attention(q, ck, cv, L), ref.decode_attention_ref(q, ck, cv, L),
+                        L == 0)
+        assert ops.LAUNCHES["decode_attention"] == 3
+
+    @pytest.mark.parametrize("name", ["zamba2-7b", "rwkv6-7b", "whisper-base"])
+    def test_two_block_slice_matches_the_cpu_plain_path(self, cuda, name):
+        """Prefill of a 32-token prompt (whisper: over 1500 stub frames) and
+        one decode step, on the card and on the CPU on the same weights:
+        max |err| within 5% of the largest logit and cosine >= 0.999 (bf16
+        on two devices); the decode step launches the attention kernel once
+        per attention block (rwkv6: no kernel)."""
+        from repro_torch.models import LM
+
+        arch = _recurrent_slice(name)
+        chunk = dict(q_chunk=750, kv_chunk=750) if arch.family == "audio" else {}
+        card = LM(arch, BF, "cuda", **chunk)
+        params = card.init(seed=0)
+        cpu = LM(arch, BF, "cpu", **chunk)
+        cparams = _tree_to(params, "cpu")
+        tokens = torch.randint(0, arch.vocab_size, (1, 32), generator=torch.Generator().manual_seed(1))
+        out = []
+        for lm, p in ((card, params), (cpu, cparams)):
+            batch = {"tokens": tokens.to(lm.device)}
+            if arch.family == "audio":
+                batch.update(lm.stub_inputs(1, 1500, seed=2))
+            lp, cache, _ = lm.prefill(p, batch, max_seq=33)
+            ops.reset_launches()
+            step = {"tokens": tokens[:, :1].to(lm.device),
+                    "position": torch.full((1,), 32, dtype=torch.int32, device=lm.device)}
+            ld, _, _ = lm.decode_step(p, step, cache)
+            if lm is card:
+                torch.cuda.synchronize()
+                assert {k: n for k, n in ops.LAUNCHES.items() if n} == (
+                    {} if arch.family == "ssm" else {"decode_attention": 1})
+            out.append((lp.float().cpu(), ld.float().cpu()))
+        for g, w in zip(*out):
+            g, w = g[..., : arch.vocab_size], w[..., : arch.vocab_size]
+            assert torch.isfinite(g).all()
+            err, scale = float((g - w).abs().max()), float(w.abs().max())
+            cos = float(torch.nn.functional.cosine_similarity(g.flatten(), w.flatten(), dim=0))
+            assert err <= 5e-2 * scale and cos >= 0.999, (err, scale, cos)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)

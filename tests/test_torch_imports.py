@@ -41,14 +41,15 @@ def test_the_check_sees_the_whole_port():
     assert {"engine.py", "moe.py", "ops.py", "scheduler_torch.py", "chip_smoke.py", "codec.py",
             "snapshot.py", "probes.py", "health.py", "timing_feed.py", "plan.py", "inject.py",
             "chaos.py", "journal.py", "scheduler.py", "cost_model.py", "mesh.py", "sharding.py",
-            "collectives.py"} <= names
+            "collectives.py", "ssm.py", "zamba2_7b.py", "rwkv6_7b.py", "whisper_base.py"} <= names
 
 
 def test_fault_and_recovery_modules_import_with_jax_blocked():
-    """The fault plan, injector, chaos harness and recovery journal, and
-    the mesh, sharding and collectives modules of expert parallelism,
-    import (and the chaos harness's CPU entry point resolves) in a process
-    where importing JAX or the JAX package fails."""
+    """The fault plan, injector, chaos harness and recovery journal, the
+    mesh, sharding and collectives modules of expert parallelism, and the
+    SSM blocks and the hybrid, ssm and audio configs, import (and the chaos
+    harness's CPU entry point resolves, and those three models build) in
+    a process where importing JAX or the JAX package fails."""
     code = (
         "import sys\n"
         "class Block:\n"
@@ -63,6 +64,11 @@ def test_fault_and_recovery_modules_import_with_jax_blocked():
         "from repro_torch.launch.mesh import make_mesh, mesh_info_for, run_on_mesh\n"
         "from repro_torch.models.sharding import rank_cut\n"
         "from repro_torch.models.collectives import all_to_all\n"
+        "from repro_torch.models.ssm import mamba2_seq, rwkv6_block_seq\n"
+        "from repro_torch.configs import get_arch\n"
+        "from repro_torch.models import LM\n"
+        "for name in ('zamba2-7b', 'rwkv6-7b', 'whisper-base'):\n"
+        "    LM(get_arch(name).reduced(), device='cpu').init(seed=0)\n"
     ) % (FORBIDDEN,)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)

@@ -246,6 +246,8 @@ class TestLM:
             TLM(proxy_arch(tget))
 
     def test_unported_families_raise(self):
-        arch = dataclasses.replace(proxy_arch(tget), family="ssm")
-        with pytest.raises(NotImplementedError):
-            TLM(arch, device="cpu")
+        arch = proxy_arch(tget)
+        for unported in (dataclasses.replace(arch, family="diffusion"),
+                         dataclasses.replace(arch, attn=dataclasses.replace(arch.attn, kind="none"))):
+            with pytest.raises(NotImplementedError):
+                TLM(unported, device="cpu")
