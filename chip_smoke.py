@@ -15,12 +15,12 @@ Phases, each fatal on failure:
    at the main path's shapes plus edge cases (bf16 tolerance rtol = atol =
    2e-2; exact zeros on dead rows and length-0 rows; empty KV splits; trash
    table cells, an idle slot on the trash block, poisoned free blocks and
-   table cells outside the pool).  The five kernels that leave counters
-   for the next launch (the fused head, dense, split-KV and paged decode
-   attention, the grouped GEMM) run each case three times on the same
-   buffers, each launch against the plain version and all three bitwise
-   equal.  A ``torch.profiler`` trace of one head call must hold one
-   kernel.  It times kernel, plain version and one PyTorch library call
+   table cells outside the pool).  The six kernels that leave counters
+   for the next launch (the fused head and tail, dense, split-KV and paged
+   decode attention, the grouped GEMM) run each case three times on the
+   same buffers, each launch against the plain version and all three
+   bitwise equal.  A ``torch.profiler`` trace of one head call, and of one
+   tail call, must hold one kernel.  It times kernel, plain version and one PyTorch library call
    with CUDA events (median and min-max of 20 launches; the head at its
    prefill shape too), and each wrapper's host time per call.  The split-KV
    kernel has no model caller: its path is its entry point, driven once
@@ -40,9 +40,13 @@ Phases, each fatal on failure:
    family that phase 6 serves, on each KV layout it is served on.  With
    ``--parent-csrc DIR`` (the parent commit's
    ``src/repro_torch/kernels/csrc``, unpacked) it also builds the parent's
-   dense, split-KV and paged attention, times them in turns beside the new
-   ones on the same inputs, and requires the outputs of all three to equal
-   the parent's bit for bit at dh 128;
+   dense, split-KV and paged attention, fused tail and grouped matmul, times
+   them in turns beside the new ones on the same inputs (the tail at
+   qwen3-moe's, deepseek-v2's and, in phase 9, the all-to-all layout's
+   decode shape; the grouped matmul's gate call at both models' shapes and
+   its ragged layout), and requires the attention outputs at dh 128 and
+   every grouped-matmul case of the capacity layout to equal the parent's
+   bit for bit;
 4. serving: builds qwen3-moe-30b-a3b at full width and depth in bf16 with
    seeded random weights and serves the same 12 requests twice through
    ``ServingEngine``: a dense KV cache with the fused SwiGLU kernels, then
@@ -343,17 +347,25 @@ def in_turns(parent_fn, new_fn, flush_by: str = "write") -> dict:
 
 
 def load_parent(csrc: Path) -> dict:
-    """The parent commit's dense, split-KV and paged decode attention,
-    built from its ``csrc`` directory (an unpacked ``git archive`` of the
-    parent) with the port's nvcc flags into a temporary directory, and
-    bound under the parent's C interface (as of commit 91c1063): launch
-    functions by kernel name, plus the split count of each."""
+    """The parent commit's kernels that a later PR redesigned, built from
+    its ``csrc`` directory (an unpacked ``git archive`` of the parent) with
+    the port's nvcc flags into a temporary directory: the dense, split-KV
+    and paged decode attention under their C interface as of commit
+    91c1063 (launch functions by kernel name, plus the split count of
+    each), and the fused SwiGLU tail and the grouped matmul (capacity and
+    ragged layouts) under theirs as of c3c6f28, bound as callables on CUDA
+    tensors: ``swiglu_gemv(tokens, wg, wu, wd, expert_ids, valid)``,
+    ``gmm_capacity(buf, rhs, group_sizes, rhs_of_group)`` and
+    ``gmm_ragged(lhs, rhs, group_sizes, bm)``."""
     import ctypes
     import tempfile
 
+    import torch
+
     from repro_torch.kernels import build
 
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    IP, LLP = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)
     argtypes = {
         # q, k, v, lengths, part, lse, tickets, out, B, T, Kv, G, dh, scale, stream
         "decode_attention": [P] * 8 + [I] * 5 + [F, P],
@@ -361,6 +373,10 @@ def load_parent(csrc: Path) -> dict:
         # q, pool_k, pool_v, tables, lengths, part, lse, tickets, out, B, n_pool,
         # page, Kv, G, dh, max_blocks, scale, stream
         "decode_attention_paged": [P] * 9 + [I] * 7 + [F, P],
+        # tok, tok_stride, wg, wu, wd, expert_ids, valid, partial, out, S, K, F, N, stream
+        "fused_swiglu_gemv": [P, LL] + [P] * 7 + [I] * 4 + [P],
+        # x, rhs, group_sizes, rhs_of_group, out, part, tickets, G, C, K, N, E, n_blocks, stream
+        "grouped_gemm": [P] * 7 + [I] * 6 + [P],
     }
     tmp = tempfile.TemporaryDirectory(prefix="parent_kernels_")
     procs = {
@@ -369,17 +385,82 @@ def load_parent(csrc: Path) -> dict:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for name in argtypes
     }
-    fns = {"_tmp": tmp}
+    fns, libs = {"_tmp": tmp}, {}
     for name, proc in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
             fail(f"parent {name} did not build:\n{out}")
-        lib = ctypes.CDLL(f"{tmp.name}/{name}.so")
+        lib = libs[name] = ctypes.CDLL(f"{tmp.name}/{name}.so")
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes[name], ctypes.c_int
         fns[name] = fn
-        lib.decode_attention_splits.argtypes, lib.decode_attention_splits.restype = [I], ctypes.c_int
-        fns[f"{name}_splits"] = lib.decode_attention_splits
+        if name.startswith("decode_attention"):
+            lib.decode_attention_splits.argtypes, lib.decode_attention_splits.restype = [I], ctypes.c_int
+            fns[f"{name}_splits"] = lib.decode_attention_splits
+
+    tail, gg = libs["fused_swiglu_gemv"], libs["grouped_gemm"]
+    tail.fused_swiglu_gemv_init.argtypes, tail.fused_swiglu_gemv_init.restype = [IP], ctypes.c_int
+    gg.grouped_gemm_init.argtypes, gg.grouped_gemm_init.restype = [IP, IP], ctypes.c_int
+    gg.grouped_gemm_scratch.argtypes = [I] * 5 + [LLP, LLP, IP]
+    gg.grouped_gemm_scratch.restype = None
+    # lhs, rhs, group_sizes, out, M, K, N, E, bm, stream
+    gg.gmm_ragged.argtypes, gg.gmm_ragged.restype = [P] * 4 + [I] * 5 + [P], ctypes.c_int
+    state = {}
+
+    def init():
+        if not state:
+            smem, n_sm = ctypes.c_int(), ctypes.c_int()
+            if tail.fused_swiglu_gemv_init(ctypes.byref(smem)) or \
+                    gg.grouped_gemm_init(ctypes.byref(n_sm), ctypes.byref(smem)):
+                fail("parent kernel init failed")
+            state["n_sm"] = n_sm.value
+        return torch.cuda.current_stream().cuda_stream
+
+    def swiglu_gemv(toks, wg, wu, wd, eids, valid):
+        stream = init()
+        S, K = toks.shape
+        Fd, N = wd.shape[1], wd.shape[2]
+        partial = torch.empty((Fd // 64, S, N), dtype=torch.float32, device=toks.device)
+        out = torch.empty((S, N), dtype=toks.dtype, device=toks.device)
+        rc = fns["fused_swiglu_gemv"](toks.data_ptr(), toks.stride(0), wg.data_ptr(), wu.data_ptr(),
+                                      wd.data_ptr(), eids.data_ptr(), valid.data_ptr(), partial.data_ptr(),
+                                      out.data_ptr(), S, K, Fd, N, stream)
+        if rc != 0:
+            fail(f"parent fused_swiglu_gemv failed to launch ({rc})")
+        return out
+
+    def gmm_capacity(buf, rhs, gs, rog=None):
+        stream = init()
+        G, C, K = buf.shape
+        E, _, N = rhs.shape
+        key = ("gmm", G, C, K, N)
+        if key not in state:
+            pf, nt, sm = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_int()
+            gg.grouped_gemm_scratch(G, C, K, N, state["n_sm"], ctypes.byref(pf), ctypes.byref(nt),
+                                    ctypes.byref(sm))
+            state[key] = (torch.empty((pf.value,), dtype=torch.float32, device=buf.device),
+                          torch.zeros((nt.value,), dtype=torch.int32, device=buf.device))
+        part, tickets = state[key]
+        out = torch.empty((G, C, N), dtype=buf.dtype, device=buf.device)
+        rc = fns["grouped_gemm"](buf.data_ptr(), rhs.data_ptr(), gs.data_ptr(),
+                                 None if rog is None else rog.data_ptr(), out.data_ptr(), part.data_ptr(),
+                                 tickets.data_ptr(), G, C, K, N, E, state["n_sm"], stream)
+        if rc != 0:
+            fail(f"parent grouped_gemm failed to launch ({rc})")
+        return out
+
+    def gmm_ragged(lhs, rhs, gs, bm):
+        stream = init()
+        M, K = lhs.shape
+        E, _, N = rhs.shape
+        out = torch.empty((M, N), dtype=lhs.dtype, device=lhs.device)
+        rc = gg.gmm_ragged(lhs.data_ptr(), rhs.data_ptr(), gs.data_ptr(), out.data_ptr(), M, K, N, E, bm,
+                           stream)
+        if rc != 0:
+            fail(f"parent gmm_ragged failed to launch ({rc})")
+        return out
+
+    fns.update(swiglu_gemv=swiglu_gemv, gmm_capacity=gmm_capacity, gmm_ragged=gmm_ragged)
     log(f"parent kernels built from {csrc}")
     return fns
 
@@ -467,13 +548,16 @@ def _decode_routing(E: int, k: int, n_tok: int, seed: int):
     return counts
 
 
-def phase_moe_kernels(arch, gen, suffix: str = "") -> dict:
+def phase_moe_kernels(arch, gen, suffix: str = "", parent=None) -> dict:
     """The four MoE kernels (the fused head and tail, the grouped matmul
     and the expert GEMV) against their plain versions at ``arch``'s widths
     and expert count, then timed: a decode step's routing of 8 tokens,
     capacity ``C`` at 8 tokens, and the head and the grouped matmul's down
     call at a 512-token prefill's capacity too.  Rows are named
-    ``<kernel><suffix>``."""
+    ``<kernel><suffix>``.  ``parent`` (``load_parent``): the parent
+    commit's tail and grouped matmul, timed in turns beside the new ones
+    at the decode shape, and the grouped matmul's every case held equal to
+    the parent's bit for bit."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -563,16 +647,21 @@ def phase_moe_kernels(arch, gen, suffix: str = "") -> dict:
     )
 
     # ---- kernel 2: tail per-row SwiGLU GEMV ----
+    # persistent, one launch: each case three launches on the same buffers
+    # (group tickets back at zero after each) with bitwise-equal outputs
     S = E  # E * tau rows, tau = 1
     eids = torch.arange(E, dtype=torch.int32, device=dev)
     valid_np = (counts == 1).astype(np.int32)
+    shared = torch.as_tensor(np.random.default_rng(8).integers(0, 8, S), dtype=torch.int32, device=dev)
     errs = []
-    for v in (valid_np, np.zeros(S, np.int32), np.ones(S, np.int32)):
+    for what, v, ids in (("decode tail", valid_np, eids), ("all dead", np.zeros(S, np.int32), eids),
+                         ("all live", np.ones(S, np.int32), eids),
+                         ("rows sharing 8 experts, unsorted", valid_np, shared)):
         toks = rnd((S, K))
         valid = torch.as_tensor(v, device=dev)
-        got = ops.swiglu_gemv(toks, wg, wu, wd, eids, valid)
-        want = ref.fused_swiglu_gemv_ref(toks, wg, wu, wd, eids, valid)
-        errs.append(_compare("swiglu_gemv", got, want, zero_rows=valid == 0))
+        want = ref.fused_swiglu_gemv_ref(toks, wg, wu, wd, ids, valid)
+        errs.append(_repeat_compare(f"swiglu_gemv {what}", lambda: ops.swiglu_gemv(toks, wg, wu, wd, ids, valid),
+                                    want, zero_rows=valid == 0))
     # strided rows, as the tail path passes buf[:, :1]
     slab = rnd((E, C_dec, K))
     valid = torch.as_tensor(valid_np, device=dev)
@@ -581,21 +670,33 @@ def phase_moe_kernels(arch, gen, suffix: str = "") -> dict:
     errs.append(_compare("swiglu_gemv strided", got, want, zero_rows=valid == 0))
     toks = rnd((S, K))
     n_valid = int(valid_np.sum())
+    tail_kernels = _kernels_per_call(lambda: ops.swiglu_gemv(toks, wg, wu, wd, eids, valid))
+    if len(tail_kernels) != 1 or not tail_kernels[0].startswith("fused_swiglu_gemv_kernel"):
+        fail(f"one swiglu_gemv call ran the kernels {tail_kernels}, not one fused kernel")
 
     def library_tail():
         h = F.silu(torch.bmm(toks[:, None], wg)) * torch.bmm(toks[:, None], wu)
         return torch.bmm(h, wd)[:, 0] * valid[:, None]
 
+    tail_bytes = n_valid * (3 * K * Fd * 2 + K * 2) + S * N * 2 + S * 8
     results["swiglu_gemv"] = dict(
         max_abs_err=max(errs),
         host_us=host_us(lambda: ops.swiglu_gemv(toks, wg, wu, wd, eids, valid)),
+        kernels_per_call=tail_kernels,
+        clean_l2_ms=spread(time_samples(lambda: ops.swiglu_gemv(toks, wg, wu, wd, eids, valid),
+                                        flush_by="read")),
+        read_floor_ms=_read_floor(tail_bytes),
         **timings(ms=lambda: ops.swiglu_gemv(toks, wg, wu, wd, eids, valid),
                   plain_ms=lambda: ref.fused_swiglu_gemv_ref(toks, wg, wu, wd, eids, valid),
                   library_ms=library_tail),
-        bytes=n_valid * (3 * K * Fd * 2 + K * 2) + S * N * 2 + S * 8,
+        bytes=tail_bytes,
         flops=2 * n_valid * 3 * K * Fd,
         shape=f"tokens ({S},{K}), {n_valid} valid rows",
     )
+    if parent is not None:
+        results["swiglu_gemv"]["parent"] = dict(decode=in_turns(
+            lambda: parent["swiglu_gemv"](toks, wg, wu, wd, eids, valid),
+            lambda: ops.swiglu_gemv(toks, wg, wu, wd, eids, valid)))
 
     # ---- kernel 6: grouped matmul, one call of the three-call head ----
     # persistent split-K: each case three launches on the same buffers
@@ -618,6 +719,11 @@ def phase_moe_kernels(arch, gen, suffix: str = "") -> dict:
         errs.append(_repeat_compare(f"gmm_capacity C={C}, {int((sizes > 0).sum())} live groups",
                                     lambda: ops.gmm_capacity(buf, w, gs, rhs_of_group), want,
                                     zero_rows=dead))
+        # the capacity layout keeps the parent's main loop, split and K order
+        if parent is not None and not torch.equal(parent["gmm_capacity"](buf, w, gs, rhs_of_group),
+                                                  ops.gmm_capacity(buf, w, gs, rhs_of_group)):
+            fail(f"gmm_capacity{suffix} C={C}, {int((sizes > 0).sum())} live groups: "
+                 "not bitwise equal to the parent's")
     gs = torch.as_tensor(head, dtype=torch.int32, device=dev)
     # dispatch zero-fills the rows past each group's size, so one bmm over
     # the slab computes the same function
@@ -639,6 +745,10 @@ def phase_moe_kernels(arch, gen, suffix: str = "") -> dict:
         prefill_down_shape=f"buf ({E},{C_pre},{Fd}) x ({E},{Fd},{N}), {int((prefill_sizes > 0).sum())} "
                            f"live groups, {int(prefill_sizes.sum())} live rows",
     )
+    if parent is not None:
+        results["gmm_capacity"]["parent"] = dict(
+            gate=in_turns(lambda: parent["gmm_capacity"](buf, wg, gs), lambda: ops.gmm_capacity(buf, wg, gs)),
+            bitwise_equal=True)
 
     # ---- kernel 7: expert GEMV, one call of the three-call tail ----
     errs = []
@@ -679,14 +789,20 @@ def phase_moe_kernels(arch, gen, suffix: str = "") -> dict:
     r = results["gmm_capacity"]
     log(f"kernel gmm_capacity{suffix} prefill down call [{r['prefill_down_shape']}]: "
         f"{r['prefill_down_ms']:.4f} ms, torch.bmm {r['prefill_down_library_ms']:.4f} ms")
+    r = results["swiglu_gemv"]
+    log(f"kernel swiglu_gemv{suffix}: kernels per call {r['kernels_per_call']}; with the L2 flushed by a read "
+        f"{r['clean_l2_ms']['median']:.4f} ms; a plain read of its bound's bytes (torch.amax) "
+        f"{r['read_floor_ms']['median']:.4f} ms")
+    for name, r in results.items():
+        _log_turns(f"{name}{suffix}", r)
     torch.cuda.empty_cache()
     return {f"{name}{suffix}": dict(r, kernel=name) for name, r in results.items()}
 
 
 def phase_kernels(arch, parent=None) -> dict:
     """Every kernel against its plain version, then timed.  ``parent``
-    (``load_parent``): the parent commit's dense and split-KV attention,
-    timed in turns beside the new ones at the same inputs."""
+    (``load_parent``): the parent commit's attention, tail and grouped
+    matmul, timed in turns beside the new ones at the same inputs."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -703,7 +819,7 @@ def phase_kernels(arch, parent=None) -> dict:
     def rnd(shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
 
-    moe_rows = phase_moe_kernels(arch, gen)
+    moe_rows = phase_moe_kernels(arch, gen, parent=parent)
     results = {}
 
     # ---- kernel 3: decode attention ----
@@ -940,13 +1056,33 @@ def phase_kernels(arch, parent=None) -> dict:
     for name, r in results.items():
         _log_row(name, r)
     for name, r in results.items():
-        for shape, t in r.get("parent", {}).items():
-            if isinstance(t, dict) and "parent" in t:
-                log(f"in turns, {name} {shape}: parent {t['parent']['median']:.4f} ms "
-                    f"({t['parent']['min']:.4f}-{t['parent']['max']:.4f}), new {t['new']['median']:.4f} ms "
-                    f"({t['new']['min']:.4f}-{t['new']['max']:.4f}), new/parent {t['new_over_parent']:.3f}")
+        _log_turns(name, r)
     torch.cuda.empty_cache()
     return {**moe_rows, **results}
+
+
+def _read_floor(n_bytes: int) -> dict:
+    """The device time of a plain read of ``n_bytes``: one ``torch.amax``
+    over a contiguous bf16 buffer of that size, timed as the kernels are
+    (median and min-max of 20, 1 GiB zeroed before each).  A kernel that
+    must read that many bytes under the same flush is measured against it
+    as well as against its bound."""
+    import torch
+
+    buf = torch.ones((n_bytes // 2,), dtype=torch.bfloat16, device="cuda")
+    out = spread(time_samples(lambda: buf.amax()))
+    del buf
+    return out
+
+
+def _log_turns(name: str, r: dict) -> None:
+    """One line per parent comparison of a row: the parent's and the new
+    kernel's median and min-max in turns, and their ratio."""
+    for shape, t in r.get("parent", {}).items():
+        if isinstance(t, dict) and "parent" in t:
+            log(f"in turns, {name} {shape}: parent {t['parent']['median']:.4f} ms "
+                f"({t['parent']['min']:.4f}-{t['parent']['max']:.4f}), new {t['new']['median']:.4f} ms "
+                f"({t['new']['min']:.4f}-{t['new']['max']:.4f}), new/parent {t['new_over_parent']:.3f}")
 
 
 def _log_row(name: str, r: dict) -> None:
@@ -1070,12 +1206,13 @@ def _attention_instance(tag: str, B: int, H: int, Kv: int, dh: int, kinds, seed:
     return out
 
 
-def _ragged_row(arch) -> dict:
+def _ragged_row(arch, parent=None) -> dict:
     """gmm_ragged at the decode gate call's routing (the head split of
     ``_decode_routing``: groups of two or more rows, bm 8), held against
     its plain version (three launches bitwise, exact zeros on padding rows;
     plus a prefill-like case with bm 128 and rows past the spans) and
-    timed beside the plain version and ``torch._grouped_mm`` where it runs."""
+    timed beside the plain version and ``torch._grouped_mm`` where it runs,
+    and in turns beside the parent's kernel (``parent``)."""
     import numpy as np
     import torch
 
@@ -1135,10 +1272,19 @@ def _ragged_row(arch) -> dict:
         row.update({k.replace("ms", "library_ms", 1): v for k, v in timings(ms=library).items()})
     else:
         row["library_ms"] = None
+    row["read_floor_ms"] = _read_floor(row["bytes"])
+    log(f"kernel gmm_ragged: a plain read of its bound's bytes (torch.amax) {row['read_floor_ms']['median']:.4f} ms")
+    if parent is not None:
+        pl_sizes = np.random.default_rng(5).integers(0, 41, E) * 3  # the prefill-like case: bm 128
+        pl_lhs, pl_gs, _, _ = case(pl_sizes, 128)
+        row["parent"] = dict(
+            decode=in_turns(lambda: parent["gmm_ragged"](lhs, rhs, gs, 8), lambda: ops.gmm_ragged(lhs, rhs, gs, 8)),
+            prefill_like=in_turns(lambda: parent["gmm_ragged"](pl_lhs, rhs, pl_gs, 128),
+                                  lambda: ops.gmm_ragged(pl_lhs, rhs, pl_gs, 128)))
     return {"gmm_ragged": row}
 
 
-def phase_kernel_instances(arch) -> dict:
+def phase_kernel_instances(arch, parent=None) -> dict:
     """Phase 3's rows beyond the qwen3-moe path's kernels: the attention
     kernels (dense, split-KV, paged) at granite-3-2b's decode shape (dh
     64, 4 query heads per kv head), at zamba2-7b's shared-attention shape
@@ -1158,7 +1304,7 @@ def phase_kernel_instances(arch) -> dict:
     # learned positions, at the lengths of the middle of phase 10's decode
     rows.update(_attention_instance(WHISPER_ROW, 4, 8, 8, 64, ("dense",), seed=164, T=448,
                                     serving=np.full(4, 64 + RECURRENT_STEPS // 2)))
-    rows.update(_ragged_row(arch))
+    rows.update(_ragged_row(arch, parent))
     # (row, launches of one decode step): the split-KV kernel per layer of
     # granite-3-2b (40), zamba2-7b's 13 shared-attention applications
     # (the dense kernel's launches come from phase 10's zamba2 run), the
@@ -1178,6 +1324,7 @@ def phase_kernel_instances(arch) -> dict:
     for name, r in rows.items():
         del r["entry"]
         _log_row(name, r)
+        _log_turns(name, r)
     torch.cuda.empty_cache()
     return rows
 
@@ -1813,11 +1960,11 @@ def _port_kernel_names() -> frozenset:
 
 
 def _port_kernel_of(key: str):
-    """The port kernel (with its template arguments) that a profiler row
-    of a device kernel names, or None for any other kernel."""
+    """The port kernel (with its template arguments, nested ones too) that
+    a profiler row of a device kernel names, or None for any other kernel."""
     import re
 
-    m = re.search(r"(\w+)(<[^<>()]*>)?\(", key)
+    m = re.search(r"(\w+)(<[^()]*>)?\(", key.replace("(anonymous namespace)::", ""))
     return m.group(1) + (m.group(2) or "") if m and m.group(1) in _port_kernel_names() else None
 
 
@@ -3500,7 +3647,7 @@ def _one_process_step(arch, n: int = 10) -> dict:
     return {"weights_gb": weights_gb, "step_ms": spread(step_ms), "moe_ms": spread(moe_ms)}
 
 
-def phase_ep_kernels(arch) -> dict:
+def phase_ep_kernels(arch, parent=None) -> dict:
     """The fused head and tail at the all-to-all layout's decode shape on
     one rank of the (1, 8) mesh: G = 16 local experts x 8 source segments
     of ``capacity(1)`` rows, the groups sharing the 16 experts' weights
@@ -3568,26 +3715,38 @@ def phase_ep_kernels(arch) -> dict:
     toks = buf[:, 0]
     valid = sizes.clone()
     want = ref.fused_swiglu_gemv_ref(toks.contiguous(), wg, wu, wd, rhs, valid)
-    err = _compare("swiglu_gemv at the a2a segment shape", ops.swiglu_gemv(toks, wg, wu, wd, rhs, valid),
-                   want, zero_rows=valid == 0)
+    err = _repeat_compare("swiglu_gemv at the a2a segment shape",
+                          lambda: ops.swiglu_gemv(toks, wg, wu, wd, rhs, valid), want, zero_rows=valid == 0)
 
     def library_tail():
         h = F.silu(torch.bmm(toks[:, None], wg[idx])) * torch.bmm(toks[:, None], wu[idx])
         return torch.bmm(h, wd[idx])[:, 0] * valid[:, None]
 
+    a2a_bytes = live_experts * 3 * K * Fd * 2 + rows * K * 2 + G * N * 2 + G * 8
     results["swiglu_gemv"] = dict(
         max_abs_err=err,
         host_us=host_us(lambda: ops.swiglu_gemv(toks, wg, wu, wd, rhs, valid)),
+        clean_l2_ms=spread(time_samples(lambda: ops.swiglu_gemv(toks, wg, wu, wd, rhs, valid),
+                                        flush_by="read")),
+        read_floor_ms=_read_floor(a2a_bytes),
         **timings(ms=lambda: ops.swiglu_gemv(toks, wg, wu, wd, rhs, valid),
                   plain_ms=lambda: ref.fused_swiglu_gemv_ref(toks, wg, wu, wd, rhs, valid),
                   library_ms=library_tail),
-        bytes=live_experts * 3 * K * Fd * 2 + rows * K * 2 + G * N * 2 + G * 8,
+        bytes=a2a_bytes,
         flops=2 * rows * 3 * K * Fd,
         shape=f"tokens ({G},{K}) of the segments' first rows, eids over {E_loc} experts, {rows} valid rows "
               f"of {live_experts} experts",
     )
+    if parent is not None:
+        results["swiglu_gemv"]["parent"] = dict(a2a=in_turns(
+            lambda: parent["swiglu_gemv"](toks, wg, wu, wd, rhs, valid),
+            lambda: ops.swiglu_gemv(toks, wg, wu, wd, rhs, valid)))
     for name, r in results.items():
         _log_row(f"{name}{EP_SUFFIX}", r)
+        _log_turns(f"{name}{EP_SUFFIX}", r)
+    r = results["swiglu_gemv"]
+    log(f"kernel swiglu_gemv{EP_SUFFIX}: with the L2 flushed by a read {r['clean_l2_ms']['median']:.4f} ms; "
+        f"a plain read of its bound's bytes (torch.amax) {r['read_floor_ms']['median']:.4f} ms")
     del wg, wu, wd
     torch.cuda.empty_cache()
     return {f"{name}{EP_SUFFIX}": dict(r, kernel=name) for name, r in results.items()}
@@ -3702,8 +3861,8 @@ def main() -> None:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-csrc", type=Path, default=None,
-                    help="the parent commit's kernels/csrc directory: time its dense, split-KV and "
-                         "paged decode attention in turns beside the new ones (phase 3)")
+                    help="the parent commit's kernels/csrc directory: time its decode attention, fused "
+                         "tail and grouped matmul in turns beside the new ones (phases 3 and 9)")
     args = ap.parse_args()
     t0, elapsed = time.perf_counter(), {}
 
@@ -3728,8 +3887,8 @@ def main() -> None:
     # the four MoE kernels again at deepseek-v2's shapes (phase 7's model)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    kernels.update(phase_moe_kernels(deepseek_arch(), gen, DSV2_SUFFIX))
-    kernels.update(phase_kernel_instances(arch))
+    kernels.update(phase_moe_kernels(deepseek_arch(), gen, DSV2_SUFFIX, parent))
+    kernels.update(phase_kernel_instances(arch, parent))
     held = phase_family_shapes()
     done("kernels (phase 3)")
     lm, params = build_model(arch)
@@ -3763,7 +3922,7 @@ def main() -> None:
     recurrent = phase_recurrent(card)
     done("recurrent families (phase 10)")
     # phase 9 last: its eight ranks share the card once every other model is freed
-    kernels.update(phase_ep_kernels(ep_arch()))
+    kernels.update(phase_ep_kernels(ep_arch(), parent))
     ep = phase_ep(card)
     done("expert parallelism (phase 9)")
 

@@ -1,13 +1,24 @@
-// Ragged grouped matmul over the capacity slab: one call of the three-call
-// (unfused) head path of the sieve dual path (grouped_gemm), and the same
-// function over the bm-aligned ragged layout (gmm_ragged, at the end).
+// Ragged grouped matmul: one call of the three-call (unfused) head path of
+// the sieve dual path over the capacity slab (grouped_gemm), and the same
+// function over the bm-aligned ragged layout (gmm_ragged), both through one
+// main loop.
 //
 // Replaces the TPU kernel repro/kernels/grouped_gemm.py:85 grouped_gemm
-// (pallas_call at :120; wrapper repro/kernels/ops.py:96 gmm_capacity).
-// Per group g with weight row e = rhs_of_group[g] (identity when null):
-//   out[g, r] = x[g, r] . rhs[e]   for rows r < group_sizes[g]
-//   out[g, r] = 0                  for the other rows
-// accumulated in float32 and rounded to bf16.
+// (pallas_call at :120), through its wrappers repro/kernels/ops.py:96
+// gmm_capacity and ops.py:130 gmm_ragged.
+//   Capacity slab (G, C, K): per group g with weight row e = rhs_of_group[g]
+//   (identity when null),
+//     out[g, r] = x[g, r] . rhs[e]   for rows r < group_sizes[g]
+//     out[g, r] = 0                  for the other rows.
+//   Ragged layout (M, K): group g owns rows [start_g, start_g +
+//   round_up(size_g, bm)) of lhs, start_g the sum of the earlier groups'
+//   spans; for its rows
+//     out[r] = lhs[r] . rhs[g]       for the first size_g rows of the span
+//     out[r] = 0                     for the span's padding rows.
+//   As on the TPU, bm-row tile i belongs to the first group whose
+//   cumulative tile count passes i (clamped to the last group), so rows past
+//   the spans' sum are zeros; sizes below zero count as zero.
+// Both accumulate in float32 and round to bf16.
 //
 // What bounds it on an H100: bytes.  A live group needs its expert's K x N
 // bf16 weights (3.1 MB for a qwen3-30b gate/up/down matrix) for 2 flops
@@ -15,10 +26,20 @@
 // stays far below the card's ~295 flops per byte.  The decode gate call
 // streams 40.9 MB (13 live groups): 12.2 us at 3.35 TB/s.
 //
-// Design.  A persistent grid, one block per SM.  Each block reads the
-// group sizes and builds the list of live groups in shared memory.  The
-// work is a sequence of (output tile, 64-deep K-chunk) pairs, a tile being
-// (live group, 64-row block, 128-column tile).  With fewer tiles than
+// The two layouts differ only in where a group's rows live and which
+// weight row it takes (the kernel's RAGGED template parameter): capacity
+// group g starts at slab row g C and takes rhs_of_group[g]; ragged group g
+// starts at its span's first row, found on the device from the bm-tile
+// prefix sum of the sizes (no host sync, so a caller may capture either in
+// a graph), and takes weight row g.  Everything below is shared but the
+// launch shape (Shape): the capacity layout runs one block per SM with
+// 64-row tiles, the ragged layout two blocks per SM with 16- or 32-row
+// tiles, which stream more bytes per SM at a decode step's gate call.
+//
+// Design.  A persistent grid.  Each block reads the group sizes and builds
+// the list of live groups in shared memory.  The work is a sequence of
+// (output tile, 64-deep K-chunk) pairs, a tile being (live group, row
+// block of at most RB rows, 128-column tile).  With fewer tiles than
 // twice the blocks (a decode step: 78 tiles at the gate call) the blocks
 // split it in the stream-K manner: every block takes an equal contiguous
 // run, so 13 live groups spread over every SM as evenly as 128 do, and a
@@ -26,15 +47,17 @@
 // (a prefill) block b takes whole tiles b, b + grid, ..., so no tile is
 // shared and the blocks' streams interleave over the weights (contiguous
 // runs there left the slowest blocks behind the median: 0.232 against
-// 0.198 ms at the prefill down call, H100 80GB HBM3 at 700 W).  Dead groups and rows at or past a
-// group's size are written as zeros by the same blocks and no weight is
-// read for them; rows at or past C are neither read nor written.
+// 0.198 ms at the prefill down call, H100 80GB HBM3 at 700 W).  Dead
+// groups and rows at or past a group's size are written as zeros by the
+// same blocks and no weight is read for them; rows at or past C are
+// neither read nor written.
 //
 // The block is warp-specialised.  One producer warp streams each chunk
-// into an 8-stage ring in dynamic shared memory: the weights as TMA boxes
-// of 64 rows x 64 columns (128-byte swizzled; a 2D tensor map of rhs,
-// encoded once per weight tensor on the host), the slab rows of the live
-// fragments by cp.async.  The TMA's bytes and the copies' arrivals
+// into a ring of stages in dynamic shared memory (8 for the capacity
+// layout, 4 in each of the ragged layout's two blocks): the weights as TMA
+// boxes of 64 rows x 64 columns (128-byte swizzled; a 2D tensor map of
+// rhs, encoded once per weight tensor on the host), the slab rows of the
+// live fragments by cp.async.  The TMA's bytes and the copies' arrivals
 // (cp.async.mbarrier.arrive.noinc) complete the stage's "full" mbarrier;
 // eight consumer warps release a stage on its "empty" mbarrier once they
 // have multiplied it.  So up to 128 KB of weights stay in flight per SM,
@@ -73,9 +96,18 @@ namespace {
 
 constexpr int BN = 128;          // weight columns per tile: the mma's M side
 constexpr int BK = 64;           // contraction depth per stage
-constexpr int RB = 64;           // slab rows per tile at most: the mma's N side
-constexpr int NFRAG = RB / 8;    // n = 8 fragments per tile at most
-constexpr int NSTAGE = 8;        // ring depth
+// The launch shape of each layout: blocks per SM and ring depth.  The
+// capacity layout's is the one it was tuned with (one block, 64-row tiles,
+// 8 stages).  The ragged layout runs two blocks per SM, 4 stages each, and
+// tiles of 16 rows where its spans are at most 16 rows aligned (a decode
+// step's bm 8), else 32: two blocks streamed more bytes per SM at the
+// decode gate call than one, and where groups hold a hundred rows or more
+// (bm 128) a 16-row tile re-reads a group's weights for every 16 rows.
+template <bool RAGGED>
+struct Shape {
+  static constexpr int CTAS = RAGGED ? 2 : 1, NSTAGE = RAGGED ? 4 : 8;
+};
+constexpr int CAPACITY_RB = 64;     // slab rows per tile at most: the mma's N side
 constexpr int NCW = BN / 16;     // consumer warps, one 16-column slice each
 constexpr int NCT = NCW * 32;    // consumer threads
 constexpr int NT = NCT + 32;     // and one producer warp
@@ -84,37 +116,56 @@ constexpr int W_BYTES = BK * BN * 2;  // a stage's weights: two 64 x 64 boxes, 1
 constexpr int LDX = BK + 8;      // slab row stride in bf16: 144 B, conflict-free fragment loads
 static_assert(BK == TMA_BOX && HALF == TMA_BOX, "a stage's weights are two square TMA boxes");
 
+// the ragged layout's rows per tile for bm-aligned spans
+inline int ragged_rb(int bm) { return bm <= 16 ? 16 : 32; }
+
 // slab rows a stage holds: C rounded up to whole fragments, at most RB
+template <int RB>
 __host__ __device__ inline int x_rows(int C) {
   const int rows = (C + 7) / 8 * 8;
   return rows < RB ? rows : RB;
 }
 // a stage: the weight boxes (1024-byte aligned for the swizzle), then the slab rows
+template <int RB>
 __host__ __device__ inline int stage_bytes(int C) {
-  return (W_BYTES + x_rows(C) * LDX * 2 + 1023) / 1024 * 1024;
+  return (W_BYTES + x_rows<RB>(C) * LDX * 2 + 1023) / 1024 * 1024;
 }
 // alignment slack, the ring, a full and an empty mbarrier per stage, the
-// lists and two tiles' contributors (K / BK each at most)
+// lists and two tiles' contributors (K / BK each at most), and for the
+// ragged layout each group's first row
+template <bool RAGGED, int RB>
 __host__ __device__ inline int smem_bytes(int G, int C, int K) {
-  return 1024 + NSTAGE * stage_bytes(C) + 2 * NSTAGE * 8 + (4 * G + 1 + 2 * (K / BK)) * 4;
+  constexpr int NSTAGE = Shape<RAGGED>::NSTAGE;
+  return 1024 + NSTAGE * stage_bytes<RB>(C) + 2 * NSTAGE * 8 +
+         (4 * G + 1 + 2 * (K / BK) + (RAGGED ? G : 0)) * 4;
+}
+// output tiles at most: capacity, G x ceil(C / RB) row blocks; ragged, a
+// live group's rows are contiguous, so its row blocks number at most its
+// rows / RB + 1, over at most min(G, C) live groups
+inline long long max_tiles(int G, int C, int N, bool ragged, int RB) {
+  const long long blocks = ragged ? C / RB + 1 + (G < C ? G : C) : (long long)G * ((C + RB - 1) / RB);
+  return blocks * ((N + BN - 1) / BN);
 }
 
 // a barrier of the consumer warps alone (the producer never waits on it)
 __device__ inline void consumer_sync() { asm volatile("bar.sync 1, %0;\n" ::"n"(NCT) : "memory"); }
 
-// An output tile: (live group, row block, column tile).
+// An output tile: (live group, row block, column tile); its first row is
+// row xrow of x and out.
 struct Tile {
-  int g, e, row0, live, n0, ncols;
+  int g, e, xrow, live, n0, ncols;
 };
 
 struct Lists {
-  const int* size;    // (G,) rows per group, clamped to [0, C]
+  const int* size;    // (G,) live rows per group
+  const int* start;   // (G,) ragged: the first row of each group's span; capacity: null
   const int* live;    // (n_live,) live groups in order
   const int* expert;  // (n_live,) their weight rows
   const int* tstart;  // (n_live + 1,) first tile of each live group
-  int n_live, ntn, N;
+  int n_live, ntn, N, C;
 };
 
+template <int RB>
 __device__ inline Tile tile_of(int t, const Lists& L) {
   Tile w;
   int lo = 0, hi = L.n_live - 1;  // the live group holding the tile
@@ -126,8 +177,9 @@ __device__ inline Tile tile_of(int t, const Lists& L) {
   const int rem = t - L.tstart[lo];
   w.g = L.live[lo];
   w.e = L.expert[lo];
-  w.row0 = rem / L.ntn * RB;
-  w.live = min(RB, L.size[w.g] - w.row0);
+  const int row0 = rem / L.ntn * RB;
+  w.xrow = (L.start ? L.start[w.g] : w.g * L.C) + row0;
+  w.live = min(RB, L.size[w.g] - row0);
   w.n0 = rem % L.ntn * BN;
   w.ncols = min(BN, L.N - w.n0);
   return w;
@@ -151,15 +203,26 @@ struct Split {
   }
 };
 
-__global__ void __launch_bounds__(NT, 1)
+// The layouts (the kernel's template parameter RAGGED).  Capacity (false):
+// G groups of C slab rows, group g at row g C with weight row
+// rhs_of_group[g] (g when null), its size clamped to [0, C].  Ragged
+// (true): G groups over M = C rows of bm-aligned spans, group g at the
+// first row of its span with weight row g, its size clamped to the rows
+// below M.
+constexpr bool CAPACITY = false, RAGGED_LAYOUT = true;
+
+template <bool RAGGED, int RB>
+__global__ void __launch_bounds__(NT, Shape<RAGGED>::CTAS)
 grouped_gemm_kernel(const __grid_constant__ CUtensorMap wmap,  // rhs (E, K, N) as (E * K, N)
-                    const __nv_bfloat16* __restrict__ x,       // (G, C, K)
+                    const __nv_bfloat16* __restrict__ x,       // (G, C, K), or ragged (C = M, K)
                     const int* __restrict__ group_sizes,       // (G,)
                     const int* __restrict__ rhs_of_group,   // (G,) or null
-                    __nv_bfloat16* __restrict__ out,        // (G, C, N)
+                    __nv_bfloat16* __restrict__ out,        // (G, C, N), or ragged (C = M, N)
                     float* __restrict__ part,               // (2 * grid, x_rows(C), BN) shared-tile parts
                     int* __restrict__ tickets,              // (tiles,), zero between launches
-                    int G, int C, int K, int N) {
+                    int G, int C, int K, int N, int bm) {
+  constexpr bool ragged = RAGGED;
+  constexpr int NFRAG = RB / 8, NSTAGE = Shape<RAGGED>::NSTAGE;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   // the swizzled boxes need 1024-byte alignment
   unsigned char* smem = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
@@ -167,7 +230,7 @@ grouped_gemm_kernel(const __grid_constant__ CUtensorMap wmap,  // rhs (E, K, N) 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int nblk = gridDim.x;
   const int ntn = (N + BN - 1) / BN, nk = K / BK;
-  const int xr = x_rows(C), sb = stage_bytes(C);
+  const int xr = x_rows<RB>(C), sb = stage_bytes<RB>(C);
   unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem + NSTAGE * sb);
   const unsigned full0 = smem_addr(bars), empty0 = smem_addr(bars + NSTAGE);
   int* s_size = reinterpret_cast<int*>(bars + 2 * NSTAGE);
@@ -175,11 +238,13 @@ grouped_gemm_kernel(const __grid_constant__ CUtensorMap wmap,  // rhs (E, K, N) 
   int* s_exp = s_live + G;
   int* s_tstart = s_exp + G;
   int* s_slot = s_tstart + G + 1;  // partial slots of two tiles' contributors, in K order
+  int* s_start = s_slot + 2 * nk;  // ragged: each group's first row
 
   if (tid == NCT)
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<unsigned long long>(&wmap))
                  : "memory");
-  for (int g = tid; g < G; g += NT) s_size[g] = max(0, min(group_sizes[g], C));
+  // capacity: the sizes clamped to [0, C]; ragged: the raw sizes, clamped below
+  for (int g = tid; g < G; g += NT) s_size[g] = ragged ? group_sizes[g] : max(0, min(group_sizes[g], C));
   if (tid == 0) {
     for (int st = 0; st < NSTAGE; ++st) {
       mbar_init(full0 + 8 * st, 33);     // the TMA arrive (with its bytes), and one per
@@ -187,6 +252,27 @@ grouped_gemm_kernel(const __grid_constant__ CUtensorMap wmap,  // rhs (E, K, N) 
       mbar_init(empty0 + 8 * st, NCW);   // one arrive per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (ragged) __syncthreads();
+  if (ragged && warp == 0) {  // each group's span from the bm-tile prefix sum, 32 groups at a time
+    long long tiles = 0;  // bm tiles before the chunk
+    for (int g0 = 0; g0 < G; g0 += 32) {
+      const int g = g0 + lane;
+      const int sz = g < G ? max(s_size[g], 0) : 0;
+      const long long nt = (sz + bm - 1) / bm;
+      long long incl = nt;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const long long v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
+      }
+      const long long row = (tiles + incl - nt) * bm;
+      if (g < G) {
+        s_start[g] = (int)min(row, (long long)C);
+        s_size[g] = (int)max(0LL, min((long long)sz, (long long)C - row));
+      }
+      tiles += __shfl_sync(0xffffffffu, incl, 31);
+    }
   }
   __syncthreads();
   if (warp == 0) {  // live groups in order, and the first tile of each
@@ -205,7 +291,7 @@ grouped_gemm_kernel(const __grid_constant__ CUtensorMap wmap,  // rhs (E, K, N) 
       if (sz > 0) {
         const int pos = base + __popc(mask & ((1u << lane) - 1u));
         s_live[pos] = g;
-        s_exp[pos] = rhs_of_group ? rhs_of_group[g] : g;
+        s_exp[pos] = !ragged && rhs_of_group ? rhs_of_group[g] : g;
         s_tstart[pos] = tbase + incl - nt;
       }
       base += __popc(mask);
@@ -220,12 +306,14 @@ grouped_gemm_kernel(const __grid_constant__ CUtensorMap wmap,  // rhs (E, K, N) 
 
   Lists L;
   L.size = s_size;
+  L.start = ragged ? s_start : nullptr;
   L.live = s_live;
   L.expert = s_exp;
   L.tstart = s_tstart;
   L.n_live = s_nlive;
   L.ntn = ntn;
   L.N = N;
+  L.C = C;
   const Split sk{(unsigned)(s_tstart[L.n_live] * nk), (unsigned)nblk};  // (tile, K-chunk) pairs
   const int b = blockIdx.x;
   // Tiles at least twice the blocks (a prefill): whole tiles round-robin,
@@ -254,7 +342,7 @@ grouped_gemm_kernel(const __grid_constant__ CUtensorMap wmap,  // rhs (E, K, N) 
       int t, kc;
       chunk_of(j, t, kc);
       if (j >= NSTAGE) mbar_wait(empty0 + 8 * st, (j / NSTAGE - 1) & 1);  // fill j - NSTAGE consumed
-      if (j == 0 || kc == 0) w = tile_of(t, L);
+      if (j == 0 || kc == 0) w = tile_of<RB>(t, L);
       const int k0 = kc * BK;
       const unsigned full = full0 + 8 * st;
       const unsigned ws = smem_addr(smem + st * sb), xs = ws + W_BYTES;
@@ -266,7 +354,7 @@ grouped_gemm_kernel(const __grid_constant__ CUtensorMap wmap,  // rhs (E, K, N) 
       }
       // the slab rows of the live fragments: rows from the live count up are
       // zero-filled, not read
-      const __nv_bfloat16* xsrc = x + ((size_t)w.g * C + w.row0) * K + k0;
+      const __nv_bfloat16* xsrc = x + (size_t)w.xrow * K + k0;
       for (int i = lane; i < (w.live + 7) / 8 * 8 * (BK / 8); i += 32) {
         const int r = i / (BK / 8), cc = i % (BK / 8);
         const bool live = r < w.live;
@@ -278,10 +366,21 @@ grouped_gemm_kernel(const __grid_constant__ CUtensorMap wmap,  // rhs (E, K, N) 
     return;
   }
 
-  // consumers.  While the first chunks are in flight: zeros on every row at
-  // or past its group's size (dead groups whole), one warp per slab row.
-  for (int row = b * NCW + warp; row < G * C; row += nblk * NCW) {
-    if (row % C >= s_size[row / C]) {
+  // consumers.  While the first chunks are in flight: zeros on every row
+  // outside its group's live rows (dead groups whole; ragged: the spans'
+  // padding and the rows past them), one warp per row.
+  auto dead_row = [&](int row) {
+    if (!ragged) return row % C >= s_size[row / C];
+    int lo = 0, hi = G - 1;  // the group whose span holds the row: the last starting at or before it
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) / 2;
+      if (s_start[mid] <= row) lo = mid;
+      else hi = mid - 1;
+    }
+    return row >= s_start[lo] + s_size[lo];
+  };
+  for (int row = b * NCW + warp; row < (ragged ? C : G * C); row += nblk * NCW) {
+    if (dead_row(row)) {
       uint4* dst = reinterpret_cast<uint4*>(out + (size_t)row * N);
       for (int v = lane; v < N / 8; v += 32) dst[v] = make_uint4(0, 0, 0, 0);
     }
@@ -346,7 +445,7 @@ grouped_gemm_kernel(const __grid_constant__ CUtensorMap wmap,  // rhs (E, K, N) 
 #pragma unroll
           for (int k = 0; k < 8; ++k) sum += v[k];
         }
-        out[((size_t)tw.g * C + tw.row0 + r) * N + tw.n0 + col] = __float2bfloat16(sum);
+        out[((size_t)tw.xrow + r) * N + tw.n0 + col] = __float2bfloat16(sum);
       }
       if (tid == 0) tickets[tts[q]] = 0;  // every part of this launch has taken its ticket
     }
@@ -356,7 +455,7 @@ grouped_gemm_kernel(const __grid_constant__ CUtensorMap wmap,  // rhs (E, K, N) 
     const int st = j % NSTAGE;
     int t, kc;
     chunk_of(j, t, kc);
-    if (j == 0 || kc == 0) w = tile_of(t, L);
+    if (j == 0 || kc == 0) w = tile_of<RB>(t, L);
     const int nfrag = (w.live + 7) / 8;
     mbar_wait(full0 + 8 * st, (j / NSTAGE) & 1);  // chunk j has landed
     if (m0 < w.ncols) {
@@ -401,7 +500,7 @@ grouped_gemm_kernel(const __grid_constant__ CUtensorMap wmap,  // rhs (E, K, N) 
           for (int i = 0; i < 4; ++i) {
             const int r = f * 8 + 2 * t4 + i % 2;
             if (f < nfrag && r < w.live)
-              out[((size_t)w.g * C + w.row0 + r) * N + w.n0 + m0 + gid + 8 * (i / 2)] =
+              out[((size_t)w.xrow + r) * N + w.n0 + m0 + gid + 8 * (i / 2)] =
                   __float2bfloat16(acc[f][i]);
           }
         }
@@ -433,198 +532,22 @@ grouped_gemm_kernel(const __grid_constant__ CUtensorMap wmap,  // rhs (E, K, N) 
   }
 }
 
-}  // namespace
-
-// ---------------------------------------------------------------------------
-// gmm_ragged: the grouped matmul over the bm-aligned ragged layout.
-//
-// Replaces the TPU kernel repro/kernels/grouped_gemm.py:85 grouped_gemm
-// (pallas_call at :120) as reached through repro/kernels/ops.py:130
-// gmm_ragged.  Group g owns rows [start_g, start_g + round_up(size_g, bm))
-// of lhs (M, K), start_g the sum of the earlier groups' spans; for its rows
-//   out[r] = lhs[r] . rhs[g]   for the first size_g rows of the span
-//   out[r] = 0                 for the span's padding rows,
-// accumulated in float32 and rounded to bf16.  As on the TPU, bm-row tile
-// i belongs to the first group whose cumulative tile count passes i
-// (clamped to the last group), so rows past the spans' sum are zeros.
-// Sizes below zero count as zero.
-//
-// What bounds it on an H100: bytes, as for grouped_gemm: a live group
-// reads its K x N weights for 2 flops per weight and live row.
-//
-// Design (simple and right first): a block per (row block, 128-column
-// tile), the row block the largest multiple of 8 up to 64 rows that
-// divides bm, so that it lies in one bm tile and so in one group.  Each
-// block finds its group on the device: warp 0 scans the group sizes'
-// tile counts 32 at a time (shuffles) and takes the first group whose
-// cumulative count passes the block's tile; no host sync, so a caller may
-// capture it in a graph.  A block with no live row writes its zeros and
-// reads nothing.  Otherwise 256 threads stream 64-deep K chunks of the
-// weight tile (64 x 128) and of the live rows (zero-filled up to whole
-// 8-row fragments) by cp.async into a 4-stage ring, and eight warps run
-// mma.sync with the weight columns on M (16 per warp, ldmatrix.trans) and
-// the rows on n = 8, as grouped_gemm does.  Every output element comes
-// from one block in a fixed order: repeated launches give the same bits.
-// ---------------------------------------------------------------------------
-
-namespace {
-namespace ragged {
-
-constexpr int BN = 128;                // output columns per block: the mma's M side
-constexpr int BK = 64;                 // contraction depth per stage
-constexpr int RMAX = 64;               // rows per block at most: eight n = 8 fragments
-constexpr int NFRAG = RMAX / 8;
-constexpr int NSTAGE = 4;              // ring depth
-constexpr int NW = BN / 16;            // warps, one 16-column slice each
-constexpr int NT = NW * 32;
-constexpr int LDW = BN + 8;            // weight row stride in bf16: 272 B, conflict-free ldmatrix
-constexpr int LDX = BK + 8;            // lhs row stride in bf16: 144 B, conflict-free ldmatrix
-constexpr int W_BYTES = BK * LDW * 2;
-
-__host__ __device__ inline int stage_bytes(int rows) { return W_BYTES + rows * LDX * 2; }
-__host__ __device__ inline int smem_bytes(int rows) { return NSTAGE * stage_bytes(rows); }
-
-// rows per block for a bm-aligned layout: the largest multiple of 8 up to
-// RMAX that divides bm (bm is a multiple of 8)
-inline int block_rows(int bm) {
-  int rows = RMAX;
-  while (bm % rows) rows -= 8;
-  return rows;
+template <bool RAGGED, int RB>
+cudaError_t set_smem_limit(int optin) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, grouped_gemm_kernel<RAGGED, RB>);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(grouped_gemm_kernel<RAGGED, RB>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin - (int)fa.sharedSizeBytes);
+  return err;
 }
 
-__device__ inline void commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ inline void wait_groups() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
-
-__global__ void __launch_bounds__(NT)
-gmm_ragged_kernel(const __nv_bfloat16* __restrict__ lhs,  // (M, K)
-                  const __nv_bfloat16* __restrict__ rhs,  // (E, K, N)
-                  const int* __restrict__ group_sizes,    // (E,)
-                  __nv_bfloat16* __restrict__ out,        // (M, N)
-                  int E, int K, int N, int bm, int rows) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_group, s_live;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gid = lane / 4, t4 = lane % 4;
-  const int r0 = blockIdx.x * rows, n0 = blockIdx.y * BN, ncols = min(BN, N - n0);
-
-  if (warp == 0) {  // the group of bm tile r0 / bm, and this block's live rows
-    const int tile = r0 / bm;
-    int base = 0, g_hit = -1, start = 0;  // tiles before the chunk; the group and its first tile
-    for (int c0 = 0; c0 < E && g_hit < 0; c0 += 32) {
-      const int g = c0 + lane;
-      const int nt = g < E ? (max(group_sizes[g], 0) + bm - 1) / bm : 0;
-      int incl = nt;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int v = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += v;
-      }
-      const unsigned hit = __ballot_sync(0xffffffffu, g < E && base + incl > tile);
-      if (hit) {
-        const int first = __ffs(hit) - 1;
-        g_hit = c0 + first;
-        start = base + __shfl_sync(0xffffffffu, incl - nt, first);
-      }
-      base += __shfl_sync(0xffffffffu, incl, 31);
-    }
-    if (g_hit < 0) {  // past every span: the last group, whose rows end before this tile
-      g_hit = E - 1;
-      start = base - (max(group_sizes[E - 1], 0) + bm - 1) / bm;
-    }
-    if (lane == 0) {
-      const int row_in_group = (tile - start) * bm + r0 % bm;
-      s_group = g_hit;
-      s_live = max(0, min(rows, max(group_sizes[g_hit], 0) - row_in_group));
-    }
-  }
-  __syncthreads();
-  const int g = s_group, live = s_live;
-
-  // zeros on the rows past the group's size (all of them in a dead block)
-  for (int i = tid; i < (rows - live) * (ncols / 8); i += NT) {
-    const int r = live + i / (ncols / 8), v = i % (ncols / 8);
-    reinterpret_cast<uint4*>(out + (size_t)(r0 + r) * N + n0)[v] = make_uint4(0, 0, 0, 0);
-  }
-  if (live == 0) return;
-
-  const __nv_bfloat16* w = rhs + (size_t)g * K * N + n0;  // weight row k at w + k N
-  const __nv_bfloat16* x = lhs + (size_t)r0 * K;
-  const int nk = K / BK, xr = (live + 7) / 8 * 8, nfrag = xr / 8, sb = stage_bytes(rows);
-  // K chunk kc into stage kc % NSTAGE, one copy group, always committed
-  // (empty past the last chunk) to keep the group count
-  auto load = [&](int kc) {
-    if (kc < nk) {
-      const unsigned ws = smem_addr(smem + (kc % NSTAGE) * sb), xs = ws + W_BYTES;
-      const int k0 = kc * BK, wv = ncols / 8;
-      for (int i = tid; i < BK * wv; i += NT) {
-        const int r = i / wv, v = i % wv;
-        cp_async16(ws + (r * LDW + v * 8) * 2, w + (size_t)(k0 + r) * N + v * 8, true);
-      }
-      for (int i = tid; i < xr * (BK / 8); i += NT) {  // rows past the live count: zeros, no read
-        const int r = i / (BK / 8), v = i % (BK / 8);
-        cp_async16(xs + (r * LDX + v * 8) * 2, x + (size_t)(r < live ? r : 0) * K + k0 + v * 8,
-                   r < live);
-      }
-    }
-    commit();
-  };
-  for (int kc = 0; kc < NSTAGE - 1; ++kc) load(kc);
-
-  const int m0 = warp * 16;
-  float acc[NFRAG][4];
-#pragma unroll
-  for (int f = 0; f < NFRAG; ++f) acc[f][0] = acc[f][1] = acc[f][2] = acc[f][3] = 0.0f;
-  for (int kc = 0; kc < nk; ++kc) {
-    wait_groups<NSTAGE - 2>();  // chunk kc has landed
-    __syncthreads();            // ... for every thread, and chunk kc - 1's stage is free
-    load(kc + NSTAGE - 1);
-    if (m0 < ncols) {
-      const unsigned short* ws = reinterpret_cast<const unsigned short*>(smem + (kc % NSTAGE) * sb);
-      const unsigned short* xs = reinterpret_cast<const unsigned short*>(smem + (kc % NSTAGE) * sb + W_BYTES);
-      unsigned a[BK / 16][4];  // A = this warp's 16 weight columns, transposed, by k-step
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        ldmatrix_x4_trans(a[kk], ws + (kk * 16 + (lane / 16) * 8 + lane % 8) * LDW + m0 +
-                                     (lane / 8 % 2) * 8);
-#pragma unroll
-      for (int f = 0; f < NFRAG; ++f) {
-        if (f < nfrag) {
-          const unsigned short* brow = xs + (f * 8 + lane % 8) * LDX + (lane / 8) * 8;
-#pragma unroll
-          for (int h = 0; h < BK / 32; ++h) {
-            unsigned bf[4];  // b0, b1 of k-step 2h, then of k-step 2h + 1
-            ldmatrix_x4(bf, brow + h * 32);
-            mma_bf16(acc[f], a[2 * h], bf[0], bf[1]);
-            mma_bf16(acc[f], a[2 * h + 1], bf[2], bf[3]);
-          }
-        }
-      }
-    }
-  }
-  wait_groups<0>();
-  // element i of acc[f]: row f * 8 + 2 t4 + i % 2, column m0 + gid + 8 (i / 2)
-  if (m0 < ncols) {
-#pragma unroll
-    for (int f = 0; f < NFRAG; ++f) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = f * 8 + 2 * t4 + i % 2;
-        if (f < nfrag && r < live)
-          out[(size_t)(r0 + r) * N + n0 + m0 + gid + 8 * (i / 2)] = __float2bfloat16(acc[f][i]);
-      }
-    }
-  }
-}
-
-}  // namespace ragged
 }  // namespace
 
-// Once per device, before the first launch: raises the kernel's dynamic
-// shared-memory limit to the most a block may opt into (and gmm_ragged's
-// to what its ring needs), finds the
-// driver's tensor-map encoder, and returns the SM count (the persistent
-// grid) and that limit.
+// Once per device, before the first launch: raises each instance's dynamic
+// shared-memory limit to the most a block may opt into, finds the driver's
+// tensor-map encoder, and returns the SM count and that limit.
 extern "C" int grouped_gemm_init(int* n_sm, int* max_smem) {
   int dev = 0, optin = 0;
   cudaFuncAttributes fa;
@@ -633,15 +556,12 @@ extern "C" int grouped_gemm_init(int* n_sm, int* max_smem) {
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, grouped_gemm_kernel);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, grouped_gemm_kernel<CAPACITY, CAPACITY_RB>);
   if (err != cudaSuccess) return (int)err;
   *max_smem = optin - (int)fa.sharedSizeBytes;
-  err = cudaFuncSetAttribute(grouped_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             *max_smem);
-  if (err == cudaSuccess)  // gmm_ragged's ring at its largest row block
-    err = cudaFuncSetAttribute(ragged::gmm_ragged_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               ragged::smem_bytes(ragged::RMAX));
+  err = set_smem_limit<CAPACITY, CAPACITY_RB>(optin);
+  if (err == cudaSuccess) err = set_smem_limit<RAGGED_LAYOUT, 16>(optin);
+  if (err == cudaSuccess) err = set_smem_limit<RAGGED_LAYOUT, 32>(optin);
   return (int)err;
 }
 
@@ -650,10 +570,45 @@ extern "C" int grouped_gemm_init(int* n_sm, int* max_smem) {
 // tickets (one per tile) and dynamic shared memory.
 extern "C" void grouped_gemm_scratch(int G, int C, int K, int N, int n_blocks,
                                      long long* part_floats, long long* n_tickets, int* smem) {
-  *part_floats = 2LL * n_blocks * x_rows(C) * BN;
-  *n_tickets = (long long)G * ((C + RB - 1) / RB) * ((N + BN - 1) / BN);
-  *smem = smem_bytes(G, C, K);
+  *part_floats = 2LL * n_blocks * x_rows<CAPACITY_RB>(C) * BN;
+  *n_tickets = max_tiles(G, C, N, false, CAPACITY_RB);
+  *smem = smem_bytes<CAPACITY, CAPACITY_RB>(G, C, K);
 }
+
+// The same for the ragged layout over (M, K) rows of E groups in bm-aligned
+// spans on n_sm SMs, and its block count.
+extern "C" void gmm_ragged_scratch(int M, int K, int N, int E, int bm, int n_sm,
+                                   long long* part_floats, long long* n_tickets, int* smem,
+                                   int* n_blocks) {
+  const int rb = ragged_rb(bm);
+  *n_blocks = n_sm * Shape<RAGGED_LAYOUT>::CTAS;
+  *part_floats = 2LL * *n_blocks * (rb == 16 ? x_rows<16>(M) : x_rows<32>(M)) * BN;
+  *n_tickets = max_tiles(E, M, N, true, rb);
+  *smem = rb == 16 ? smem_bytes<RAGGED_LAYOUT, 16>(E, M, K) : smem_bytes<RAGGED_LAYOUT, 32>(E, M, K);
+}
+
+namespace {
+
+template <bool RAGGED, int RB>
+int launch(const void* x, const void* rhs, const int* group_sizes, const int* rhs_of_group,
+           void* out, float* part, int* tickets, int G, int C, int K, int N, int E, int bm,
+           int n_blocks, void* stream) {
+  if (K % BK != 0 || N % 64 != 0 || n_blocks < 1) return (int)cudaErrorInvalidValue;
+  const long long most_chunks = max_tiles(G, C, N, RAGGED, RB) * (K / BK);
+  if (most_chunks * n_blocks >= (1LL << 32)) return (int)cudaErrorInvalidValue;  // Split's range
+  const long long rows = RAGGED ? C : (long long)G * C;
+  if (G == 0 || rows == 0 || N == 0) return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K == 0) return (int)cudaMemsetAsync(out, 0, (size_t)rows * N * 2, st);
+  const CUtensorMap* wmap = weight_map(rhs, (long long)E * K, N);
+  if (wmap == nullptr) return (int)cudaErrorInvalidValue;
+  grouped_gemm_kernel<RAGGED, RB><<<n_blocks, NT, smem_bytes<RAGGED, RB>(G, C, K), st>>>(
+      *wmap, static_cast<const __nv_bfloat16*>(x), group_sizes, rhs_of_group,
+      static_cast<__nv_bfloat16*>(out), part, tickets, G, C, K, N, bm);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 // Launches on `stream`; allocates nothing on the card; returns
 // cudaGetLastError().  Caller guarantees: bf16 contiguous x (G, C, K), rhs
@@ -663,40 +618,28 @@ extern "C" void grouped_gemm_scratch(int G, int C, int K, int N, int n_blocks,
 extern "C" int grouped_gemm(const void* x, const void* rhs, const int* group_sizes,
                             const int* rhs_of_group, void* out, float* part, int* tickets, int G,
                             int C, int K, int N, int E, int n_blocks, void* stream) {
-  if (K % BK != 0 || N % 64 != 0 || n_blocks < 1) return (int)cudaErrorInvalidValue;
-  const long long most_chunks = (long long)G * ((C + RB - 1) / RB) * ((N + BN - 1) / BN) * (K / BK);
-  if (most_chunks * n_blocks >= (1LL << 32)) return (int)cudaErrorInvalidValue;  // Split's range
-  if (G == 0 || C == 0 || N == 0) return (int)cudaGetLastError();
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (K == 0) return (int)cudaMemsetAsync(out, 0, (size_t)G * C * N * 2, st);
-  const CUtensorMap* wmap = weight_map(rhs, (long long)E * K, N);
-  if (wmap == nullptr) return (int)cudaErrorInvalidValue;
-  grouped_gemm_kernel<<<n_blocks, NT, smem_bytes(G, C, K), st>>>(
-      *wmap, static_cast<const __nv_bfloat16*>(x), group_sizes, rhs_of_group,
-      static_cast<__nv_bfloat16*>(out), part, tickets, G, C, K, N);
-  return (int)cudaGetLastError();
+  return launch<CAPACITY, CAPACITY_RB>(x, rhs, group_sizes, rhs_of_group, out, part, tickets, G, C,
+                                       K, N, E, 0, n_blocks, stream);
 }
 
 // The ragged layout: lhs (M, K) and out (M, N) rows, group g's span
 // round_up(group_sizes[g], bm) rows from the sum of the earlier spans.
-// Launches on `stream`; allocates nothing; returns cudaGetLastError().
-// Caller guarantees: bf16 contiguous lhs, rhs (E, K, N) and out with
-// 16-byte aligned bases, int32 group_sizes (E,), E >= 1, bm a positive
-// multiple of 8 dividing M, K % 64 == 0, N % 64 == 0, and a prior
-// grouped_gemm_init on this device.
+// Launches on `stream`; allocates nothing on the card; returns
+// cudaGetLastError().  Caller guarantees: bf16 contiguous lhs, rhs (E, K,
+// N) and out with 16-byte aligned bases, int32 group_sizes (E,), E >= 1, bm
+// a positive multiple of 8 dividing M, K % 64 == 0, N % 64 == 0, scratch as
+// gmm_ragged_scratch says (the tickets zero before the first launch; each
+// launch leaves them at zero), and a prior grouped_gemm_init on this device.
 extern "C" int gmm_ragged(const void* lhs, const void* rhs, const int* group_sizes, void* out,
-                          int M, int K, int N, int E, int bm, void* stream) {
-  if (bm < 8 || bm % 8 || M % bm || K % ragged::BK || N % 64 || E < 1)
-    return (int)cudaErrorInvalidValue;
-  if (M == 0 || N == 0) return (int)cudaGetLastError();
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (K == 0) return (int)cudaMemsetAsync(out, 0, (size_t)M * N * 2, st);
-  const int rows = ragged::block_rows(bm);
-  ragged::gmm_ragged_kernel<<<dim3(M / rows, (N + ragged::BN - 1) / ragged::BN), ragged::NT,
-                              ragged::smem_bytes(rows), st>>>(
-      static_cast<const __nv_bfloat16*>(lhs), static_cast<const __nv_bfloat16*>(rhs), group_sizes,
-      static_cast<__nv_bfloat16*>(out), E, K, N, bm, rows);
-  return (int)cudaGetLastError();
+                          float* part, int* tickets, int M, int K, int N, int E, int bm,
+                          int n_sm, void* stream) {
+  if (bm < 8 || bm % 8 || M % bm || E < 1) return (int)cudaErrorInvalidValue;
+  const int n_blocks = n_sm * Shape<RAGGED_LAYOUT>::CTAS;
+  return ragged_rb(bm) == 16
+             ? launch<RAGGED_LAYOUT, 16>(lhs, rhs, group_sizes, nullptr, out, part, tickets, E, M, K,
+                                         N, E, bm, n_blocks, stream)
+             : launch<RAGGED_LAYOUT, 32>(lhs, rhs, group_sizes, nullptr, out, part, tickets, E, M, K,
+                                         N, E, bm, n_blocks, stream);
 }
 
 extern "C" const char* kernel_error_string(int err) {

@@ -47,7 +47,7 @@ ATTENTION_HEAD_BLOCK = 16
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = {
     "fused_swiglu_gmm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "fused_swiglu_gemv": [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "fused_swiglu_gemv": [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "decode_attention_split": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "decode_attention_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -68,10 +68,14 @@ _HELPERS = {
     "grouped_gemm": {
         "grouped_gemm_init": ([_IP, _IP], ctypes.c_int),
         "grouped_gemm_scratch": ([_I, _I, _I, _I, _I, _LLP, _LLP, _IP], None),
-        # the ragged layout's launch, in the same library
-        "gmm_ragged": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+        # the ragged layout's launch and scratch, in the same library
+        "gmm_ragged": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+        "gmm_ragged_scratch": ([_I, _I, _I, _I, _I, _I, _LLP, _LLP, _IP, _IP], None),
     },
-    "fused_swiglu_gemv": {"fused_swiglu_gemv_init": ([_IP], ctypes.c_int)},
+    "fused_swiglu_gemv": {
+        "fused_swiglu_gemv_init": ([_IP, _IP], ctypes.c_int),
+        "fused_swiglu_gemv_scratch": ([_I, _I, _I, _I, _LLP, _LLP, _IP], None),
+    },
     "expert_gemv": {"expert_gemv_init": ([_IP], ctypes.c_int)},
 }
 # kernels whose library exports ``<name>_init(int* ...)``, run once per
@@ -80,7 +84,7 @@ _HELPERS = {
 _INIT_OUTS = {
     "fused_swiglu_gmm": ("n_sm", "max_smem"),
     "grouped_gemm": ("n_sm", "max_smem"),
-    "fused_swiglu_gemv": ("max_smem",),
+    "fused_swiglu_gemv": ("n_sm", "max_smem"),
     "expert_gemv": ("max_smem",),
 }
 _INIT: Dict[Tuple[str, int], Dict[str, int]] = {}
@@ -299,20 +303,35 @@ def swiglu_gemv(
     N = wd.shape[2]
     _require(tokens.dtype == torch.bfloat16 and tokens.stride(1) == 1,
              "tokens must be bfloat16 with unit stride along K")
+    _require(tokens.data_ptr() % 16 == 0 and tokens.stride(0) % 8 == 0,
+             "tokens must have a 16-byte aligned base and row stride")
     for name, t in (("wg", wg), ("wu", wu), ("wd", wd)):
         _check_bf16(name, t)
     _require(wg.shape == (E, K, F) and wu.shape == wg.shape and wd.shape == (E, F, N),
              "weight shapes do not match tokens")
-    _require(F % 64 == 0 and N % 8 == 0, f"swiglu_gemv needs F % 64, N % 8 == 0; got {F}, {N}")
+    _require(min(K, F, N) > 0 and K % 64 == 0 and F % 64 == 0 and N % 64 == 0,
+             f"swiglu_gemv needs K, F, N positive multiples of 64; got {K}, {F}, {N}")
     _check_i32("expert_ids", expert_ids, S)
     _check_i32("valid", valid, S)
-    lib, fn = _kernel("fused_swiglu_gemv", tokens.device)
-    # the float32 partials of the F / 64 column splits, summed by the second pass
-    partial = _buffer("fused_swiglu_gemv", tokens.device, (F // 64, S, N), torch.float32)
-    out = torch.empty((S, N), dtype=tokens.dtype, device=tokens.device)
-    rc = fn(_ptr(tokens), tokens.stride(0), _ptr(wg), _ptr(wu), _ptr(wd),
-            _ptr(expert_ids), _ptr(valid), _ptr(partial), _ptr(out),
-            S, K, F, N, _stream(tokens))
+    dev = tokens.device
+    lib, fn = _kernel("fused_swiglu_gemv", dev)
+    n_sm = _INIT[("fused_swiglu_gemv", dev.index)]["n_sm"]
+    key = ("fused_swiglu_gemv", dev.index, S, E, F, N)
+    if key not in _SCRATCH:
+        part_floats, n_tickets, smem = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_int()
+        lib.fused_swiglu_gemv_scratch(S, E, F, N, ctypes.byref(part_floats), ctypes.byref(n_tickets),
+                                      ctypes.byref(smem))
+        max_smem = _INIT[("fused_swiglu_gemv", dev.index)]["max_smem"]
+        _require(smem.value <= max_smem,
+                 f"swiglu_gemv with S={S}, E={E} needs {smem.value} B of shared memory per block")
+        _SCRATCH[key] = (part_floats.value, n_tickets.value)
+    part_floats, n_tickets = _SCRATCH[key]
+    # the float32 partials of the F slices, summed in the same launch
+    part = _buffer("fused_swiglu_gemv", dev, (part_floats,), torch.float32)
+    out = torch.empty((S, N), dtype=tokens.dtype, device=dev)
+    rc = fn(_ptr(tokens), tokens.stride(0), _ptr(wg), _ptr(wu), _ptr(wd), _ptr(expert_ids),
+            _ptr(valid), _ptr(part), _ptr(_tickets("fused_swiglu_gemv", dev, n_tickets)), _ptr(out),
+            S, K, F, N, E, n_sm, _stream(tokens))
     _raise_on(lib, rc, "fused_swiglu_gemv")
     LAUNCHES["swiglu_gemv"] += 1
     return out
@@ -385,9 +404,27 @@ def gmm_ragged(
     _require(rhs.shape[1] == K and E > 0, f"rhs {tuple(rhs.shape)} does not match lhs {tuple(lhs.shape)}")
     _require(K % 64 == 0 and N % 64 == 0, f"gmm_ragged needs K % 64, N % 64 == 0; got {K}, {N}")
     _check_i32("group_sizes", group_sizes, E)
-    lib, _ = _kernel("grouped_gemm", lhs.device)  # the library's init covers both launches
-    out = torch.empty((M, N), dtype=lhs.dtype, device=lhs.device)
-    rc = lib.gmm_ragged(_ptr(lhs), _ptr(rhs), _ptr(group_sizes), _ptr(out), M, K, N, E, bm,
+    dev = lhs.device
+    lib, _ = _kernel("grouped_gemm", dev)  # the library's init covers both layouts
+    n_sm = _INIT[("grouped_gemm", dev.index)]["n_sm"]
+    key = ("gmm_ragged", dev.index, M, K, N, E, bm)
+    if key not in _SCRATCH:
+        part_floats, n_tickets, smem = ctypes.c_longlong(), ctypes.c_longlong(), ctypes.c_int()
+        n_blocks = ctypes.c_int()
+        lib.gmm_ragged_scratch(M, K, N, E, bm, n_sm, ctypes.byref(part_floats), ctypes.byref(n_tickets),
+                               ctypes.byref(smem), ctypes.byref(n_blocks))
+        max_smem = _INIT[("grouped_gemm", dev.index)]["max_smem"]
+        _require(smem.value <= max_smem,
+                 f"gmm_ragged with E={E}, K={K} needs {smem.value} B of shared memory per block")
+        _require(n_tickets.value * (K // 64) * n_blocks.value < 2**32,
+                 f"gmm_ragged with M={M}, K={K}, N={N} has too many chunks to split")
+        _SCRATCH[key] = (part_floats.value, n_tickets.value)
+    part_floats, n_tickets = _SCRATCH[key]
+    # float32 partials of the tiles that blocks share (two blocks per SM)
+    part = _buffer("gmm_ragged", dev, (part_floats,), torch.float32)
+    out = torch.empty((M, N), dtype=lhs.dtype, device=dev)
+    rc = lib.gmm_ragged(_ptr(lhs), _ptr(rhs), _ptr(group_sizes), _ptr(out), _ptr(part),
+                        _ptr(_tickets("gmm_ragged", dev, n_tickets)), M, K, N, E, bm, n_sm,
                         _stream(lhs))
     _raise_on(lib, rc, "gmm_ragged")
     LAUNCHES["gmm_ragged"] += 1

@@ -141,6 +141,102 @@ class TestFusedKernels:
                ref.fused_swiglu_gemv_ref(toks, wg, wu, wd, eids, valid))
 
 
+def _tail_case(dev, seed, S, E, K, F, N, eids, valid, row_stride=None):
+    """Inputs of one fused-tail case and the plain version's output.  The
+    weights of every expert no live row uses are 1e4, so a read of the
+    wrong expert shows; ``row_stride`` > K gives strided token rows, as the
+    tail path passes ``buf[:, :1]``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    toks = _rnd(g, (S, row_stride or K), dev)[:, :K]
+    wg, wu = (_rnd(g, (E, K, F), dev, K**-0.5) for _ in range(2))
+    wd = _rnd(g, (E, F, N), dev, F**-0.5)
+    eids = torch.as_tensor(eids, dtype=torch.int32, device=dev)
+    valid = torch.as_tensor(valid, dtype=torch.int32, device=dev)
+    unused = torch.ones((E,), dtype=torch.bool, device=dev)
+    unused[eids[valid > 0].long()] = False
+    wg[unused], wu[unused], wd[unused] = 1e4, 1e4, 1e4
+    want = ref.fused_swiglu_gemv_ref(toks.contiguous(), wg, wu, wd, eids, valid)
+    return (toks, wg, wu, wd, eids, valid), want, valid == 0
+
+
+def _tail_cases():
+    """(S, E, K, F, N, expert_ids, valid, row stride) of the fused tail's
+    card cases."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    seg = np.zeros((16, 8), np.int64)  # the all-to-all layout: 16 local experts x 8 segments
+    seg[[0, 0, 3, 5, 5, 5, 9, 14], [0, 3, 1, 2, 4, 7, 5, 6]] = 1  # 8 valid rows of 5 experts
+    counts = np.zeros(128, np.int64)
+    for _ in range(8):  # a decode step's routing: 8 tokens x top-8
+        counts[rng.choice(128, size=8, replace=False)] += 1
+    return {
+        # rows sharing experts, ids in no order
+        "shared_unsorted": (6, 4, 128, 64, 128, [3, 0, 1, 3, 2, 2], [1, 1, 0, 1, 1, 1], None),
+        "shared_many": (300, 12, 256, 192, 192, rng.integers(0, 12, 300), rng.integers(0, 2, 300), None),
+        # every row on one expert: more rows than one row group takes
+        "one_expert": (128, 4, 256, 128, 256, np.full(128, 2), np.ones(128, np.int64), None),
+        "one_live": (128, 128, 2048, 768, 2048, np.arange(128), np.eye(128, dtype=np.int64)[77], None),
+        "all_dead": (128, 128, 2048, 768, 2048, np.arange(128), np.zeros(128, np.int64), None),
+        "a2a": (128, 16, 2048, 768, 2048, np.repeat(np.arange(16), 8), seg.reshape(-1), 2048 * 2),
+        "qwen3_decode": (128, 128, 2048, 768, 2048, np.arange(128), (counts == 1).astype(np.int64), None),
+        "smallest": (8, 8, 64, 64, 64, np.arange(8), [1, 0, 1, 1, 0, 0, 1, 1], None),
+    }
+
+
+@pytest.mark.cuda
+class TestSwigluGemvTail:
+    """The persistent one-launch tail: each case three launches on the same
+    buffers (group tickets back at zero after each) against the plain
+    version, bitwise equal from launch to launch, dead rows exact zeros."""
+
+    @pytest.mark.parametrize("case", list(_tail_cases()))
+    def test_three_launches(self, cuda, case):
+        S, E, K, F, N, eids, valid, stride = _tail_cases()[case]
+        args, want, dead = _tail_case(cuda, len(case), S, E, K, F, N, eids, valid, stride)
+        ops.reset_launches()
+        _three_launches(lambda: ops.swiglu_gemv(*args), want, dead)
+        assert ops.LAUNCHES["swiglu_gemv"] == 3
+
+    def test_one_kernel_per_call(self, cuda):
+        from torch.profiler import ProfilerActivity, profile
+
+        S, E, K, F, N, eids, valid, stride = _tail_cases()["qwen3_decode"]
+        args, _, _ = _tail_case(cuda, 1, S, E, K, F, N, eids, valid, stride)
+        ops.swiglu_gemv(*args)  # built and initialised outside the trace
+        torch.cuda.synchronize()
+        for _ in range(3):  # the profiler has missed the device in one trace of six
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                ops.swiglu_gemv(*args)
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")]
+            if names:
+                break
+        assert len(names) == 1 and "fused_swiglu_gemv_kernel" in names[0], names
+
+    def test_graph_replay_equals_eager(self, cuda):
+        S, E, K, F, N, eids, valid, stride = _tail_cases()["a2a"]
+        args, want, dead = _tail_case(cuda, 2, S, E, K, F, N, eids, valid, stride)
+        eager = ops.swiglu_gemv(*args)  # scratch and tickets made outside the capture
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = ops.swiglu_gemv(*args)
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(captured, eager)
+        _close(captured, want)
+
+    def test_checks(self, cuda):
+        S, E, K, F, N, eids, valid, _ = _tail_cases()["smallest"]
+        args, _, _ = _tail_case(cuda, 3, S, E, K, F, N, eids, valid)
+        toks, wg, wu, wd, e, v = args
+        with pytest.raises(ValueError, match="multiples of 64"):
+            ops.swiglu_gemv(toks, wg, wu, wd[:, :, :32].contiguous(), e, v)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            ops.swiglu_gemv(torch.zeros((S, K + 4), dtype=BF, device=cuda)[:, 4:], wg, wu, wd, e, v)
+
+
 @pytest.mark.cuda
 class TestGmmCapacity:
     @pytest.mark.parametrize(
@@ -485,13 +581,29 @@ class TestGmmRagged:
         ([5, 0, 30, 24, 1], 24, 128, 128, 2),  # a bm that is no power of two; rows past the spans
         ([0, 0, 0, 0], 8, 64, 64, 3),  # every group empty
         ([70], 64, 192, 256, 1),  # one group over two bm tiles
-    ], ids=["decode", "prefill", "bm24_past_spans", "all_empty", "one_group"])
+        # more tiles than twice the SMs: whole tiles dealt round-robin
+        ([200, 0, 131, 64, 7] * 24, 64, 128, 256, 1),
+        ([3, -4, 9, 0, 17], 8, 128, 128, 1),  # sizes below zero count as zero
+    ], ids=["decode", "prefill", "bm24_past_spans", "all_empty", "one_group", "many_tiles", "negative"])
     def test_against_plain(self, cuda, case):
         sizes, bm, K, N, extra = case
         args, want, dead = _ragged_case(cuda, sum(sizes) + bm, sizes, bm, K, N, extra)
         ops.reset_launches()
         _three_launches(lambda: ops.gmm_ragged(*args), want, dead)
         assert ops.LAUNCHES["gmm_ragged"] == 3
+
+    def test_graph_replay_equals_eager(self, cuda):
+        args, want, dead = _ragged_case(cuda, 5, [2, 0, 3, 1, 0, 0, 2, 1] * 16, 8, 2048, 768)
+        eager = ops.gmm_ragged(*args)  # scratch and tickets made outside the capture
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = ops.gmm_ragged(*args)
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(captured, eager)
+        _close(captured, want)
+        assert (captured[dead] == 0).all()
 
     def test_checks(self, cuda):
         lhs = torch.zeros((16, 64), dtype=BF, device=cuda)

@@ -123,6 +123,40 @@ class TestSwigluGemv:
         )
         assert_close(ops.swiglu_gemv(t(toks), t(wg), t(wu), t(wd), t(eids)), want)
 
+    def test_all_to_all_layout(self):
+        """The expert-parallel all-to-all layout: each local expert's rows
+        come as one segment per source rank, ``expert_ids``
+        repeat_interleaved over the segments, most rows dead and the live
+        ones sharing experts."""
+        E, ep, K, F, N = 4, 4, 64, 64, 32
+        S = E * ep
+        rng = np.random.default_rng(6)
+        toks = rng.standard_normal((S, K)).astype(np.float32)
+        wg, wu, wd = _weights(rng, E, K, F, N)
+        eids = np.repeat(np.arange(E, dtype=np.int32), ep)
+        v = np.zeros(S, np.int32)
+        v[[0, 2, 3, 9, 13]] = 1  # 5 live rows of 3 experts
+        want = jops.swiglu_gemv(
+            jnp.asarray(toks), jnp.asarray(wg), jnp.asarray(wu), jnp.asarray(wd),
+            jnp.asarray(eids), jnp.asarray(v), bk=32, bf=32, interpret=True,
+        )
+        got = ops.swiglu_gemv(t(toks), t(wg), t(wu), t(wd), t(eids), t(v))
+        assert_close(got, want)
+        assert (got.numpy()[v == 0] == 0).all()
+
+    def test_every_row_on_one_expert(self):
+        E, S, K, F, N = 3, 40, 64, 64, 32
+        rng = np.random.default_rng(7)
+        toks = rng.standard_normal((S, K)).astype(np.float32)
+        wg, wu, wd = _weights(rng, E, K, F, N)
+        eids = np.full(S, 1, np.int32)
+        v = np.ones(S, np.int32)
+        want = jops.swiglu_gemv(
+            jnp.asarray(toks), jnp.asarray(wg), jnp.asarray(wu), jnp.asarray(wd),
+            jnp.asarray(eids), jnp.asarray(v), bk=32, bf=32, interpret=True,
+        )
+        assert_close(ops.swiglu_gemv(t(toks), t(wg), t(wu), t(wd), t(eids), t(v)), want)
+
     def test_strided_rows(self):
         """The tail path passes ``buf[:, :1]`` rows of the capacity slab."""
         E, C, K, F, N = 3, 4, 32, 32, 32
