@@ -149,6 +149,26 @@ Phases, each fatal on failure:
    decode over 32 tokens at full depth (the bf16 rule of
    ``_recurrent_consistency``), and a 2-block slice on the card against the
    CPU plain path by the phase-4 rule;
+11. training, after phase 7 frees deepseek-v2 (before phase 10):
+   (a) qwen3-moe-30b-a3b at full width, cut to 4 of 48 layers, its
+   experts dense (the dual modes' kernels have no backward), bf16 from
+   ``LM.init(seed=0)``, per-block remat, trains 12 steps of
+   ``make_train_step`` (AdamW, 2 warmup steps) on ``SyntheticLM`` batches
+   of 4 x 1024 tokens: every loss finite, the last 4 steps' mean below
+   step 1's, no kernel of the port launched (the launch counts and a
+   profile of step 2); it prints the step time (median and min-max of
+   steps 3-12), tokens/s, the model-FLOPs share (6 x active parameters x
+   tokens over 989 TFLOP/s), the peak allocated memory against the
+   prediction and the top device ops.  (b) One layer at full width in
+   float32, 1 x 64 tokens: the loss and every gradient leaf on the card
+   against the CPU (cosine >= 0.9999 and max |err| <= 1e-3 of the
+   leaf's max |grad|).  (c) ``dual_path_cost`` under autograd on the card
+   raises before any kernel launches; without gradients it launches the
+   kernels.  (d) examples/train_moe.py's MoE (float32, 2 microbatches)
+   through ``FaultTolerantDriver`` for 40 steps, asynchronous checkpoints
+   every 10 into a temporary directory, a failure injected at step 25:
+   one restart, from step 20, the restored state bitwise equal to the
+   step-20 checkpoint by sha256, all 40 steps done;
 9. expert parallelism, last, once every other model is freed: the fused
    head and tail at the all-to-all layout's decode shape (128 segments
    sharing 16 experts' weights through ``rhs_of_group``) held and timed as
@@ -2935,6 +2955,338 @@ def phase_deepseek() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: training
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 4  # of qwen3-moe's 48
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 12
+# the peak allocated memory of the full-width run, predicted from the
+# parameter count (PERF.md, section 6) before the first run
+TRAIN_PEAK_PREDICTED_GB = (42.0, 50.0)
+# card against CPU (b): per gradient leaf
+TRAIN_MIN_COSINE, TRAIN_MAX_REL_ERR = 0.9999, 1e-3
+DRIVER_STEPS, DRIVER_EVERY, DRIVER_FAIL_AT = 40, 10, 25
+
+
+def train_arch(n_layers: int = TRAIN_LAYERS, expert_exec: str = "dense"):
+    """qwen3-moe-30b-a3b at full width, cut to ``n_layers`` layers, its
+    experts run by ``expert_exec`` (the config ships ``dual_path_cost``,
+    whose kernels have no backward)."""
+    from repro_torch.configs import get_arch
+
+    base = get_arch("qwen3-moe-30b-a3b")
+    return dataclasses.replace(base, n_layers=n_layers,
+                               moe=dataclasses.replace(base.moe, expert_exec=expert_exec))
+
+
+def driver_arch():
+    """The ~100M-class MoE of examples/train_moe.py:35-44 (8 layers,
+    d_model 512, 32 experts top-4)."""
+    from repro_torch.configs import AttnConfig, MoEConfig, get_arch
+
+    return dataclasses.replace(
+        get_arch("qwen3-moe-30b-a3b"), n_layers=8, d_model=512, vocab_size=8192,
+        attn=AttnConfig(kind="gqa", n_heads=8, n_kv_heads=2, d_head=64, rope_theta=1e4),
+        moe=MoEConfig(n_experts=32, top_k=4, d_expert=512),
+    )
+
+
+def _active_params(arch, params) -> int:
+    """Parameters a token's matmuls touch: every leaf but the embedding
+    table (a gather) and, of the routed experts, ``top_k`` of
+    ``n_experts``."""
+    from repro_torch.train.tree import leaves_with_paths
+
+    n = 0
+    for path, t in leaves_with_paths(params):
+        if path[0] == "embed":
+            continue
+        routed = "moe" in path and path[-1] in ("w_gate", "w_up", "w_down") and "shared" not in path
+        n += t.numel() * arch.moe.top_k // arch.moe.n_experts if routed else t.numel()
+    return n
+
+
+def _train_full_width(card: str) -> dict:
+    """(a): qwen3-moe at full width, 4 layers, bf16, per-block remat,
+    ``TRAIN_STEPS`` steps of ``make_train_step`` on ``SyntheticLM``
+    batches, the second step profiled; the port's kernels must never
+    launch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticLM, to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+    from repro_torch.train.optimizer import AdamWConfig, adamw_update
+    from repro_torch.train.train_loop import _microbatched_grads
+    from repro_torch.train.tree import leaves
+
+    arch = train_arch()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    lm = LM(arch, torch.bfloat16, "cuda", remat=True)
+    tc = TrainConfig(opt=AdamWConfig(warmup_steps=2, total_steps=TRAIN_STEPS))
+    params, opt, res = init_train_state(lm, 0, tc)
+    n_params = sum(t.numel() for t in leaves(params))
+    active = _active_params(arch, params)
+    data = SyntheticLM(DataConfig(vocab_size=arch.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH))
+    batches = [to_device(data.batch(i), "cuda") for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = make_train_step(lm, tc)
+    ops.reset_launches()
+    losses, norms, step_ms, prof = [], [], [], None
+
+    def one(i):
+        nonlocal params, opt, res
+        params, opt, res, m = step(params, opt, batches[i], res)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+
+    for i in range(TRAIN_STEPS):
+        if i == 1:  # the second step, profiled; steps 3-12 are timed unprofiled
+            prof = _profile_window(lambda: one(1), 1)
+            continue
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        one(i)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launched = {k: n for k, n in ops.LAUNCHES.items() if n}
+    # one more step, split: loss and gradients, then the AdamW update
+    split = {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, _, grads = _microbatched_grads(lm, params, batches[-1], 1)
+    torch.cuda.synchronize()
+    split["loss_and_grads_ms"] = 1e3 * (time.perf_counter() - t)
+    t = time.perf_counter()
+    params, opt, _ = adamw_update(tc.opt, params, grads, opt)
+    torch.cuda.synchronize()
+    split["adamw_ms"] = 1e3 * (time.perf_counter() - t)
+    del grads
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    timed = spread(step_ms[1:])  # steps 3-12
+    out = dict(
+        arch=f"{arch.name} full width, {arch.n_layers} of 48 layers, expert_exec dense, bf16, remat",
+        params=n_params, active_params=active, init_s=init_s, losses=losses, grad_norms=norms,
+        step_ms=timed, tokens_per_s=tokens / (timed["median"] / 1e3),
+        model_flops_share=6 * active * tokens / (timed["median"] / 1e3) / PEAK_BF16_FLOPS,
+        peak_gb=peak_gb, base_gb=base_gb, predicted_peak_gb=TRAIN_PEAK_PREDICTED_GB, launches=launched,
+        profile=prof, split=split,
+    )
+    log(f"train (a): {out['arch']}; {n_params / 1e9:.3f} B parameters ({active / 1e6:.0f} M active a "
+        f"token), batch {TRAIN_BATCH} x {TRAIN_SEQ}, AdamW lr {tc.opt.lr} with 2 warmup steps; init {init_s:.1f} s")
+    log(f"train (a): step {timed['median']:.1f} ms ({timed['min']:.1f}-{timed['max']:.1f}, steps 3-"
+        f"{TRAIN_STEPS}, host clock), {out['tokens_per_s']:.0f} tokens/s, model-FLOPs share "
+        f"{out['model_flops_share']:.4f} (6 x active parameters x tokens over {PEAK_BF16_FLOPS / 1e12:.0f} "
+        f"TFLOP/s); peak allocated {peak_gb:.2f} GB ({base_gb:.2f} GB before), predicted "
+        f"{TRAIN_PEAK_PREDICTED_GB[0]:.0f}-{TRAIN_PEAK_PREDICTED_GB[1]:.0f} GB | {card}")
+    log("train (a): loss by step " + ", ".join(f"{x:.4f}" for x in losses) + "; grad norm "
+        + ", ".join(f"{x:.3f}" for x in norms))
+    log(f"train (a) profile of step 2: {prof['step_ms']:.1f} ms with the device busy {prof['device_ms']:.1f} "
+        f"ms, idle share {prof['idle_share']:.3f}, {prof['kernels_per_step']} kernels; a 13th step split: "
+        f"loss and gradients {split['loss_and_grads_ms']:.1f} ms, AdamW {split['adamw_ms']:.1f} ms (host "
+        "clock, synchronized)")
+    for key, calls, ms in prof["top_device"]:
+        log(f"  device {ms:8.3f} ms/step {calls:6d} calls  {key[:90]}")
+    if not all(np.isfinite(losses)):
+        fail(f"train (a): a loss is not finite: {losses}")
+    if not np.mean(losses[-4:]) < losses[0]:
+        fail(f"train (a): the mean loss of the last 4 steps {np.mean(losses[-4:]):.4f} is not below step "
+             f"1's {losses[0]:.4f}")
+    if prof["port_kernels"] or launched:
+        fail(f"train (a): the training path launched the port's CUDA kernels: {prof['port_kernels']} "
+             f"{launched}")
+    del params, opt, res, batches, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_card_against_cpu() -> dict:
+    """(b): one layer at full width in float32, a batch of 1 x 64 tokens:
+    loss and every gradient leaf on the card against the same step on the
+    CPU (TF32 is off, phase 1)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import LM
+    from repro_torch.train.train_loop import _loss_and_grads
+    from repro_torch.train.tree import leaves_with_paths, tree_map
+
+    arch = train_arch(n_layers=1)
+    card_lm = LM(arch, torch.float32, "cuda")
+    params = tree_map(lambda p: p.requires_grad_(True), card_lm.init(seed=1))
+    cpu_params = tree_map(lambda p: p.detach().cpu().requires_grad_(True), params)
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, arch.vocab_size, (1, 65)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]), "labels": torch.from_numpy(toks[:, 1:])}
+    t0 = time.perf_counter()
+    loss, metrics, grads = _loss_and_grads(card_lm, params, {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_loss, cpu_metrics, cpu_grads = _loss_and_grads(LM(arch, torch.float32, "cpu"), cpu_params, batch)
+    cpu_s = time.perf_counter() - t0
+    worst_cos, worst_rel, rows = 1.0, 0.0, []
+    for (path, g), c in zip(leaves_with_paths(grads), [c for _, c in leaves_with_paths(cpu_grads)]):
+        a, b = g.double().flatten(), c.to(g.device).double().flatten()
+        scale = float(b.abs().max())
+        cos = float(a @ b / (a.norm() * b.norm())) if scale > 0 else float(a.abs().max() == 0)
+        rel = float((a - b).abs().max()) / scale if scale > 0 else float(a.abs().max())
+        worst_cos, worst_rel = min(worst_cos, cos), max(worst_rel, rel)
+        rows.append(("/".join(map(str, path)), cos, rel))
+    counts_equal = bool(torch.equal(metrics["aux"].counts.cpu(), cpu_metrics["aux"].counts))
+    out = dict(loss_card=float(loss), loss_cpu=float(cpu_loss), worst_cosine=worst_cos,
+               worst_rel_err=worst_rel, leaves=rows, counts_equal=counts_equal, card_s=card_s, cpu_s=cpu_s)
+    log(f"train (b): one full-width layer in float32, batch 1 x 64: loss card {float(loss):.6f}, CPU "
+        f"{float(cpu_loss):.6f}; over {len(rows)} gradient leaves the worst cosine {worst_cos:.7f} (bound "
+        f"{TRAIN_MIN_COSINE}) and the worst max |err| / max |grad| {worst_rel:.2e} (bound {TRAIN_MAX_REL_ERR}); "
+        f"routing counts equal: {counts_equal}; card {card_s:.1f} s, CPU {cpu_s:.1f} s")
+    if abs(float(loss) - float(cpu_loss)) > 1e-4 * abs(float(cpu_loss)):
+        fail(f"train (b): the card's loss {float(loss)} differs from the CPU's {float(cpu_loss)}")
+    if worst_cos < TRAIN_MIN_COSINE or worst_rel > TRAIN_MAX_REL_ERR:
+        bad = [r for r in rows if r[1] < TRAIN_MIN_COSINE or r[2] > TRAIN_MAX_REL_ERR]
+        fail(f"train (b): gradient leaves beyond the bounds: {bad}")
+    del params, cpu_params, grads, cpu_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_dual_raises() -> dict:
+    """(c): a dual-mode MoE layer under autograd on the card raises before
+    any kernel launches; the same forward without gradients runs the
+    kernels."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.train.tree import tree_map
+
+    arch = train_arch(n_layers=1, expert_exec="dual_path_cost")
+    lm = LM(arch, torch.bfloat16, "cuda")
+    params = tree_map(lambda p: p.requires_grad_(True), lm.init(seed=2))
+    toks = torch.randint(0, arch.vocab_size, (1, 65), generator=torch.Generator().manual_seed(2))
+    batch = {"tokens": toks[:, :-1].cuda(), "labels": toks[:, 1:].cuda()}
+    ops.reset_launches()
+    message = None
+    try:
+        lm.loss(params, batch)[0].backward()
+    except RuntimeError as e:
+        message = str(e)
+    if message is None or "no backward" not in message or any(ops.LAUNCHES.values()):
+        fail(f"train (c): loss.backward under dual_path_cost on the card raised {message!r}, after "
+             f"launches {ops.LAUNCHES}")
+    with torch.no_grad():
+        lm.loss(params, batch)
+    launched = {k: n for k, n in ops.LAUNCHES.items() if n}
+    if not launched:
+        fail("train (c): without gradients the dual path launched no kernel")
+    log(f"train (c): under autograd dual_path_cost raised {message[:110]!r}...; without gradients the "
+        f"same loss launched {launched}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(message=message, launches_without_grad=launched)
+
+
+def _train_driver() -> dict:
+    """(d): the MoE of examples/train_moe.py (float32, one batch of 8 x
+    256 tokens a step) through ``FaultTolerantDriver`` on the card: asynchronous checkpoints
+    every ``DRIVER_EVERY`` steps into a temporary directory, a failure
+    injected at step ``DRIVER_FAIL_AT``; the state restored after it must
+    equal, leaf by leaf, the sha256 that the last checkpoint before it
+    recorded when it was saved, and the run must end at ``DRIVER_STEPS``."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticLM, to_device
+    from repro_torch.models import LM
+    from repro_torch.recovery.codec import sha256_array, to_storable, unpack_state
+    from repro_torch.train import (DriverConfig, FaultTolerantDriver, TrainConfig, init_train_state,
+                                   make_train_step)
+    from repro_torch.train.checkpoint import step_dir
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.tree import leaves
+
+    arch = driver_arch()
+    lm = LM(arch, torch.float32, "cuda", q_chunk=128, kv_chunk=128)
+    tc = TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=DRIVER_STEPS))
+    params, opt, res = init_train_state(lm, 0, tc)
+    n_params = sum(t.numel() for t in leaves(params))
+    data = SyntheticLM(DataConfig(vocab_size=arch.vocab_size, seq_len=256, global_batch=8))
+    batches = {i: to_device(data.batch(i), "cuda") for i in range(DRIVER_STEPS)}
+    step = make_train_step(lm, tc)
+    resume_at = DRIVER_FAIL_AT // DRIVER_EVERY * DRIVER_EVERY
+    restored, losses = [], []
+
+    def step_fn(state, i):
+        if drv.restarts and not restored:  # the first step after the restart: the restored state
+            restored.extend(sha256_array(to_storable(t)[0]) for t in leaves(state))
+        p, o, r, m = step(state["params"], state["opt"], batches[i], state["res"])
+        losses.append(float(m["loss"]))
+        return {"params": p, "opt": o, "res": r}, {"loss": losses[-1]}
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt:
+        drv = FaultTolerantDriver(step_fn, DriverConfig(ckpt_dir=ckpt, ckpt_every=DRIVER_EVERY, async_ckpt=True))
+        t0 = time.perf_counter()
+        _, hist = drv.run({"params": params, "opt": opt, "res": res}, DRIVER_STEPS,
+                          inject_failure_at={DRIVER_FAIL_AT: RuntimeError("simulated preemption")})
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        with open(os.path.join(step_dir(ckpt, resume_at), "manifest.json"), "rb") as f:
+            manifest = [e["sha256"] for e in unpack_state(f.read())["leaves"]]
+        saved = sorted(int(n.split("_")[1]) for n in os.listdir(ckpt) if not n.endswith(".tmp"))
+    done = [h["step"] for h in hist if "loss" in h]
+    step_s = sum(h["dt"] for h in hist if "loss" in h)
+    restarts = [h for h in hist if h.get("event") == "restart"]
+    out = dict(arch=f"examples/train_moe.py's MoE: {arch.n_layers} layers, d_model {arch.d_model}, "
+                    f"{arch.moe.n_experts} experts top-{arch.moe.top_k}, float32",
+               params=n_params, restarts=drv.restarts, steps_done=done, checkpoints=saved, wall_s=wall_s,
+               steps_s=step_s, first_loss=losses[0], last_loss=losses[-1],
+               restored_equals_checkpoint=restored == manifest)
+    log(f"train (d): {out['arch']}, {n_params / 1e6:.1f} M parameters, {DRIVER_STEPS} steps of 8 x 256 "
+        f"tokens through FaultTolerantDriver, asynchronous checkpoints every {DRIVER_EVERY} "
+        f"steps ({saved}), failure at step {DRIVER_FAIL_AT}: {drv.restarts} restart from step "
+        f"{restarts[0]['step'] if restarts else None}, the restored state bitwise equal to the step-"
+        f"{resume_at} checkpoint by sha256: {out['restored_equals_checkpoint']}; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; {wall_s:.1f} s, {step_s:.1f} s of it in the {len(done)} steps (host clock)")
+    if drv.restarts != 1 or not restarts or restarts[0]["step"] != resume_at:
+        fail(f"train (d): expected one restart from step {resume_at}, got {drv.restarts} ({restarts})")
+    if not out["restored_equals_checkpoint"]:
+        fail(f"train (d): the restored state is not the step-{resume_at} checkpoint")
+    if done[-1] != DRIVER_STEPS - 1 or sorted(set(done)) != list(range(DRIVER_STEPS)):
+        fail(f"train (d): the run did not complete {DRIVER_STEPS} steps: {done}")
+    del params, opt, res, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(card: str) -> dict:
+    """Phase 11: training on the card, after deepseek-v2 is freed."""
+    import torch
+
+    log(f"training: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before the phase")
+    out, t0 = {}, time.perf_counter()
+    for part, fn in (("full_width", lambda: _train_full_width(card)), ("card_vs_cpu", _train_card_against_cpu),
+                     ("dual_raises", _train_dual_raises), ("driver", _train_driver)):
+        t = time.perf_counter()
+        out[part] = fn()
+        out[part]["part_s"] = time.perf_counter() - t
+    out["phase_s"] = time.perf_counter() - t0
+    log("training parts: " + ", ".join(f"{k} {v['part_s']:.1f} s" for k, v in out.items() if isinstance(v, dict))
+        + f"; phase {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the hybrid, ssm and audio families
 # ---------------------------------------------------------------------------
 
@@ -3919,6 +4271,8 @@ def main() -> None:
     done("families (phase 6)")
     deepseek = phase_deepseek()
     done("deepseek-v2 (phase 7)")
+    training = phase_train(card)
+    done("training (phase 11)")
     recurrent = phase_recurrent(card)
     done("recurrent families (phase 10)")
     # phase 9 last: its eight ranks share the card once every other model is freed
@@ -3954,7 +4308,7 @@ def main() -> None:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, device=kind, build=build_info, kernels=kernels, held=held, serve=serve, families=families,
-        deepseek=deepseek, recurrent=recurrent, ep=ep, elapsed_s=elapsed,
+        deepseek=deepseek, training=training, recurrent=recurrent, ep=ep, elapsed_s=elapsed,
     ), indent=1, default=str))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

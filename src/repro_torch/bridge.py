@@ -1,5 +1,7 @@
 """Weight bridge: the JAX ``LM.init`` pytree, as numpy, to the port's
-parameters, so both packages can compute from the same weights.
+parameters, so both packages can compute from the same weights, and back
+(:func:`params_to_numpy`), so trees of the port (parameters, gradients,
+optimizer moments) can be compared with the reference's leaf for leaf.
 
 The caller turns each JAX leaf into numpy first (``np.asarray``); this
 module imports neither JAX nor ``repro``.
@@ -81,3 +83,33 @@ def params_from_numpy(tree: Dict[str, Any], device, dtype: torch.dtype,
     tree = rank_cut(tree, mesh_info)
     depth = {**dict.fromkeys(_STACKED, 1), **dict.fromkeys(_STACKED_TWICE, 2)}
     return {k: _convert(_as_lists(v, depth.get(k, 0)), device, dtype, k) for k, v in tree.items()}
+
+
+def _restack(tree, depth: int):
+    """Inverse of ``_as_lists``: nested lists of per-block trees, stacked
+    ``depth`` times along new leading axes."""
+    if depth == 0:
+        return tree
+    blocks = [_restack(b, depth - 1) for b in tree]
+    if isinstance(blocks[0], dict):
+        return {k: _restack([b[k] for b in blocks], 1) for k in blocks[0]}
+    return np.stack(blocks)
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_numpy(v) for v in tree]
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
+def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
+    """A tree of the port's parameter layout (parameters, or gradients or
+    optimizer moments of them) as the JAX ``LM.init`` tree of numpy
+    arrays: the block lists stacked back along a leading layer axis,
+    zamba2's ``mamba_seg`` along a segment and a block axis.  bfloat16
+    leaves, which numpy cannot hold, come back as float32 (exactly)."""
+    depth = {**dict.fromkeys(_STACKED, 1), **dict.fromkeys(_STACKED_TWICE, 2)}
+    return {k: _restack(_to_numpy(v), depth.get(k, 0)) for k, v in params.items()}

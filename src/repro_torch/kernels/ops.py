@@ -200,10 +200,22 @@ def _raise_on(lib, rc: int, name: str) -> None:
 
 
 def _on_cpu(*tensors) -> bool:
+    """True for CPU tensors (the plain version runs); False for CUDA ones,
+    which the kernel takes.  A kernel launched through ctypes is invisible
+    to autograd, so CUDA tensors that require grad while gradients are
+    enabled raise here, before any launch, rather than return a result
+    with no gradient: a MoE layer under ``expert_exec="dual_path"`` or
+    ``"dual_path_cost"`` would otherwise leave its expert weights without
+    one.  The plain versions on the CPU carry gradients."""
     kinds = {t.device.type for t in tensors if t is not None}
     if kinds == {"cpu"}:
         return True
     if kinds == {"cuda"}:
+        if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+            raise RuntimeError(
+                "a CUDA kernel of the port was called under autograd on tensors that require grad: "
+                "the kernels have no backward, in this package or in the JAX package's Pallas "
+                "kernels; train MoE models with expert_exec='dense', or call under torch.no_grad()")
         return False
     raise ValueError(f"tensors on mixed or unsupported devices: {sorted(kinds)}")
 

@@ -66,7 +66,10 @@ def apply_mlp(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    """``table[tokens]``.  ``F.embedding`` computes the same rows; its
+    backward sums a repeated token's rows by sorting, where the backward
+    of advanced indexing walks a token's repeats one after another."""
+    return F.embedding(tokens, table)
 
 
 def lm_logits(h: torch.Tensor, table: torch.Tensor,

@@ -1,4 +1,4 @@
-"""LM facade: init / prefill / decode (counterpart of
+"""LM facade: init / forward / loss / prefill / decode (counterpart of
 ``repro.models.model.LM``) for six families:
 
   * decoder-only attention (``moe``, ``dense``, ``vlm``): GQA, or
@@ -29,6 +29,11 @@ of the cache (and, when the kv heads do not divide the model group, its
 slice of the positions: sequence-parallel decode), and returns the global
 logits and step counts.  The hybrid, ssm and audio families run on one
 process only.
+
+Training (:meth:`LM.forward`, :meth:`LM.loss`) runs the decoder-only
+families under autograd on one process; ``remat=True`` recomputes each
+block in the backward pass (``torch.utils.checkpoint``, where the
+reference wraps its scan body in ``jax.checkpoint``).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -107,6 +113,8 @@ class LM:
         q_chunk: int = 1024,
         kv_chunk: int = 1024,
         mesh_info: MeshInfo = LOCAL_MESH,
+        remat: bool = False,
+        loss_chunk: int = 512,
     ):
         if (arch.family not in PORTED_FAMILIES
                 or arch.attn.kind not in _ATTENTION_OF.get(arch.family, PORTED_ATTENTION)):
@@ -129,6 +137,8 @@ class LM:
         self.q_chunk = q_chunk
         self.kv_chunk = kv_chunk
         self.mi = mesh_info
+        self.remat = remat
+        self.loss_chunk = loss_chunk
         # vocab padded to a multiple of 128; padded logits are masked
         self.vocab_padded = -(-arch.vocab_size // 128) * 128
 
@@ -453,34 +463,110 @@ class LM:
         ``tokens`` (B, S)."""
         if self.arch.family in RECURRENT_FAMILIES:
             return self._prefill_states(p, batch, max_seq)
-        arch = self.arch
         batch = self._rank_batch(batch)
         x, mrope = self._embed_in(p, batch)
         B, S = x.shape[:2]
         positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
-        moe = arch.moe is not None
+        x, cache, aux = self._walk_attn_stack(p, x, positions, mrope, batch.get("sieve"),
+                                              collect_cache=True)
+        if max_seq is not None:
+            cache = self._decode_cache(cache, S, max_seq)
+        h = apply_norm(p["final_norm"], x, self.arch.norm)
+        return self._all_rows(self._logits(p, h[:, -1:, :])), cache, aux
 
-        def walk(x, blocks, moe):
+    def _walk_attn_stack(self, p, x, positions, mrope, sieve, collect_cache: bool):
+        """The decoder-only stack, shared by prefill and training
+        (``repro.models.model.LM._walk_attn_stack``): the dense prefix
+        blocks, then the main blocks.  Returns ``(x, cache, StepAux)``, the
+        cache (``{"prefix", "blocks"}`` of stacked per-block leaves) only
+        with ``collect_cache``.  Under ``remat`` with gradients enabled each
+        main block is recomputed in the backward pass, as the reference
+        checkpoints its scan body (the prefix blocks are not)."""
+        arch = self.arch
+
+        def block(blk, x, moe):
+            return tf.attn_mlp_block_seq(
+                blk, x, positions, arch, moe, q_chunk=self.q_chunk, kv_chunk=self.kv_chunk,
+                sieve=sieve, mrope_positions=mrope, mi=self.mi,
+            )
+
+        def walk(x, blocks, moe, remat):
             caches, auxes = [], []
             for blk in blocks:
-                x, c, aux = tf.attn_mlp_block_seq(
-                    blk, x, positions, arch, moe, q_chunk=self.q_chunk,
-                    kv_chunk=self.kv_chunk, sieve=batch.get("sieve"), mrope_positions=mrope,
-                    mi=self.mi,
-                )
-                caches.append(c)
+                if remat:
+                    x, c, aux = checkpoint(block, blk, x, moe, use_reentrant=False)
+                else:
+                    x, c, aux = block(blk, x, moe)
+                if collect_cache:
+                    caches.append(c)
                 auxes.append(aux)
             return x, tuple(torch.stack(leaf) for leaf in zip(*caches)), auxes
 
         cache, prefix_auxes = {}, []
         if self.n_prefix:
-            x, cache["prefix"], prefix_auxes = walk(x, p["prefix_blocks"], False)
-        x, cache["blocks"], auxes = walk(x, p["blocks"], moe)
-        if max_seq is not None:
-            cache = self._decode_cache(cache, S, max_seq)
-        h = apply_norm(p["final_norm"], x, arch.norm)
-        logits = self._all_rows(self._logits(p, h[:, -1:, :]))
-        return logits, cache, _aggregate_aux(prefix_auxes, auxes)
+            x, cache["prefix"], prefix_auxes = walk(x, p["prefix_blocks"], False, False)
+        remat = self.remat and torch.is_grad_enabled()
+        x, cache["blocks"], auxes = walk(x, p["blocks"], arch.moe is not None, remat)
+        return x, (cache if collect_cache else None), _aggregate_aux(prefix_auxes, auxes)
+
+    # ------------------------------------------------------------------
+    # training: forward / loss
+    # ------------------------------------------------------------------
+
+    def forward(self, p, batch: Dict[str, Any]):
+        """Full-sequence forward -> ``(h, StepAux)``, ``h`` the final-norm
+        hidden states (B, S, d): the training path, differentiable in
+        ``p``.  batch: ``tokens`` (B, S) or the stub's ``embeds`` (B, S, d),
+        optionally ``positions`` (B, S), ``mrope_positions`` (3, B, S) and
+        ``sieve``.  The decoder-only families only, on one process."""
+        arch = self.arch
+        if arch.family in RECURRENT_FAMILIES:
+            raise NotImplementedError(
+                f"LM.forward for the {arch.family} family is not ported (ROADMAP Queue 1, "
+                "'the hybrid, ssm and audio families' forward'): its prefill writes the "
+                "Mamba2/RWKV6 states and K/V in place, which autograd cannot take as it is"
+            )
+        if self.mi != LOCAL_MESH:
+            raise NotImplementedError(
+                "training on a mesh is not ported (ROADMAP Queue 1, data- and tensor-parallel "
+                "training): the collectives of torch.distributed carry no gradient"
+            )
+        x, mrope = self._embed_in(p, batch)
+        B, S = x.shape[:2]
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+        x, _, aux = self._walk_attn_stack(p, x, positions, mrope, batch.get("sieve"),
+                                          collect_cache=False)
+        return apply_norm(p["final_norm"], x, arch.norm), aux
+
+    def loss(self, p, batch: Dict[str, Any]):
+        """Next-token cross-entropy over ``batch["labels"]`` (B, S), the
+        logits computed ``loss_chunk`` positions at a time in float32 with
+        the padded vocabulary masked, plus ``router_aux_coef`` times the
+        MoE aux loss (``repro.models.model.LM.loss``).  Returns ``(loss,
+        {"ce": ce, "aux": StepAux})``."""
+        h, aux = self.forward(p, batch)
+        labels = batch["labels"]
+        B, S = labels.shape
+        chunk = min(self.loss_chunk, S)
+        while S % chunk:
+            chunk //= 2
+        w = p.get("w_out")
+        w = p["embed"].T if w is None else w
+        live = None
+        if self.vocab_padded != self.arch.vocab_size:
+            live = torch.arange(self.vocab_padded, device=h.device) < self.arch.vocab_size
+        total = 0.0
+        for s0 in range(0, S, chunk):
+            logits = (h[:, s0:s0 + chunk] @ w).float()
+            if live is not None:
+                logits = torch.where(live, logits, -1e30)
+            gold = torch.gather(logits, -1, labels[:, s0:s0 + chunk, None].long())[..., 0]
+            total = total + (torch.logsumexp(logits, -1) - gold).sum()
+        ce = total / (B * S)
+        aux_coef = self.arch.moe.router_aux_coef if self.arch.moe is not None else 0.0
+        return ce + aux_coef * aux.moe_aux, {"ce": ce, "aux": aux}
 
     def decode_step(self, p, batch: Dict[str, Any], cache: Dict[str, Any]):
         """One-token step.  batch: tokens (B, 1), position (B,), optional

@@ -165,9 +165,17 @@ def dispatch(x: torch.Tensor, r: RouterOut, n_experts: int, cap: int,
     return dispatch_counting(x, r, n_experts, cap, expert_offset, n_local)
 
 
+def _gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` for a 2-D table.  The same rows as advanced indexing;
+    under autograd its backward sums repeated indices by sorting, where
+    the backward of advanced indexing walks each index's repeats one after
+    another (a combine's dropped assignments all read row 0)."""
+    return F.embedding(idx, table)
+
+
 def _scatter(x, token_of, slot, keep, nE, cap) -> torch.Tensor:
     d = x.shape[1]
-    vals = x[token_of] * keep[:, None].to(x.dtype)
+    vals = _gather_rows(x, token_of) * keep[:, None].to(x.dtype)
     buf = torch.zeros((nE * cap + 1, d), dtype=x.dtype, device=x.device)
     # dropped and remote assignments all land on the trash row nE * cap
     buf[slot.long()] = vals
@@ -235,7 +243,7 @@ def combine(y_buf: torch.Tensor, slot_of: torch.Tensor, weights: torch.Tensor,
     E, C, d = y_buf.shape
     flat = y_buf.reshape(E * C, d)
     idx = torch.clamp(slot_of, min=0).long()
-    gathered = flat[idx.reshape(-1)].reshape(T, -1, d)
+    gathered = _gather_rows(flat, idx.reshape(-1)).reshape(T, -1, d)
     mask = (slot_of >= 0)[..., None].to(flat.dtype)
     w = weights[..., None].to(flat.dtype)
     return torch.sum(gathered * mask * w, dim=1, dtype=sum_dtype)

@@ -6,7 +6,8 @@ only).
   numpy cannot hold, is stored as its ``uint16`` bit pattern with the
   logical dtype recorded in the manifest;
 * **integrity**: sha256 over the *stored* bytes of every leaf, verified
-  on load;
+  on load; leaves are written, read and hashed on a few threads at once
+  (file I/O and hashing release the interpreter lock);
 * **atomic commit**: writers fill a ``<dir>.tmp`` staging directory,
   rename it into place, and write a ``COMMITTED`` marker last.  A killed
   writer leaves either the previous committed state or an uncommitted
@@ -25,12 +26,14 @@ import hashlib
 import json
 import os
 import shutil
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, List, Tuple
 
 import numpy as np
 import torch
 
 COMMIT_MARKER = "COMMITTED"
+_IO_THREADS = 8
 
 # torch dtypes numpy cannot hold, stored as same-width integers
 _VIEW_AS = {torch.bfloat16: (torch.int16, np.uint16)}
@@ -58,7 +61,8 @@ def from_storable(arr: np.ndarray, logical_dtype: str) -> torch.Tensor:
 
 
 def sha256_array(arr: np.ndarray) -> str:
-    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+    """sha256 of the array's bytes in C order (hashed in place, no copy)."""
+    return hashlib.sha256(np.ascontiguousarray(arr).reshape(-1).view(np.uint8)).hexdigest()
 
 
 def sha256_bytes(data: bytes) -> str:
@@ -120,14 +124,22 @@ def leaf_path(dirname: str, i: int) -> str:
     return os.path.join(dirname, f"leaf_{i:05d}.npy")
 
 
+def _threaded(fn, items: list) -> list:
+    """``[fn(x) for x in items]`` on up to ``_IO_THREADS`` threads, in order."""
+    with ThreadPoolExecutor(max_workers=max(1, min(_IO_THREADS, len(items)))) as pool:
+        return list(pool.map(fn, items))
+
+
 def write_leaves(dirname: str, arrays: List[Tuple[np.ndarray, str]]) -> List[dict]:
     """Write ``leaf_<i>.npy`` per stored array; returns the manifest
     entries (shape, logical dtype, sha256 over the stored bytes)."""
-    entries = []
-    for i, (arr, logical) in enumerate(arrays):
+
+    def one(i: int) -> dict:
+        arr, logical = arrays[i]
         np.save(leaf_path(dirname, i), arr)
-        entries.append({"shape": list(arr.shape), "dtype": logical, "sha256": sha256_array(arr)})
-    return entries
+        return {"shape": list(arr.shape), "dtype": logical, "sha256": sha256_array(arr)}
+
+    return _threaded(one, list(range(len(arrays))))
 
 
 def read_leaf(dirname: str, i: int, meta: dict) -> torch.Tensor:
@@ -139,6 +151,12 @@ def read_leaf(dirname: str, i: int, meta: dict) -> torch.Tensor:
     if list(arr.shape) != list(meta["shape"]):
         raise ValueError(f"leaf {i} in {dirname} has shape {arr.shape}, manifest {meta['shape']}")
     return from_storable(arr, meta["dtype"])
+
+
+def read_leaves(dirname: str, metas: List[dict]) -> List[torch.Tensor]:
+    """``read_leaf`` of every manifest entry, in order; the first failure
+    raises."""
+    return _threaded(lambda i: read_leaf(dirname, i, metas[i]), list(range(len(metas))))
 
 
 # ---------------------------------------------------------------------------

@@ -56,7 +56,7 @@ from repro_torch.recovery.codec import (
     committed_dirs,
     is_committed,
     pack_state,
-    read_leaf,
+    read_leaves,
     sha256_bytes,
     to_storable,
     unpack_state,
@@ -211,7 +211,7 @@ def _load_snapshot(path: str) -> Tuple[Dict[str, Any], List[torch.Tensor]]:
     if sha256_bytes(state_blob) != manifest["state_sha256"]:
         raise IOError(f"state blob checksum mismatch in {path}")
     state = unpack_state(state_blob)
-    leaves = [read_leaf(path, i, meta) for i, meta in enumerate(manifest["leaves"])]
+    leaves = read_leaves(path, manifest["leaves"])
     if len(leaves) != state["n_cache_leaves"] + state["n_sieve_leaves"] + state["n_input_leaves"]:
         raise ValueError(f"leaf count mismatch in {path}")
     return state, leaves

@@ -1296,3 +1296,84 @@ def _tree_to(tree, device):
     if isinstance(tree, list):
         return [_tree_to(v, device) for v in tree]
     return tree.to(device)
+
+
+@pytest.mark.cuda
+class TestTraining:
+    def test_dual_mode_under_autograd_raises(self, cuda):
+        """A dual-mode MoE layer under autograd on the card raises before
+        any kernel launches (the kernels have no backward, and a launch
+        through ctypes would leave the expert weights without a gradient);
+        without gradients the same loss runs the kernels.  A kernel
+        wrapper given CUDA tensors that require grad raises too."""
+        import dataclasses
+
+        from repro_torch.kernels import ops
+        from repro_torch.models import LM
+        from repro_torch.train.tree import tree_map
+
+        arch = _card_proxy()
+        lm = LM(arch, dtype=BF, device="cuda")
+        params = tree_map(lambda p: p.requires_grad_(True), lm.init(seed=0))
+        toks = torch.randint(0, arch.vocab_size, (2, 17), generator=torch.Generator().manual_seed(0)).to(cuda)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        ops.reset_launches()
+        with pytest.raises(RuntimeError, match="no backward"):
+            lm.loss(params, batch)[0].backward()
+        assert not any(ops.LAUNCHES.values())
+        with torch.no_grad():
+            loss, _ = lm.loss(params, batch)
+        assert torch.isfinite(loss) and ops.LAUNCHES["swiglu_gmm_capacity"] > 0
+        moe = params["blocks"][0]["moe"]
+        x = torch.randn((4, arch.d_model), device=cuda).to(BF)
+        eids = torch.zeros((4,), dtype=torch.int32, device=cuda)
+        with pytest.raises(RuntimeError, match="no backward"):
+            ops.swiglu_gemv(x, moe["w_gate"], moe["w_up"], moe["w_down"], eids)
+        dense = LM(dataclasses.replace(arch, moe=dataclasses.replace(arch.moe, expert_exec="dense")),
+                   dtype=BF, device="cuda")
+        ops.reset_launches()
+        dense.loss(params, batch)[0].backward()
+        assert not any(ops.LAUNCHES.values())
+        assert all(p.grad is not None for p in (moe["w_gate"], moe["w_router"], params["embed"]))
+
+    def test_reduced_train_step_matches_cpu(self, cuda):
+        """Three float32 train steps of reduced qwen3-moe (dense experts,
+        per-block remat, two microbatches) on the card against the same
+        steps on the CPU from the same weights: each step's loss and grad
+        norm within rtol 1e-4, the first step's gradients leaf for leaf,
+        and no kernel of the port launched."""
+        import dataclasses
+
+        from repro_torch.configs import get_arch
+        from repro_torch.data import DataConfig, SyntheticLM, to_device
+        from repro_torch.kernels import ops
+        from repro_torch.models import LM
+        from repro_torch.train import TrainConfig, init_train_state, make_train_step
+        from repro_torch.train.train_loop import _loss_and_grads
+        from repro_torch.train.tree import leaves, tree_map
+
+        base = get_arch("qwen3-moe-30b-a3b").reduced()
+        arch = dataclasses.replace(base, moe=dataclasses.replace(base.moe, expert_exec="dense"))
+        data = SyntheticLM(DataConfig(vocab_size=arch.vocab_size, seq_len=32, global_batch=4))
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            lm = LM(arch, dtype=torch.float32, device=dev, remat=True)
+            tc = TrainConfig(n_microbatches=2)
+            params, opt, res = init_train_state(lm, 0, tc)
+            if dev == "cuda":  # the CPU's weights
+                with torch.no_grad():
+                    tree_map(lambda a, b: a.copy_(b), params, runs["cpu"]["init"])
+            init = tree_map(lambda p: p.detach().clone(), params)
+            grads = _loss_and_grads(lm, params, to_device(data.batch(0), dev))[2]
+            step = make_train_step(lm, tc)
+            ops.reset_launches()
+            metrics = []
+            for i in range(3):
+                params, opt, res, m = step(params, opt, to_device(data.batch(i), dev), res)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            runs[dev] = dict(init=init, grads=grads, metrics=metrics, launches=dict(ops.LAUNCHES))
+        for (l_cpu, n_cpu), (l_card, n_card) in zip(runs["cpu"]["metrics"], runs["cuda"]["metrics"]):
+            assert l_card == pytest.approx(l_cpu, rel=1e-4) and n_card == pytest.approx(n_cpu, rel=1e-4)
+        for a, b in zip(leaves(runs["cuda"]["grads"]), leaves(runs["cpu"]["grads"])):
+            assert torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-5), float((a.cpu() - b).abs().max())
+        assert not any(runs["cuda"]["launches"].values())

@@ -41,7 +41,9 @@ def test_the_check_sees_the_whole_port():
     assert {"engine.py", "moe.py", "ops.py", "scheduler_torch.py", "chip_smoke.py", "codec.py",
             "snapshot.py", "probes.py", "health.py", "timing_feed.py", "plan.py", "inject.py",
             "chaos.py", "journal.py", "scheduler.py", "cost_model.py", "mesh.py", "sharding.py",
-            "collectives.py", "ssm.py", "zamba2_7b.py", "rwkv6_7b.py", "whisper_base.py"} <= names
+            "collectives.py", "ssm.py", "zamba2_7b.py", "rwkv6_7b.py", "whisper_base.py",
+            "optimizer.py", "compression.py", "train_loop.py", "checkpoint.py", "fault_tolerance.py",
+            "tree.py", "pipeline.py", "train.py"} <= names
 
 
 def test_fault_and_recovery_modules_import_with_jax_blocked():
@@ -70,6 +72,27 @@ def test_fault_and_recovery_modules_import_with_jax_blocked():
         "for name in ('zamba2-7b', 'rwkv6-7b', 'whisper-base'):\n"
         "    LM(get_arch(name).reduced(), device='cpu').init(seed=0)\n"
     ) % (FORBIDDEN,)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_training_modules_import_and_step_with_jax_blocked(tmp_path):
+    """The training modules, the data pipeline and the launcher import,
+    and one launcher step on the CPU runs, in a process where importing
+    JAX or the JAX package fails."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in %r:\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import repro_torch.train, repro_torch.train.compression, repro_torch.data.pipeline\n"
+        "from repro_torch.launch.train import main\n"
+        "main(['--arch', 'qwen1.5-0.5b', '--device', 'cpu', '--steps', '1', '--seq-len', '8',\n"
+        "      '--global-batch', '2', '--ckpt-dir', %r])\n"
+    ) % (FORBIDDEN, str(tmp_path))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
     assert r.returncode == 0, r.stderr
