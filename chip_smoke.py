@@ -189,10 +189,27 @@ Phases, each fatal on failure:
    exact counts on both bodies, and the sequence-parallel attention from
    an int8 cache stays within the reference's relative 0.03 of a bf16
    cache.  Each rank's MoE and collective time per step print beside the
-   one-process step (timings, not checks).
+   one-process step (timings, not checks), and a rank's weight bytes by
+   group (experts, attention, embedding and logits, the rest): the (1, 8)
+   ranks split the vocabulary (tensor parallelism where it divides; 4 kv
+   heads do not divide 8).  Then tensor parallelism: a second
+   ``run_on_mesh`` of eight ranks as a (2, 4) mesh, the 8 slots split over
+   2 data rows, attention split by heads (8 heads on one kv head a rank,
+   the dense decode-attention kernel at that shape: its row
+   ``decode_attention_tp_g8`` is held and timed as phase 3's rows before
+   the runs), the vocabulary 4 ways: qwen3 at the same 12 layers,
+   replicated dispatch fused, 8 prompts (each prefilled by both data rows)
+   and 6 greedy decode steps with the same checks, the drops and rows
+   summed over the data rows; the 2-layer qwen3
+   slice and a full-width 2-layer deepseek-v2 slice (the dense prefix
+   block and one MoE layer: 128 MLA heads, d_ff 12288 and the two shared
+   experts split 4 ways, 40 experts a rank) each held against one process
+   by the rule of the (1, 8) slice, whose first layer's exact routing
+   applies only where both sides route the same inputs.
 
-It logs the elapsed seconds at the end of each group of phases, and
-prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
+It logs the elapsed seconds at the end of each group of phases and a
+sha256 of the tokens of every one-process run (``tokens <run>`` lines;
+phase 11: its losses), and prints the kernel table as one JSON line, the ``nvidia-smi`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -250,6 +267,27 @@ def fail(msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# sha256 of what each one-process run generated (its requests' tokens, or
+# phase 11's losses), by run in the order the runs end: logged as
+# ``tokens <run>: sha256 ...`` and kept in chip_smoke.json, so the runs of
+# two trees can be held token for token
+TOKEN_DIGESTS: dict = {}
+
+
+def note_tokens(run: str, values) -> None:
+    """Log and keep the sha256 of ``values`` (nested lists, arrays or
+    tensors of token ids, or floats, written exactly) under ``run``; a
+    run's second record takes the key ``<run> #2``."""
+    import hashlib
+
+    key, n = run, 2
+    while key in TOKEN_DIGESTS:
+        key, n = f"{run} #{n}", n + 1
+    text = json.dumps(values, default=lambda o: o.tolist())
+    TOKEN_DIGESTS[key] = hashlib.sha256(text.encode()).hexdigest()[:16]
+    log(f"tokens {key}: sha256 {TOKEN_DIGESTS[key]}")
 
 
 # ---------------------------------------------------------------------------
@@ -1571,6 +1609,7 @@ def phase_serve(lm, params, batching, path_kernels, run=None, policy="sieve", ch
             fail(f"request {r.req_id} finished with {len(r.generated)} of {r.max_new_tokens} tokens")
         if not all(0 <= t < arch.vocab_size for t in r.generated):
             fail(f"request {r.req_id} produced a token outside the vocabulary")
+    note_tokens(f"{arch.name} {run}", [r.generated for r in reqs])
     for name, n in launches.items():
         if name in path_kernels and n <= 0:
             fail(f"{run} run: kernel {name} of its path was not launched")
@@ -1690,6 +1729,7 @@ def phase_ab(lm, params, n_steps: int = 4, paths=None) -> dict:
     for name in paths:
         if tokens[(name, "eager")] != tokens[(name, "replay")]:
             fail(f"{name}: the replayed decode step gives other tokens than the eager step")
+        note_tokens(f"in turns {name}", tokens[(name, "replay")])
     out = {f"{name}_{mode}": dict(step_ms=sorted(v), median_ms=float(np.median(v)))
            for (name, mode), v in steps.items()}
     for name in paths:
@@ -2069,6 +2109,7 @@ def _check_tokens(what: str, reqs, vocab: int) -> None:
         if len(r.generated) != r.max_new_tokens or not all(0 <= t < vocab for t in r.generated):
             fail(f"{what}: request {r.req_id} finished with {len(r.generated)} of {r.max_new_tokens} "
                  "tokens or a token outside the vocabulary")
+    note_tokens(what, [r.generated for r in reqs])
 
 
 def _finished_tokens(eng) -> list:
@@ -2603,6 +2644,7 @@ def _chaos_full_width(lm, params, batching, scenario: str, magnitude=None) -> di
     out = chaos.summary()
     out.update(wall_s=time.perf_counter() - t0, captures=eng.n_captures,
                tokens=[list(r.generated) for r in reqs])
+    note_tokens(f"chaos {scenario}", out["tokens"])
     del eng, chaos
     return out
 
@@ -3095,6 +3137,7 @@ def _train_full_width(card: str) -> dict:
         log(f"  device {ms:8.3f} ms/step {calls:6d} calls  {key[:90]}")
     if not all(np.isfinite(losses)):
         fail(f"train (a): a loss is not finite: {losses}")
+    note_tokens("train (a) losses", losses)
     if not np.mean(losses[-4:]) < losses[0]:
         fail(f"train (a): the mean loss of the last 4 steps {np.mean(losses[-4:]):.4f} is not below step "
              f"1's {losses[0]:.4f}")
@@ -3243,6 +3286,7 @@ def _train_driver() -> dict:
         with open(os.path.join(step_dir(ckpt, resume_at), "manifest.json"), "rb") as f:
             manifest = [e["sha256"] for e in unpack_state(f.read())["leaves"]]
         saved = sorted(int(n.split("_")[1]) for n in os.listdir(ckpt) if not n.endswith(".tmp"))
+    note_tokens("train (d) losses", losses)
     done = [h["step"] for h in hist if "loss" in h]
     step_s = sum(h["dt"] for h in hist if "loss" in h)
     restarts = [h for h in hist if h.get("event") == "restart"]
@@ -3472,6 +3516,7 @@ def _recurrent_model(name: str, P: int, frames, per_step: dict, card: str) -> di
     tokens = torch.stack(generated, 1).cpu()
     if not bool(torch.stack(finite).all()) or not bool(((tokens >= 0) & (tokens < V)).all()):
         fail(f"{name}: non-finite logits or a token outside the vocabulary")
+    note_tokens(f"recurrent {name}", tokens)
     want = {k: n * RECURRENT_STEPS for k, n in per_step.items()}
     if launches != want:
         fail(f"{name}: launches {launches} over prefill and {RECURRENT_STEPS} decode steps; {want} required")
@@ -3538,6 +3583,15 @@ EP_RUNS = (
     ("int8_fused", "psum", "1", "1"),
 )
 EP_SUFFIX = "_ep_a2a"  # phase 9's kernel rows at the all-to-all segment shape
+# tensor parallelism: the same 12 layers as a (2, 4) mesh, the 8 slots over
+# 2 data rows and attention split by heads over 4 (8 heads on one kv head a
+# rank), psum fused, fewer decode steps than the (1, 8) runs to keep the
+# script's time
+TP_SHAPE = (2, 4)
+TP_STEPS = 6
+TP_RUN = "tp_psum_fused"
+TP_PATH = EP_PATHS["1"] + ("decode_attention",)
+TP_ROW = "tp_g8"  # phase 3's tag of the dense attention row at a TP rank's decode shape
 EP_PARITY_PROMPT = 32  # tokens of each of the 8 prompts of the 2-layer parity
 EP_INT8_STEPS = 8  # decode steps of the 2-layer int8 check
 
@@ -3659,15 +3713,21 @@ class EPProbe:
         self.t = {k: torch.zeros((), dtype=torch.int64, device=self.device) for k in self.KEYS}
         self.events, self.coll_s = [], 0.0
 
-    def end_step(self, kind: str, aux, n_tokens: int, local: slice, step_s: float) -> dict:
+    def end_step(self, kind: str, aux, n_tokens: int, local: slice, step_s: float, mi=None) -> dict:
         """Close the step: its numbers with the global per-layer counts of
-        ``aux`` and the assignments routed to this rank's experts."""
+        ``aux`` and the assignments routed to this rank's experts.  ``mi``,
+        the MeshInfo the step ran on, gives its data ranks (``dp``) and how
+        many data rows of the mesh computed the same tokens (``copies``)."""
         import torch
+        import torch.distributed as dist
 
         torch.cuda.synchronize()
         rec = {k: int(v) for k, v in self.t.items()}
         counts = aux.counts.cpu()
-        rec.update(kind=kind, tokens=n_tokens, counts=counts.numpy(), dropped=int(aux.dropped),
+        dp = 1 if mi is None else mi.dp_size
+        copies = 1 if mi is None else dist.get_world_size() // (mi.ep_size * dp)
+        rec.update(kind=kind, tokens=n_tokens, counts=counts.numpy(), dropped=int(aux.dropped), dp=dp,
+                   copies=copies,
                    routed_local=int(counts[:, local].sum()),
                    moe_ms=sum(a.elapsed_time(b) for a, b in self.events),
                    coll_ms=1e3 * self.coll_s, step_ms=1e3 * step_s)
@@ -3682,14 +3742,16 @@ class EPProbe:
 
 def _ep_check_step(rec: dict, run: str, a2a: bool, top_k: int) -> None:
     """One rank's step: every row that reached its experts ran in the head or
-    the tail or was dropped by the executor; with replicated dispatch its
-    rows plus its dispatch drops are the assignments routed to its experts
-    (with the all-to-all the sources drop before the exchange); the global
-    counts add up to the step's tokens times top-k on every layer."""
+    the tail or was dropped by the executor; with replicated dispatch and
+    one data rank its rows plus its dispatch drops are the assignments
+    routed to its experts (with the all-to-all the sources drop before the
+    exchange; over data ranks the sum is checked across ranks,
+    ``_check_runs``); the global counts add up to the step's tokens times
+    top-k on every layer."""
     if rec["head"] + rec["tail"] + rec["exec_drop"] != rec["arrived"]:
         raise RuntimeError(f"{run} {rec['kind']}: head {rec['head']} + tail {rec['tail']} + executor "
                            f"drops {rec['exec_drop']} != {rec['arrived']} rows in this rank's buffers")
-    if not a2a and rec["arrived"] + rec["disp_drop"] != rec["routed_local"]:
+    if not a2a and rec["dp"] == 1 and rec["arrived"] + rec["disp_drop"] != rec["routed_local"]:
         raise RuntimeError(f"{run} {rec['kind']}: {rec['arrived']} rows + {rec['disp_drop']} dispatch drops "
                            f"!= {rec['routed_local']} assignments routed to this rank's experts")
     if a2a and rec["arrived"] > rec["routed_local"]:
@@ -3711,17 +3773,23 @@ def _greedy(logits, vocab: int, run: str):
     return tok.to(torch.int32)
 
 
-def _ep_serve(lm, params, mi, prompts, run: str, a2a: bool, int8: bool, path) -> dict:
+def _ep_serve(lm, params, mi, prompts, run: str, a2a: bool, int8: bool, path, prefill_lm=None,
+              steps: int = 0) -> dict:
     """One phase-9 run on this rank: the 8 prompts prefilled one by one into
     the slots of a rank-local cache (none with int8: its cache starts empty,
-    as the reference's int8 path does), then ``EP_STEPS`` greedy decode
-    steps of all 8 slots, with the launch counters zeroed just before."""
+    as the reference's int8 path does), then ``steps`` (else
+    ``EP_STEPS``) greedy decode steps of all 8 slots, with the launch counters zeroed just before.
+    With data ranks, ``prefill_lm`` (the same model on the mesh with the
+    batch of one prompt replicated over the data axis) prefills every
+    prompt, and a rank keeps the slots of its data rows."""
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.models.sharding import expert_rows
+    from repro_torch.models.sharding import batch_rows, expert_rows
 
     arch, dev = lm.arch, lm.device
+    pre = prefill_lm or lm
+    mine = batch_rows(EP_SLOTS, mi)
     local = expert_rows(arch.moe.n_experts, mi)
     t_run = time.perf_counter()
     probe = EPProbe(dev)
@@ -3734,24 +3802,25 @@ def _ep_serve(lm, params, mi, prompts, run: str, a2a: bool, int8: bool, path) ->
         toks = []
         for i, prompt in enumerate(prompts):
             t0 = time.perf_counter()
-            logits, c, aux = lm.prefill(params, {"tokens": torch.as_tensor(prompt, device=dev)[None]},
-                                        max_seq=EP_MAX_SEQ)
+            logits, c, aux = pre.prefill(params, {"tokens": torch.as_tensor(prompt, device=dev)[None]},
+                                         max_seq=EP_MAX_SEQ)
             torch.cuda.synchronize()
-            rec = probe.end_step("prefill", aux, len(prompt), local, time.perf_counter() - t0)
+            rec = probe.end_step("prefill", aux, len(prompt), local, time.perf_counter() - t0, pre.mi)
             _ep_check_step(rec, run, a2a, arch.moe.top_k)
-            for key in cache:
-                for dst, src in zip(cache[key], c[key]):
-                    dst[:, i].copy_(src[:, 0])
+            if mine.start <= i < mine.stop:
+                for key in cache:
+                    for dst, src in zip(cache[key], c[key]):
+                        dst[:, i - mine.start].copy_(src[:, 0])
             toks.append(_greedy(logits, arch.vocab_size, run))
             del c
         tok = torch.cat(toks)
         pos = torch.as_tensor([len(p) for p in prompts], dtype=torch.int32, device=dev)
     generated = []
-    for _ in range(EP_STEPS):
+    for _ in range(steps or EP_STEPS):
         t0 = time.perf_counter()
         logits, cache, aux = lm.decode_step(params, {"tokens": tok[:, None], "position": pos}, cache)
         torch.cuda.synchronize()
-        rec = probe.end_step("decode", aux, EP_SLOTS, local, time.perf_counter() - t0)
+        rec = probe.end_step("decode", aux, EP_SLOTS, local, time.perf_counter() - t0, mi)
         _ep_check_step(rec, run, a2a, arch.moe.top_k)
         tok = _greedy(logits, arch.vocab_size, run)
         generated.append(tok.cpu().numpy())
@@ -3801,14 +3870,25 @@ def _tape_route(choices: list, replay: bool = False):
     return installed()
 
 
+def _all_choices(c, mi, a2a: bool):
+    """A route call's top-k choices of every token of the global batch, in
+    batch order: a rank routed its data rows' tokens (with the all-to-all
+    body, its model rank's share of them)."""
+    from repro_torch.models import collectives as coll
+
+    if a2a:
+        c = coll.all_gather(c, mi.model_group).reshape(-1, c.shape[-1])
+    return coll.all_gather(c, mi.data_group).reshape(-1, c.shape[-1])
+
+
 def _ep_parity(lm, params, mi) -> dict:
-    """The first two layers of this rank's weights as a (1, 8) mesh, on each
-    EP body (both decode sequence-parallel), against the same two layers as
-    one process on rank 0's card, drawn keyed from the same seed with all
-    experts: 8 prompts of ``EP_PARITY_PROMPT`` tokens, then one decode
-    step.  Both sides take a capacity no batch here fills: the all-to-all
-    body sizes capacity per source rank, so only a run with no drops equals
-    one process.
+    """The first two layers of this rank's weights as a mesh (on (1, 8)
+    decoding sequence-parallel, on (2, 4) with attention split by heads),
+    on each EP body, against the same two layers as one process on rank
+    0's card, drawn keyed from the same seed with all experts: 8 prompts of
+    ``EP_PARITY_PROMPT`` tokens, then one decode step.  Both sides take a
+    capacity no batch here fills: the all-to-all body sizes capacity per
+    source rank, so only a run with no drops equals one process.
 
     In bfloat16 the two sides round differently: each rank splits its own
     experts between the head and the tail kernel where one process splits
@@ -3816,25 +3896,26 @@ def _ep_parity(lm, params, mi) -> dict:
     probabilities into the value product) in one process and float32
     einsums on the mesh.  A near-tie in a router's top-k then flips, and a
     flip moves a whole expert's output.  So the mesh is held as phase 4
-    holds the card to the CPU: the first layer's prefill counts exact
-    (both sides route the same inputs there), at most 2% of all routed
+    holds the card to the CPU: the first layer's prefill counts exact where
+    both sides route the same inputs there (no layer before it split over
+    the model group: a split one sums its partials in another order, so
+    there its routing falls under the next clause), at most 2% of all routed
     assignments moved between the two sides' own choices, and, with the
     mesh's choices replayed in the one process, logits within 5% of the
     largest logit and cosine 0.999.  The largest difference and the share
     of logits within ``TOL`` are recorded.
 
-    Then the int8 cache, as the reference's test holds it
-    (tests/test_perf_paths.py:126): the first layer's sequence-parallel
-    attention, ``EP_INT8_STEPS`` steps from an empty int8 cache and from an
-    empty bf16 one on the same inputs, within relative 0.03 on every step.
+    Then, on the sequence-parallel path, the int8 cache, as the
+    reference's test holds it (tests/test_perf_paths.py:126): the first
+    layer's sequence-parallel attention, ``EP_INT8_STEPS`` steps from an
+    empty int8 cache and from an empty bf16 one on the same inputs, within
+    relative 0.03 on every step.
     The 2-layer model's logits from the two caches are recorded per step
     beside whether the two routed alike."""
     import numpy as np
     import torch
 
     from repro_torch.models import LM
-    from repro_torch.models import collectives as coll
-    from repro_torch.models.attention import gqa_decode_seqpar
 
     dev = lm.device
     arch = lm.arch
@@ -3856,10 +3937,34 @@ def _ep_parity(lm, params, mi) -> dict:
     for ep in ("psum", "a2a"):
         with _env(REPRO_EP_MODE=ep, REPRO_FUSED_SWIGLU="1"):
             mesh[ep] = run(LM(small, torch.bfloat16, dev, mesh_info=mi), p2, _tape_route([]))
-        if ep == "a2a":  # each rank routed its own slice of the tokens: gather them
-            mesh[ep]["choices"] = [coll.all_gather(c, mi.model_group).reshape(-1, c.shape[-1])
-                                   for c in mesh[ep]["choices"]]
+        mesh[ep]["choices"] = [_all_choices(c, mi, ep == "a2a") for c in mesh[ep]["choices"]]
+    same_inputs = not lm._tp() and lm.n_prefix == 0
+    out = {}
+    if lm._seq_par():
+        out.update(_ep_parity_int8(lm, p2, small, prompt, mi))
+    if mi.model_index != 0 or mi.data_index != 0:
+        return out
+    ref_lm = LM(small, torch.bfloat16, dev)
+    ref_params = ref_lm.init(seed=0, keyed=True)
+    with _env(REPRO_FUSED_SWIGLU="1"):
+        own = run(ref_lm, ref_params, _tape_route([]))
+        for ep, got in mesh.items():
+            want = run(ref_lm, ref_params, _tape_route(got["choices"], replay=True))
+            out.update(_ep_parity_compare(ep, got, own, want, same_inputs))
+    del ref_params
+    return out
 
+
+def _ep_parity_int8(lm, p2, small, prompt, mi) -> dict:
+    """The int8 cache against bf16 on the sequence-parallel path: the first
+    layer's attention within relative 0.03 on every step, then the 2-layer
+    model's logits per step beside whether the two routed alike."""
+    import torch
+
+    from repro_torch.models import LM
+    from repro_torch.models.attention import gqa_decode_seqpar
+
+    dev, arch = lm.device, lm.arch
     # the int8 cache against bf16: the first layer's attention, then the model
     a, T_loc = arch.attn, EP_MAX_SEQ // mi.ep_size
     kv = (EP_SLOTS, T_loc, a.n_kv_heads, a.d_head)
@@ -3888,35 +3993,30 @@ def _ep_parity(lm, params, mi) -> dict:
                 logits, cache, aux = model.decode_step(p2, {"tokens": prompt[:, i:i + 1].to(torch.int32),
                                                             "position": p}, cache)
                 steps[int8].append((logits[..., : arch.vocab_size].float().cpu(), aux.counts.cpu()))
-    out = {"int8_attention_rel": attn_rel,
-           "int8_steps": [(float((a - b).abs().max() / a.abs().max()), bool(torch.equal(ca, cb)))
-                          for (a, ca), (b, cb) in zip(steps["0"], steps["1"])]}
-    if mi.model_index != 0:
-        return out
-    ref_lm = LM(small, torch.bfloat16, dev)
-    ref_params = ref_lm.init(seed=0, keyed=True)
-    with _env(REPRO_FUSED_SWIGLU="1"):
-        own = run(ref_lm, ref_params, _tape_route([]))
-        for ep, got in mesh.items():
-            want = run(ref_lm, ref_params, _tape_route(got["choices"], replay=True))
-            out.update(_ep_parity_compare(ep, got, own, want))
-    return out
+    return {"int8_attention_rel": attn_rel,
+            "int8_steps": [(float((a - b).abs().max() / a.abs().max()), bool(torch.equal(ca, cb)))
+                           for (a, ca), (b, cb) in zip(steps["0"], steps["1"])]}
 
 
-def _ep_parity_compare(ep: str, got: dict, own: dict, want: dict) -> dict:
+def _moved(g, w) -> int:
+    """Routed assignments of ``g`` (tokens x top-k choices) not in ``w``."""
+    return sum(len(set(a.tolist()) - set(b.tolist())) for a, b in zip(g.cpu(), w.cpu()))
+
+
+def _ep_parity_compare(ep: str, got: dict, own: dict, want: dict, same_inputs: bool = True) -> dict:
     """``_ep_parity``'s rule for one EP body: ``got`` the mesh's run, ``own``
-    one process on its own routing, ``want`` one process on the mesh's."""
+    one process on its own routing, ``want`` one process on the mesh's.
+    ``same_inputs``: both sides route the same inputs in the first layer."""
     import torch
 
-    out = {}
-    if not torch.equal(got["choices"][0].cpu(), own["choices"][0].cpu()):
+    out = {f"{ep}_first_layer_moved": _moved(got["choices"][0], own["choices"][0])}
+    if same_inputs and not torch.equal(got["choices"][0].cpu(), own["choices"][0].cpu()):
         raise RuntimeError(f"parity {ep}: the first layer's prefill routing differs from one process")
-    if not torch.equal(got["counts"][0][0], own["counts"][0][0]):
+    if same_inputs and not torch.equal(got["counts"][0][0], own["counts"][0][0]):
         raise RuntimeError(f"parity {ep}: the first layer's prefill counts differ from one process")
     moved = total = 0
     for g, w in zip(got["choices"], own["choices"]):
-        g, w = g.cpu(), w.cpu()
-        moved += sum(len(set(a.tolist()) - set(b.tolist())) for a, b in zip(g, w))
+        moved += _moved(g, w)
         total += g.numel()
     out[f"{ep}_moved_share"] = moved / total
     if moved / total > 0.02:
@@ -3934,9 +4034,36 @@ def _ep_parity_compare(ep: str, got: dict, own: dict, want: dict) -> dict:
     return out
 
 
+WEIGHT_GROUPS = ("experts", "attention", "embedding_logits", "rest")
+
+
+def _weight_groups(params) -> dict:
+    """A rank's parameter bytes (GB) by group: the routed experts, the
+    attention, the embedding and logits tables, the rest (norms, routers,
+    the dense and shared-expert FFNs)."""
+    from repro_torch.models.sharding import is_expert_leaf
+
+    out = dict.fromkeys(WEIGHT_GROUPS, 0.0)
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, path + (k,))
+        elif isinstance(t, list):
+            for i, v in enumerate(t):
+                walk(v, path + (i,))
+        else:
+            group = ("experts" if is_expert_leaf(path) else "attention" if "attn" in path
+                     else "embedding_logits" if path[0] in ("embed", "w_out") else "rest")
+            out[group] += t.numel() * t.element_size() / 1e9
+
+    walk(params, ())
+    return out
+
+
 def _ep_rank(mesh, n_layers: int) -> dict:
-    """Everything one rank of phase 9 runs: its weights, the four runs with
-    their checks, and the 2-layer parity."""
+    """Everything one rank of phase 9's (1, 8) mesh runs: its weights, the
+    four runs with their checks, and the 2-layer parity."""
     import torch
 
     from repro_torch.launch.mesh import mesh_info_for
@@ -3947,10 +4074,11 @@ def _ep_rank(mesh, n_layers: int) -> dict:
     mi = mesh_info_for(mesh, EP_SLOTS)
     lm = LM(arch, torch.bfloat16, mesh.device, mesh_info=mi)
     t0 = time.perf_counter()
-    params = lm.init(seed=0)  # keyed: this rank's experts only
+    params = lm.init(seed=0)  # keyed: this rank's experts and vocabulary rows only
     torch.cuda.synchronize()
-    out = {"rank": mesh.rank, "init_s": time.perf_counter() - t0,
-           "weights_gb": torch.cuda.memory_allocated() / 1e9, "runs": {}}
+    out = {"rank": mesh.rank, "model_index": mi.model_index, "init_s": time.perf_counter() - t0,
+           "weights_gb": torch.cuda.memory_allocated() / 1e9, "by_group": _weight_groups(params),
+           "tp": lm._tp(), "runs": {}}
     prompts = _ep_prompts(arch)
     for run, ep, fused, int8 in EP_RUNS:
         with _env(REPRO_EP_MODE=ep, REPRO_FUSED_SWIGLU=fused, REPRO_KV_INT8=int8):
@@ -3961,6 +4089,57 @@ def _ep_rank(mesh, n_layers: int) -> dict:
     t0 = time.perf_counter()
     out["parity"] = _ep_parity(lm, params, mi)
     out["parity_s"] = time.perf_counter() - t0
+    return out
+
+
+def _tp_rank(mesh, n_layers: int) -> dict:
+    """Everything one rank of phase 9's (2, 4) mesh runs: qwen3's weights
+    (its experts, heads and vocabulary rows), the psum fused run with the
+    checks of the (1, 8) runs, the 2-layer qwen3 parity; then, qwen3's
+    weights freed, a full-width deepseek-v2 slice of the dense prefix block
+    and one MoE layer, drawn keyed on the mesh and held against one process
+    by the same rule."""
+    import torch
+
+    from repro_torch.launch.mesh import mesh_info_for
+    from repro_torch.models import LM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, bf = mesh.device, torch.bfloat16
+    arch = ep_arch(n_layers)
+    mi = mesh_info_for(mesh, EP_SLOTS)
+    lm = LM(arch, bf, dev, mesh_info=mi)
+    t0 = time.perf_counter()
+    params = lm.init(seed=0)
+    torch.cuda.synchronize()
+    out = {"rank": mesh.rank, "model_index": mi.model_index, "init_s": time.perf_counter() - t0,
+           "weights_gb": torch.cuda.memory_allocated() / 1e9, "by_group": _weight_groups(params),
+           "tp": lm._tp(), "runs": {}}
+    # a one-prompt prefill: the batch of one replicated over the data axis
+    prefill_lm = LM(arch, bf, dev, mesh_info=mesh_info_for(mesh, 1))
+    with _env(REPRO_EP_MODE="psum", REPRO_FUSED_SWIGLU="1", REPRO_KV_INT8="0"):
+        out["runs"][TP_RUN] = _ep_serve(lm, params, mi, _ep_prompts(arch), TP_RUN, False, False, TP_PATH,
+                                        prefill_lm=prefill_lm, steps=TP_STEPS)
+    free, total = torch.cuda.mem_get_info()
+    out.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9, card_used_gb=(total - free) / 1e9)
+    t0 = time.perf_counter()
+    out["parity"] = _ep_parity(lm, params, mi)
+    out["parity_s"] = time.perf_counter() - t0
+    del lm, prefill_lm, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ds = dataclasses.replace(deepseek_arch(), n_layers=2)
+    dlm = LM(ds, bf, dev, mesh_info=mi)
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    dparams = dlm.init(seed=0)
+    torch.cuda.synchronize()
+    out["deepseek"] = {"init_s": time.perf_counter() - t0,
+                       "weights_gb": (torch.cuda.memory_allocated() - before) / 1e9,
+                       "by_group": _weight_groups(dparams), "tp": dlm._tp()}
+    t0 = time.perf_counter()
+    out["deepseek"]["parity"] = _ep_parity(dlm, dparams, mi)
+    out["deepseek"]["parity_s"] = time.perf_counter() - t0
     return out
 
 
@@ -4104,6 +4283,70 @@ def phase_ep_kernels(arch, parent=None) -> dict:
     return {f"{name}{EP_SUFFIX}": dict(r, kernel=name) for name, r in results.items()}
 
 
+def _check_runs(ranks: list, runs, card: str) -> dict:
+    """The checks across the ranks of each phase-9 run ``(run, ep)``: equal
+    counts on every step; the ranks' drops, each data row's counted once,
+    adding up to the global count; with replicated dispatch the rows and
+    dispatch drops of the ranks holding an expert adding up to the
+    assignments routed to it; with the all-to-all the rows lost before the
+    exchange the sources' drops; the same tokens on every rank; head and
+    tail rows.  Returns each run's summary, and logs it."""
+    out = {}
+    for run, ep in runs:
+        recs = [r["runs"][run]["steps"] for r in ranks]
+        for i, step in enumerate(zip(*recs)):
+            if any(not (s["counts"] == step[0]["counts"]).all() for s in step[1:]):
+                fail(f"{run} step {i}: the ranks report different counts")
+            local_drops = sum(s["disp_drop"] + s["exec_drop"] for s in step) / step[0]["copies"]
+            if local_drops != step[0]["dropped"]:
+                fail(f"{run} step {i}: the ranks' drops add up to {local_drops}, the global count is "
+                     f"{step[0]['dropped']}")
+            if ep == "a2a" and sum(s["routed_local"] - s["arrived"] for s in step) != sum(
+                    s["disp_drop"] for s in step):
+                fail(f"{run} step {i}: the rows lost before the exchange are not the sources' drops")
+            if ep != "a2a":
+                for m in {r["model_index"] for r in ranks}:
+                    held = [s for r, s in zip(ranks, step) if r["model_index"] == m]
+                    if sum(s["arrived"] + s["disp_drop"] for s in held) != held[0]["copies"] * held[0]["routed_local"]:
+                        fail(f"{run} step {i}: the rows and dispatch drops of model rank {m}'s data ranks "
+                             f"do not add up to the {held[0]['routed_local']} assignments routed to its experts")
+        if any(r["runs"][run]["tokens"][-1].tolist() != ranks[0]["runs"][run]["tokens"][-1].tolist()
+               for r in ranks):
+            fail(f"{run}: the ranks generated different tokens")
+        dec = [[s for s in rr if s["kind"] == "decode"] for rr in recs]
+        pre = [s for s in recs[0] if s["kind"] == "prefill"]
+        summary = {
+            "launches_rank0": ranks[0]["runs"][run]["launches"],
+            "decode_step_ms": spread([s["step_ms"] for rr in dec for s in rr[2:]]),
+            "decode_moe_ms": spread([s["moe_ms"] for rr in dec for s in rr[2:]]),
+            "decode_coll_ms": spread([s["coll_ms"] for rr in dec for s in rr[2:]]),
+            "prefill_ms": [s["step_ms"] for s in pre],
+            "head_rows": sum(s["head"] for rr in recs for s in rr),
+            "tail_rows": sum(s["tail"] for rr in recs for s in rr),
+            "dropped": sum(s["dropped"] for s in recs[0]),
+            "routed": sum(int(s["counts"].sum()) for s in recs[0]),
+            "wall_s": max(r["runs"][run]["wall_s"] for r in ranks),
+        }
+        if summary["head_rows"] == 0 or summary["tail_rows"] == 0:
+            fail(f"{run}: the head or the tail never had a row ({summary})")
+        out[run] = summary
+        n_steps = len(dec[0])
+        log(f"ep {run}: decode step {summary['decode_step_ms']['median']:.1f} ms "
+            f"({summary['decode_step_ms']['min']:.1f}-{summary['decode_step_ms']['max']:.1f}, host clock, all "
+            f"ranks, steps 3-{n_steps}), a rank's MoE layers {summary['decode_moe_ms']['median']:.1f} ms "
+            f"(CUDA events), its collectives {summary['decode_coll_ms']['median']:.1f} ms (host clock); "
+            f"prefill {min(summary['prefill_ms'] or [0]):.0f}-{max(summary['prefill_ms'] or [0]):.0f} ms a "
+            f"prompt; head rows {summary['head_rows']}, tail rows {summary['tail_rows']}, dropped "
+            f"{summary['dropped']} of {summary['routed']}; rank 0 launches {summary['launches_rank0']}; run "
+            f"{summary['wall_s']:.1f} s | {card}")
+    return out
+
+
+def _log_groups(what: str, groups: dict, predicted: str) -> None:
+    log(f"{what}: " + ", ".join(f"{k} {v:.3f}" for k, v in groups.items())
+        + f" GB, in all {sum(groups.values()):.3f} GB (predicted from the shapes: {predicted})")
+
+
 def phase_ep(card: str) -> dict:
     """Phase 9: qwen3-moe at full width, cut to ``EP_LAYERS`` layers, as a
     (1, 8) mesh of ranks spawned by ``run_on_mesh``; on one card all eight
@@ -4112,7 +4355,7 @@ def phase_ep(card: str) -> dict:
     runs the four ``EP_RUNS`` with their checks and the 2-layer parity; a
     rank that fails fails the phase.  Then the checks across ranks: equal
     counts on every step, and the ranks' drops adding up to the global
-    drop count."""
+    drop count.  Then tensor parallelism on a (2, 4) mesh (``_tp_phase``)."""
     import torch
 
     from repro_torch.launch.mesh import run_on_mesh
@@ -4143,47 +4386,7 @@ def phase_ep(card: str) -> dict:
     except Exception as e:  # a rank's failure, with its traceback
         fail(f"phase 9 (expert parallelism): {e}")
     out = {"backend": backend, "layout": layout, "wall_s": time.perf_counter() - t0, "one_process": one,
-           "ranks": [], "runs": {}}
-    for run, ep, _, _ in EP_RUNS:
-        recs = [r["runs"][run]["steps"] for r in ranks]
-        for i, step in enumerate(zip(*recs)):
-            if any(not (s["counts"] == step[0]["counts"]).all() for s in step[1:]):
-                fail(f"{run} step {i}: the ranks report different counts")
-            local_drops = sum(s["disp_drop"] + s["exec_drop"] for s in step)
-            if local_drops != step[0]["dropped"]:
-                fail(f"{run} step {i}: the ranks' drops add up to {local_drops}, the global count is "
-                     f"{step[0]['dropped']}")
-            if ep == "a2a" and sum(s["routed_local"] - s["arrived"] for s in step) != sum(
-                    s["disp_drop"] for s in step):
-                fail(f"{run} step {i}: the rows lost before the exchange are not the sources' drops")
-        if any(r["runs"][run]["tokens"][-1].tolist() != ranks[0]["runs"][run]["tokens"][-1].tolist()
-               for r in ranks):
-            fail(f"{run}: the ranks generated different tokens")
-        dec = [[s for s in rr if s["kind"] == "decode"] for rr in recs]
-        pre = [s for s in recs[0] if s["kind"] == "prefill"]
-        summary = {
-            "launches_rank0": ranks[0]["runs"][run]["launches"],
-            "decode_step_ms": spread([s["step_ms"] for rr in dec for s in rr[2:]]),
-            "decode_moe_ms": spread([s["moe_ms"] for rr in dec for s in rr[2:]]),
-            "decode_coll_ms": spread([s["coll_ms"] for rr in dec for s in rr[2:]]),
-            "prefill_ms": [s["step_ms"] for s in pre],
-            "head_rows": sum(s["head"] for rr in recs for s in rr),
-            "tail_rows": sum(s["tail"] for rr in recs for s in rr),
-            "dropped": sum(s["dropped"] for s in recs[0]),
-            "routed": sum(int(s["counts"].sum()) for s in recs[0]),
-            "wall_s": max(r["runs"][run]["wall_s"] for r in ranks),
-        }
-        if summary["head_rows"] == 0 or summary["tail_rows"] == 0:
-            fail(f"{run}: the head or the tail never had a row ({summary})")
-        out["runs"][run] = summary
-        log(f"ep {run}: decode step {summary['decode_step_ms']['median']:.1f} ms "
-            f"({summary['decode_step_ms']['min']:.1f}-{summary['decode_step_ms']['max']:.1f}, host clock, all "
-            f"ranks, steps 3-{EP_STEPS}), a rank's MoE layers {summary['decode_moe_ms']['median']:.1f} ms "
-            f"(CUDA events), its collectives {summary['decode_coll_ms']['median']:.1f} ms (host clock); "
-            f"prefill {min(summary['prefill_ms'] or [0]):.0f}-{max(summary['prefill_ms'] or [0]):.0f} ms a "
-            f"prompt; head rows {summary['head_rows']}, tail rows {summary['tail_rows']}, dropped "
-            f"{summary['dropped']} of {summary['routed']}; rank 0 launches {summary['launches_rank0']}; run "
-            f"{summary['wall_s']:.1f} s | {card}")
+           "ranks": [], "runs": _check_runs(ranks, [(run, ep) for run, ep, _, _ in EP_RUNS], card)}
     for r in ranks:
         out["ranks"].append({k: r[k] for k in ("rank", "init_s", "weights_gb", "peak_gb", "card_used_gb",
                                                "parity_s")})
@@ -4202,7 +4405,70 @@ def phase_ep(card: str) -> dict:
     out["ep_over_one_process"] = ratio
     log(f"ep psum_fused decode step over the one-process eager step at {arch.n_layers} layers: x{ratio:.2f} "
         f"({layout}) | {card}")
+    out["by_group"] = ranks[0]["by_group"]
+    _log_groups(f"ep {EP_SHAPE} memory, rank 0's weights by group (tensor parallel: the vocabulary only)",
+                out["by_group"], "experts 1.812, attention 0.453, embedding/logits 0.156, in all 2.42; "
+                "3.52 with the vocabulary whole")
+    out["tp"] = _tp_phase(card, arch, backend, devices, layout)
     return out
+
+
+def _tp_phase(card: str, arch, backend: str, devices, layout: str) -> dict:
+    """Tensor parallelism: eight ranks as a (2, 4) mesh (``_tp_rank``), the
+    checks of the (1, 8) runs across ranks, a rank's weights by group, the
+    decode step and its collectives on the host clock, and the two 2-layer
+    parities (qwen3, deepseek-v2) against one process."""
+    from repro_torch.launch.mesh import run_on_mesh
+
+    m = TP_SHAPE[1]
+    log(f"tensor parallelism: {arch.name} at {arch.n_layers} layers on a {TP_SHAPE} mesh, {EP_SLOTS} slots over "
+        f"{TP_SHAPE[0]} data rows, attention split by heads ({arch.attn.n_heads // m} heads on "
+        f"{arch.attn.n_kv_heads // m} kv head a rank), the vocabulary {m} ways, "
+        f"{arch.moe.n_experts // m} experts a rank; {layout}")
+    t0 = time.perf_counter()
+    try:
+        ranks = run_on_mesh(_tp_rank, TP_SHAPE, backend, devices, args=(arch.n_layers,), timeout_s=600)
+    except Exception as e:  # a rank's failure, with its traceback
+        fail(f"phase 9 (tensor parallelism): {e}")
+    out = {"wall_s": time.perf_counter() - t0, "runs": _check_runs(ranks, [(TP_RUN, "psum")], card),
+           "ranks": [{k: r[k] for k in ("rank", "init_s", "weights_gb", "peak_gb", "card_used_gb", "parity_s")}
+                     for r in ranks]}
+    if not all(r["tp"] and r["deepseek"]["tp"] for r in ranks):
+        fail("tensor parallelism: attention is not split by heads on the (2, 4) mesh")
+    out["by_group"] = ranks[0]["by_group"]
+    _log_groups(f"tp {TP_SHAPE} memory, rank 0's qwen3 weights by group", out["by_group"],
+                "experts 3.62, attention 0.11, embedding/logits 0.31, in all ~4.05; ~5.32 without tensor "
+                "parallelism")
+    ds = out["deepseek"] = {k: ranks[0]["deepseek"][k] for k in ("weights_gb", "by_group", "init_s", "parity_s")}
+    _log_groups(f"tp {TP_SHAPE} memory, rank 0's deepseek-v2 2-layer slice by group", ds["by_group"],
+                "about 10.3 GB in all over the 8 ranks")
+    for name, par in (("qwen3", ranks[0]["parity"]), ("deepseek-v2", ranks[0]["deepseek"]["parity"])):
+        out[f"parity_{name}"] = par
+        log(f"tp parity, {name} 2-layer slice as a {TP_SHAPE} mesh against one process: " + ", ".join(
+            f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}" for k, v in par.items()))
+    run = out["runs"][TP_RUN]
+    log(f"tp {TP_RUN}: decode step {run['decode_step_ms']['median']:.1f} ms, a rank's collectives "
+        f"{run['decode_coll_ms']['median']:.1f} ms (host clock, gloo through host memory: not NVLink); rank "
+        f"init {max(r['init_s'] for r in ranks):.1f} s, qwen3 parity {max(r['parity_s'] for r in ranks):.1f} s, "
+        f"deepseek-v2 init {ds['init_s']:.1f} s and parity {ds['parity_s']:.1f} s; the ranks' wall "
+        f"{out['wall_s']:.1f} s | {card}")
+    return out
+
+
+def phase_tp_kernels() -> dict:
+    """Phase 3's row of the dense decode-attention kernel at a tensor-parallel
+    rank's decode shape: qwen3's attention on a (2, 4) mesh, 4 slots of a
+    data row, 8 heads on one kv head, dh 128, at lengths in the middle of
+    the (2, 4) run's decode."""
+    import numpy as np
+
+    lens = [len(p) + TP_STEPS // 2 for p in _ep_prompts(ep_arch())[: EP_SLOTS // TP_SHAPE[0]]]
+    rows = _attention_instance(TP_ROW, EP_SLOTS // TP_SHAPE[0], 8, 1, 128, ("dense",), seed=8,
+                               serving=np.asarray(lens))
+    for name, r in rows.items():
+        del r["entry"]
+        _log_row(name, r)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -4277,6 +4543,7 @@ def main() -> None:
     done("recurrent families (phase 10)")
     # phase 9 last: its eight ranks share the card once every other model is freed
     kernels.update(phase_ep_kernels(ep_arch(), parent))
+    kernels.update(phase_tp_kernels())
     ep = phase_ep(card)
     done("expert parallelism (phase 9)")
 
@@ -4291,6 +4558,7 @@ def main() -> None:
     launches.update({f"{k}{DSV2_SUFFIX}": deepseek["fused"]["launches"][k] for k in DSV2_FUSED_PATH})
     launches.update({f"{k}{DSV2_SUFFIX}": deepseek["three_call"]["launches"][k] for k in DSV2_THREE_CALL_PATH})
     launches.update({f"{k}{EP_SUFFIX}": ep["runs"]["a2a_fused"]["launches_rank0"][k] for k in EP_PATHS["1"]})
+    launches[f"decode_attention_{TP_ROW}"] = ep["tp"]["runs"][TP_RUN]["launches_rank0"]["decode_attention"]
     for name, r in kernels.items():
         if "path_launches" in r:
             launches[name] = r["path_launches"]
@@ -4309,6 +4577,7 @@ def main() -> None:
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, device=kind, build=build_info, kernels=kernels, held=held, serve=serve, families=families,
         deepseek=deepseek, training=training, recurrent=recurrent, ep=ep, elapsed_s=elapsed,
+        tokens=TOKEN_DIGESTS,
     ), indent=1, default=str))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -9,11 +9,12 @@ module imports neither JAX nor ``repro``.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.moe import LOCAL_MESH, MeshInfo
 from repro_torch.models.sharding import rank_cut
@@ -64,7 +65,8 @@ def _as_lists(tree, depth: int):
 
 
 def params_from_numpy(tree: Dict[str, Any], device, dtype: torch.dtype,
-                      mesh_info: MeshInfo = LOCAL_MESH) -> Dict[str, Any]:
+                      mesh_info: MeshInfo = LOCAL_MESH,
+                      arch: Optional[ArchConfig] = None) -> Dict[str, Any]:
     """Convert a JAX ``LM.init`` tree (leaves as numpy arrays) into the
     port's parameter dict.  The scan-stacked block trees (leading layer
     axis, ``repro/models/model.py:124-165``: ``blocks``, a dense prefix's
@@ -77,10 +79,13 @@ def params_from_numpy(tree: Dict[str, Any], device, dtype: torch.dtype,
     ``"cuda"`` without a GPU raises.
 
     With ``mesh_info`` the result is that rank's parameters
-    (``sharding.rank_cut``: its experts, every other leaf whole), cut on
-    the host before anything is copied to ``device``."""
+    (``sharding.rank_cut``: its experts, and its slices of the attention
+    heads, the dense and shared-expert FFNs and the vocabulary where the
+    model group divides them), cut on the host before anything is copied
+    to ``device``.  On a mesh a tree with any of those layers needs
+    ``arch``, which decides each layer's split (``sharding.tp_splits``)."""
     device = resolve_device(device)
-    tree = rank_cut(tree, mesh_info)
+    tree = rank_cut(tree, mesh_info, arch)
     depth = {**dict.fromkeys(_STACKED, 1), **dict.fromkeys(_STACKED_TWICE, 2)}
     return {k: _convert(_as_lists(v, depth.get(k, 0)), device, dtype, k) for k, v in tree.items()}
 

@@ -9,6 +9,13 @@ plain jnp in the reference.  GQA decode attention goes through the
 kernels on the card and their plain versions on the CPU.  MLA decode is
 the matrix-absorbed form in float32 einsums, as the reference computes it
 outside any kernel; cross-attention is the plain ``flash_attention``.
+
+On a mesh (``mi``) whose model group splits the heads
+(``sharding.tp_splits``), GQA and MLA run tensor-parallel: a rank holds
+its heads' slices of the projections, computes the one-process function
+on a config of its ``n_heads / m`` (and ``n_kv_heads / m``) heads, and the
+partial outputs of ``wo`` are summed over the group in float32
+(:func:`_project_out`); its GQA cache holds its kv heads.
 """
 
 from __future__ import annotations
@@ -19,7 +26,10 @@ import torch
 
 from repro_torch.configs.base import AttnConfig
 from repro_torch.kernels import ops, ref
+from . import collectives as coll
 from .layers import apply_mrope, apply_rope, he_init
+from .moe import LOCAL_MESH, MeshInfo
+from .sharding import rank_attn
 
 NEG_INF = -1e30
 
@@ -118,6 +128,13 @@ def decode_attention_ref(
     return ref.decode_attention_ref(q[:, 0], cache_k, cache_v, length)[:, None]
 
 
+def _project_out(o: torch.Tensor, wo: torch.Tensor, split: bool, mi: MeshInfo) -> torch.Tensor:
+    """``o @ wo``; with ``split`` (this rank holds some of the heads) the
+    rank's partial summed over the model group in float32, rounded once."""
+    y = o @ wo
+    return coll.row_parallel_sum(y, mi.model_group) if split else y
+
+
 def _rope_or_mrope(x, positions, cfg: AttnConfig, mrope_positions):
     if cfg.mrope_sections is not None and mrope_positions is not None:
         return apply_mrope(x, mrope_positions, cfg.rope_theta, cfg.mrope_sections)
@@ -161,11 +178,15 @@ def gqa_prefill(
     causal: bool = True,
     q_chunk: int = 1024,
     kv_chunk: int = 1024,
+    mi: MeshInfo = LOCAL_MESH,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    q, k, v = gqa_project_qkv(params, x, positions, cfg, mrope_positions)
+    """Returns (y, k, v): the output and the prompt's K/V (this rank's kv
+    heads where the heads are split over ``mi``'s model group)."""
+    local = rank_attn(cfg, mi)
+    q, k, v = gqa_project_qkv(params, x, positions, local, mrope_positions)
     o = flash_attention(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk)
     B, S = x.shape[:2]
-    return o.reshape(B, S, -1) @ params["wo"], k, v
+    return _project_out(o.reshape(B, S, -1), params["wo"], local is not cfg, mi), k, v
 
 
 def gqa_decode(
@@ -177,12 +198,16 @@ def gqa_decode(
     cfg: AttnConfig,
     mrope_positions: Optional[torch.Tensor] = None,  # (3, B, 1)
     use_rope: bool = True,
+    mi: MeshInfo = LOCAL_MESH,
 ) -> torch.Tensor:
     """One decode step.  Writes the new (k, v) row at ``position`` into the
     cache in place (the JAX engine gets the same effect from buffer
     donation) and returns the attention output.  ``use_rope=False``: no
-    rotation (whisper's decoder adds learned positions to its input)."""
-    q, k1, v1 = gqa_project_qkv(params, x, position[:, None], cfg, mrope_positions, use_rope)
+    rotation (whisper's decoder adds learned positions to its input).
+    Where the heads are split over ``mi``'s model group the cache holds
+    this rank's kv heads and the kernel runs at the rank's head count."""
+    local = rank_attn(cfg, mi)
+    q, k1, v1 = gqa_project_qkv(params, x, position[:, None], local, mrope_positions, use_rope)
     B = x.shape[0]
     rows = torch.arange(B, device=x.device)
     idx = position.long().clamp(0, cache_k.shape[1] - 1)  # JAX clamps the slice start
@@ -190,7 +215,7 @@ def gqa_decode(
     cache_v[rows, idx] = v1[:, 0].to(cache_v.dtype)
     lengths = (idx + 1).to(torch.int32)
     o = ops.decode_attention(q[:, 0].contiguous(), cache_k, cache_v, lengths)
-    return o.reshape(B, 1, -1) @ params["wo"]
+    return _project_out(o.reshape(B, 1, -1), params["wo"], local is not cfg, mi)
 
 
 # ---------------------------------------------------------------------------
@@ -398,8 +423,12 @@ def mla_prefill(
     cfg: AttnConfig,
     q_chunk: int = 1024,
     kv_chunk: int = 1024,
+    mi: MeshInfo = LOCAL_MESH,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (y, c_kv, k_rope): the output and the compressed caches."""
+    """Returns (y, c_kv, k_rope): the output and the compressed caches
+    (whole on every rank: the latent is shared by all heads)."""
+    local = rank_attn(cfg, mi)
+    split, cfg = local is not cfg, local
     m, H = cfg.mla, cfg.n_heads
     B, S, _ = x.shape
     q_nope, q_rope = _mla_q(params, x, positions, cfg)
@@ -409,7 +438,7 @@ def mla_prefill(
     qq = torch.cat([q_nope, q_rope], -1)
     kk = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, m.qk_rope_dim)], -1)
     o = flash_attention(qq, kk, v, causal=True, q_chunk=q_chunk, kv_chunk=kv_chunk)
-    return o.reshape(B, S, -1) @ params["wo"], c_kv, k_rope
+    return _project_out(o.reshape(B, S, -1), params["wo"], split, mi), c_kv, k_rope
 
 
 def mla_decode(
@@ -419,12 +448,17 @@ def mla_decode(
     cache_ckv: torch.Tensor,  # (B, T, kv_lora), updated in place
     cache_kr: torch.Tensor,  # (B, T, qk_rope), updated in place
     cfg: AttnConfig,
+    mi: MeshInfo = LOCAL_MESH,
 ) -> torch.Tensor:
     """Matrix-absorbed MLA decode: attention runs in the compressed latent
     space, in float32 as the reference computes it.  Writes the step's
     ``(c_kv, k_rope)`` row at ``position`` into the caches in place (the
     row index clamped to the cache, as ``dynamic_update_slice`` clamps its
-    start) and attends over positions ``t < position + 1``."""
+    start) and attends over positions ``t < position + 1``.  Where the
+    heads are split over ``mi``'s model group a rank attends with its
+    heads over the whole latent cache, which every rank writes alike."""
+    local = rank_attn(cfg, mi)
+    split, cfg = local is not cfg, local
     m, H = cfg.mla, cfg.n_heads
     B, T = cache_ckv.shape[:2]
     q_nope, q_rope = _mla_q(params, x, position[:, None], cfg)
@@ -447,7 +481,7 @@ def mla_decode(
     ctx_lat = torch.einsum("bht,btc->bhc", p, ckv)
     w_uv = params["w_uv"].reshape(-1, H, m.v_head_dim).float()  # (c, H, v)
     o = torch.einsum("bhc,chv->bhv", ctx_lat, w_uv)
-    return o.reshape(B, 1, -1).to(x.dtype) @ params["wo"]
+    return _project_out(o.reshape(B, 1, -1).to(x.dtype), params["wo"], split, mi)
 
 
 # ---------------------------------------------------------------------------

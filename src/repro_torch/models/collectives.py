@@ -1,6 +1,8 @@
-"""The collectives the expert-parallel and sequence-parallel paths run over
-a ``torch.distributed`` process group (the ``psum``/``pmax``/
-``all_gather``/``all_to_all`` of the JAX package's ``shard_map`` bodies).
+"""The collectives the expert-, tensor- and sequence-parallel paths run
+over a ``torch.distributed`` process group (the ``psum``/``pmax``/
+``all_gather``/``all_to_all`` of the JAX package's ``shard_map`` bodies,
+and the reductions and gathers GSPMD inserts around its tensor-parallel
+layouts).
 
 Each takes the group of one mesh axis (``MeshInfo.model_group`` and the
 like).  A group of one rank, or none, is the identity, as a collective over
@@ -51,6 +53,15 @@ def all_reduce_sum(parts, group) -> list:
     return out
 
 
+def row_parallel_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of each rank's partial ``t`` (the output of a
+    row-parallel layer, or a vocab-parallel lookup), added in float32 and
+    rounded once to ``t``'s dtype."""
+    if group_size(group) == 1:
+        return t
+    return all_reduce(t.float(), group).to(t.dtype)
+
+
 def _bytes(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().reshape(-1).view(torch.uint8)
 
@@ -85,3 +96,13 @@ def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     dist.all_to_all_single(out, src, group=group)
     return out.to(t.device).view(t.dtype).reshape(t.shape)
 
+
+def gather_last(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``t`` laid side by side along the last axis in the
+    group's rank order: the whole vocabulary from each rank's columns of
+    the logits."""
+    n = group_size(group)
+    if n == 1:
+        return t
+    parts = all_gather(t, group)  # (n, ..., V / n)
+    return parts.movedim(0, -2).reshape(tuple(t.shape[:-1]) + (n * t.shape[-1],))

@@ -3,7 +3,9 @@ sinusoidal positions (counterpart of ``repro.models.layers``).
 
 Plain functions on tensors.  Compute runs in the activation dtype with
 float32 islands where the JAX reference has them (norm statistics, rotary
-phases).
+phases).  The MLP, the embedding and the logits take an optional process
+group: on a mesh a rank holds a slice of their weights
+(:mod:`repro_torch.models.sharding`) and the group joins the partials.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from . import collectives as coll
 
 
 def he_init(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
@@ -54,7 +58,10 @@ def init_mlp(gen, d_model: int, d_ff: int, act: str, dtype, device) -> dict:
     return p
 
 
-def apply_mlp(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+def apply_mlp(params: dict, x: torch.Tensor, act: str, group=None) -> torch.Tensor:
+    """The MLP; with ``group`` this rank holds columns of ``w_gate``/``w_up``
+    and the same rows of ``w_down`` (column- then row-parallel), and the
+    partial outputs are summed over the group."""
     up = x @ params["w_up"]
     if act == "swiglu":
         h = F.silu(x @ params["w_gate"]) * up
@@ -62,22 +69,33 @@ def apply_mlp(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
         h = F.gelu(up, approximate="tanh")  # jax.nn.gelu's default
     else:
         raise ValueError(f"unknown act {act!r}")
-    return h @ params["w_down"]
+    return coll.row_parallel_sum(h @ params["w_down"], group)
 
 
-def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def embed(table: torch.Tensor, tokens: torch.Tensor, group=None, first_row: int = 0) -> torch.Tensor:
     """``table[tokens]``.  ``F.embedding`` computes the same rows; its
     backward sums a repeated token's rows by sorting, where the backward
-    of advanced indexing walks a token's repeats one after another."""
-    return F.embedding(tokens, table)
+    of advanced indexing walks a token's repeats one after another.
+
+    Vocab-parallel with ``group``: ``table`` holds rows ``[first_row,
+    first_row + n)`` of the vocabulary, a rank looks up the tokens that
+    fall there (zeros elsewhere) and the rows are summed over the group,
+    exactly: one rank contributes each."""
+    if group is None:
+        return F.embedding(tokens, table)
+    local = tokens.long() - first_row
+    mine = (local >= 0) & (local < table.shape[0])
+    rows = F.embedding(torch.where(mine, local, 0), table) * mine[..., None].to(table.dtype)
+    return coll.row_parallel_sum(rows, group)
 
 
 def lm_logits(h: torch.Tensor, table: torch.Tensor,
-              w_out: Optional[torch.Tensor]) -> torch.Tensor:
-    """Project to the vocabulary.  ``w_out`` is None for tied embeddings."""
-    if w_out is not None:
-        return h @ w_out
-    return h @ table.T
+              w_out: Optional[torch.Tensor], group=None) -> torch.Tensor:
+    """Project to the vocabulary.  ``w_out`` is None for tied embeddings.
+    Vocab-parallel with ``group``: this rank's columns of the logits, then
+    gathered to the whole vocabulary in rank order."""
+    logits = h @ w_out if w_out is not None else h @ table.T
+    return coll.gather_last(logits, group)
 
 
 def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:

@@ -24,11 +24,13 @@ a block axis) and are updated in place.
 On a mesh (``LM(mesh_info=...)``, from :mod:`repro_torch.launch.mesh`)
 every rank runs the same entry points on the global batch, as the JAX
 ones run under ``shard_map`` and GSPMD: a rank computes its rows of the
-batch, holds its experts (:mod:`repro_torch.models.sharding`) and its rows
-of the cache (and, when the kv heads do not divide the model group, its
-slice of the positions: sequence-parallel decode), and returns the global
-logits and step counts.  The hybrid, ssm and audio families run on one
-process only.
+batch, holds its experts and, tensor-parallel, its slices of the
+attention heads, the dense and shared-expert FFNs and the vocabulary
+(:mod:`repro_torch.models.sharding`), and its rows of the cache (its kv
+heads where the heads are split; when the kv heads do not divide the
+model group, its slice of the positions: sequence-parallel decode), and
+returns the global logits and step counts.  The hybrid, ssm and audio
+families run on one process only.
 
 Training (:meth:`LM.forward`, :meth:`LM.loss`) runs the decoder-only
 families under autograd on one process; ``remat=True`` recomputes each
@@ -54,7 +56,8 @@ from . import ssm
 from .attention import project_cross_kv
 from .layers import apply_norm, embed, init_norm, lm_logits, sinusoidal_positions
 from .moe import LOCAL_MESH, MeshInfo
-from .sharding import batch_rows, expert_rows, is_expert_leaf, leaf_seed, seq_positions
+from .sharding import (batch_rows, expert_rows, is_expert_leaf, leaf_seed, padded_vocab, rank_attn,
+                       rank_slice, seq_positions, tp_axis, tp_group, tp_splits)
 from .ssm import Mamba2State, RWKV6State
 from .transformer import BlockAux
 
@@ -140,7 +143,7 @@ class LM:
         self.remat = remat
         self.loss_chunk = loss_chunk
         # vocab padded to a multiple of 128; padded logits are masked
-        self.vocab_padded = -(-arch.vocab_size // 128) * 128
+        self.vocab_padded = padded_vocab(arch)
 
     # ------------------------------------------------------------------
     def init(self, seed: int, keyed: bool = False) -> Dict[str, Any]:
@@ -205,23 +208,30 @@ class LM:
     def _keyed_init(self, seed: int) -> Dict[str, Any]:
         """``init(keyed=True)``: the tree of ``_draw``, each leaf drawn from
         the same distribution by a generator of its own; expert stacks only
-        at this rank's rows (``sharding.expert_rows``)."""
-        dev = self.device
+        at this rank's rows (``sharding.expert_rows``), and the other leaves
+        that the model group splits (``sharding.tp_axis``) drawn whole in
+        float32 and cut to this rank's slice before the cast, so the rank
+        holds the numbers of a one-process keyed draw."""
+        dev, m = self.device, self.mi.ep_size
 
         def normals(key, shape):
             gen = torch.Generator(device=dev)
             gen.manual_seed(leaf_seed(seed, *key))
             return torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
 
-        def draw(key, shape, scale, dtype):
-            return normals(key, shape).mul_(scale).to(dtype)
+        def draw(key, shape, scale, dtype, axis=None):
+            w = normals(key, shape)
+            if axis is None:
+                return w.mul_(scale).to(dtype)
+            return rank_slice(w, axis, self.mi).mul(scale).to(dtype)
 
         def leaf(path, t):
             name = path[-1]
-            if name in ("scale", "q_norm_scale", "kv_norm_scale"):
-                return torch.ones(t.shape, dtype=t.dtype, device=dev)
-            if name in ("bias", "bq", "bk", "bv"):
-                return torch.zeros(t.shape, dtype=t.dtype, device=dev)
+            axis = None if is_expert_leaf(path) else tp_axis(path, t.shape, self.arch, m)
+            if name in ("scale", "q_norm_scale", "kv_norm_scale", "bias", "bq", "bk", "bv"):
+                shape = t.shape if axis is None else rank_slice(t, axis, self.mi).shape
+                fill = torch.ones if name in ("scale", "q_norm_scale", "kv_norm_scale") else torch.zeros
+                return fill(shape, dtype=t.dtype, device=dev)
             if is_expert_leaf(path):
                 rows = expert_rows(t.shape[0], self.mi)
                 return torch.stack([draw(path + (e,), t.shape[1:], t.shape[-2] ** -0.5, t.dtype)
@@ -232,7 +242,7 @@ class LM:
             # decoder positions: * 0.01; others He
             scale = {"embed": 0.02, "w_out": 0.02, "w_router": 0.02, "dec_pos": 0.01}.get(
                 name, t.shape[-2] ** -0.5)
-            return draw(path, t.shape, scale, t.dtype)
+            return draw(path, t.shape, scale, t.dtype, axis)
 
         def walk(tree, path=()):
             if isinstance(tree, dict):
@@ -271,6 +281,15 @@ class LM:
         a, mi = self.arch.attn, self.mi
         return (a.kind == "gqa" and a.mrope_sections is None and mi.ep_size > 1
                 and a.n_kv_heads % mi.ep_size != 0)
+
+    def _tp(self) -> bool:
+        """Head-sharded attention (tensor parallelism): on a mesh whose model
+        group divides the heads (and a GQA model's kv heads), a rank holds
+        its heads' slices of the projections and, of a GQA cache, its kv
+        heads (``sharding.tp_splits``).  The dense and shared-expert FFNs
+        and the vocabulary split wherever the group divides them, whatever
+        this says; ``_tp`` and ``_seq_par`` never both hold."""
+        return tp_splits("attn", self.arch, self.mi.ep_size)
 
     def _kv_int8(self) -> bool:
         """``REPRO_KV_INT8=1``: int8 K/V with float32 per-(token, head)
@@ -311,7 +330,7 @@ class LM:
         if a.kind == "mla":
             m = a.mla
             return self._caches([(batch, max_seq, m.kv_lora_rank), (batch, max_seq, m.qk_rope_dim)])
-        shape = (batch, max_seq, a.n_kv_heads, a.d_head)
+        shape = (batch, max_seq, rank_attn(a, self.mi).n_kv_heads, a.d_head)
         if self._kv_int8():
             return self._caches([shape, shape, shape[:3], shape[:3]],
                                 [torch.int8, torch.int8, torch.float32, torch.float32])
@@ -398,8 +417,13 @@ class LM:
                     dst[:, :, : hi - lo].copy_(src[:, :, lo:hi])
         return cache
 
+    def _vocab_group(self):
+        """The model group where it splits the padded vocabulary (the
+        embedding's rows, ``w_out``'s columns), else None."""
+        return tp_group("vocab", self.arch, self.mi)
+
     def _logits(self, p, h: torch.Tensor) -> torch.Tensor:
-        logits = lm_logits(h, p["embed"], p.get("w_out"))
+        logits = lm_logits(h, p["embed"], p.get("w_out"), self._vocab_group())
         if self.vocab_padded != self.arch.vocab_size:
             live = torch.arange(self.vocab_padded, device=h.device) < self.arch.vocab_size
             logits = torch.where(live, logits, -1e30)
@@ -411,7 +435,9 @@ class LM:
         if "embeds" in batch:
             x = batch["embeds"].to(self.dtype)
         else:
-            x = embed(p["embed"], batch["tokens"])
+            group = self._vocab_group()
+            first = 0 if group is None else self.mi.model_index * p["embed"].shape[0]
+            x = embed(p["embed"], batch["tokens"], group, first)
         return x, batch.get("mrope_positions")
 
     def stub_inputs(self, batch: int, seq: int, seed: int) -> Dict[str, torch.Tensor]:

@@ -45,7 +45,8 @@ from repro_torch.core.scheduler_torch import (
 )
 from repro_torch.kernels import ops
 from . import collectives as coll
-from .layers import he_init
+from .layers import apply_mlp, he_init
+from .sharding import tp_group
 
 
 class MeshInfo(NamedTuple):
@@ -574,7 +575,10 @@ def _routed_params(params: dict) -> dict:
 def moe_block(params: dict, x: torch.Tensor, arch: ArchConfig,
               mi: MeshInfo = LOCAL_MESH, sieve: Optional[SieveState] = None) -> MoEOut:
     """Routed experts (expert-parallel on a mesh) plus shared experts,
-    which every token visits and every rank holds whole.
+    which every token visits: on a mesh whose model group divides their
+    ``n_shared * d_expert`` columns a rank holds a column slice of
+    ``w_gate``/``w_up`` and the same rows of ``w_down``, and their partial
+    outputs are summed over the group (column- then row-parallel).
 
     ``x`` is this rank's rows of the batch.  Expert parallelism runs when
     the model group has more than one rank and divides the experts;
@@ -601,6 +605,6 @@ def moe_block(params: dict, x: torch.Tensor, arch: ArchConfig,
         routed = moe_local(routed_params, xt, arch, sieve=sieve)
     y = routed.y
     if cfg.n_shared:
-        sp = params["shared"]
-        y = y + (F.silu(xt @ sp["w_gate"]) * (xt @ sp["w_up"])) @ sp["w_down"]
+        group = tp_group("shared", arch, mi)
+        y = y + apply_mlp(params["shared"], xt, "swiglu", group)
     return MoEOut(y.reshape(B, S, d), routed.aux_loss, routed.counts, routed.n_dropped)

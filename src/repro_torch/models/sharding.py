@@ -1,32 +1,71 @@
 """What one rank of a mesh holds (counterpart of ``repro.models.sharding``'s
-``param_pspecs``/``cache_pspecs``, cut to the expert-parallel path).
+``param_pspecs``/``cache_pspecs``, cut to the decoder-only families).
 
-GSPMD's layouts become the slices a rank keeps:
+GSPMD's layouts over the ``"model"`` axis become the slices a rank keeps.
+With m ranks in the model group, model rank r holds, wherever m divides
+the dimension (:func:`tp_splits` decides it layer by layer from the arch,
+and both :func:`tp_axis`, which cuts the leaves, and :func:`tp_group`,
+which gives a layer the group it sums over, ask it):
 
-* **Experts.**  The stacked ``w_gate``/``w_up``/``w_down`` of a MoE layer
-  keep rows ``[m * E_loc, (m + 1) * E_loc)`` on model rank ``m`` when the
-  model group divides the experts; otherwise every rank holds them all, as
-  ``param_pspecs`` replicates an expert axis it cannot divide.
-* **Everything else is replicated**: attention, the router, norms,
-  embeddings, logits, shared experts and the dense prefix.  GSPMD shards
-  those over the model axis as tensor parallelism, a layout that does not
-  change the result; the port has no tensor-parallel layers yet.
-* **Caches.**  A rank holds its ``B / dp`` rows of the batch and, on the
-  sequence-parallel decode path, its ``T / ep`` slice of the positions.
+* **Routed experts** (expert parallelism): rows ``[r * E / m, ...)`` of
+  the stacked ``w_gate``/``w_up``/``w_down``.
+* **Attention** (tensor parallelism): GQA's ``wq``, ``wk``, ``wv`` and
+  their biases by output columns, heads ``[r * H / m, ...)`` and kv heads
+  ``[r * Kv / m, ...)``, and ``wo`` by the same heads' rows; MLA's
+  ``w_uq``, ``w_uk``, ``w_uv`` by heads and ``wo`` by their rows, the
+  low-rank down projections ``w_dq``, ``w_dkv``, ``w_kr`` and the norms
+  whole, as ``param_pspecs`` keeps them.
+* **Dense FFN and shared experts**: ``w_gate``/``w_up`` by columns
+  ``[r * F / m, ...)``, ``w_down`` by the same rows.
+* **Embedding and logits** (vocab parallelism): rows ``[r * V / m, ...)``
+  of the padded ``embed`` table, columns of ``w_out``.
+* The router, the norms and every other leaf whole.
 
-``repro.models.shard_compat`` (a ``shard_map`` shim over JAX versions) has
-no counterpart, and neither has ``LM._sp`` (a sharding constraint that
-moves no value).
+A row-parallel layer's rank computes the one-process function on its
+slices (``n_heads / m`` heads, ``d_ff / m`` columns) and the partial
+outputs are summed over the model group in float32, rounded once
+(``collectives.row_parallel_sum``).  After every such sum each model rank
+holds the whole residual stream, which is what the expert-parallel bodies
+take.  A vocab-parallel lookup sums masked local rows; the logits are
+gathered to the whole vocabulary before the padding mask.
+
+Where the port's layout is its own (none of these changes a value, only
+what a rank holds):
+
+* **Attention is split by whole heads only, where m divides both H and
+  Kv.**  Otherwise it stays whole on every rank and decode runs
+  sequence-parallel over the cache (qwen3's 4 kv heads on 8 ranks);
+  ``param_pspecs`` then splits ``wk``/``wv`` by columns mid-head and GSPMD
+  regathers, which an explicit layout cannot follow.
+* **MLA's latent cache** ``(c_kv, k_rope)`` stays whole on each model rank
+  for its batch rows: each rank's heads need all of it.  ``cache_pspecs``
+  splits its sequence and GSPMD gathers it for the absorbed attention.
+* **A dimension m does not divide** leaves the leaf whole, as
+  ``param_pspecs`` replicates it.
+
+Caches: a rank holds its ``B / dp`` rows of the batch and, of a GQA cache,
+``Kv / m`` kv heads where attention is split by heads
+(``cache_pspecs``' head rule), or its ``T / m`` slice of the positions on
+the sequence-parallel path.  ``repro.models.shard_compat`` (a
+``shard_map`` shim over JAX versions) has no counterpart, and neither has
+``LM._sp`` (Megatron-SP, a sharding constraint that moves no value).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
-from typing import Any
+from typing import TYPE_CHECKING, Any, Optional
 
-from .moe import MeshInfo
+from repro_torch.configs.base import ArchConfig, AttnConfig
+
+if TYPE_CHECKING:  # moe.py imports this module
+    from .moe import MeshInfo
 
 EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+# attention leaves split by output columns (heads), and by rows
+_ATTN_COLUMNS = ("wq", "wk", "wv", "bq", "bk", "bv", "w_uq", "w_uk", "w_uv")
+_ATTN_ROWS = ("wo",)
 
 
 def expert_rows(n_experts: int, mi: MeshInfo) -> slice:
@@ -62,20 +101,126 @@ def is_expert_leaf(path) -> bool:
     return bool(path) and path[-1] in EXPERT_LEAVES and "moe" in path and "shared" not in path
 
 
-def rank_cut(tree: Any, mi: MeshInfo, path=()) -> Any:
+def heads_split(cfg: AttnConfig, m: int) -> bool:
+    """Whether attention is split by heads over a model group of ``m``:
+    whole heads only, and for GQA whole kv heads too."""
+    if m <= 1 or cfg.kind not in ("gqa", "mla") or cfg.n_heads % m:
+        return False
+    return cfg.kind == "mla" or cfg.n_kv_heads % m == 0
+
+
+def rank_attn(cfg: AttnConfig, mi: MeshInfo) -> AttnConfig:
+    """The attention config of this rank's heads: ``n_heads / m`` and
+    ``n_kv_heads / m`` where attention is split by heads, else ``cfg``."""
+    m = mi.ep_size
+    if not heads_split(cfg, m):
+        return cfg
+    kv = cfg.n_kv_heads // m if cfg.kind == "gqa" else cfg.n_kv_heads
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // m, n_kv_heads=kv)
+
+
+def padded_vocab(arch: ArchConfig) -> int:
+    """The embedding's rows and ``w_out``'s columns: the vocabulary padded
+    to a multiple of 128."""
+    return -(-arch.vocab_size // 128) * 128
+
+
+TP_LAYERS = ("attn", "mlp", "shared", "vocab")
+
+
+def tp_splits(layer: str, arch: ArchConfig, m: int) -> bool:
+    """Whether a model group of ``m`` splits ``layer`` of ``arch``: attention
+    by heads (:func:`heads_split`), the dense FFN by ``d_ff`` columns, the
+    shared experts by ``n_shared * d_expert`` columns, the vocabulary by
+    padded rows, each where m divides it.  The one decision behind a
+    rank's slices and its layers' sums."""
+    if layer not in TP_LAYERS:
+        raise ValueError(f"no tensor-parallel layer {layer!r}; one of {TP_LAYERS}")
+    if m <= 1:
+        return False
+    if layer == "attn":
+        return heads_split(arch.attn, m)
+    if layer == "shared":
+        if arch.moe is None or not arch.moe.n_shared:
+            return False
+        width = arch.moe.n_shared * arch.moe.d_expert
+    else:
+        width = arch.d_ff if layer == "mlp" else padded_vocab(arch)
+    return width % m == 0
+
+
+def tp_group(layer: str, arch: ArchConfig, mi: MeshInfo):
+    """The model group that ``layer``'s partials are summed or gathered over
+    where :func:`tp_splits` splits it, else None (the one-process layer)."""
+    return mi.model_group if tp_splits(layer, arch, mi.ep_size) else None
+
+
+def _tp_leaf(keys: list):
+    """The tensor-parallel layer of a leaf (its path's keys) and the axis a
+    rank slices, counted from the end; None for a leaf no layer splits."""
+    name = keys[-1]
+    if keys == ["embed"]:
+        return "vocab", -2
+    if keys == ["w_out"]:
+        return "vocab", -1
+    layer = ("shared" if "moe" in keys and "shared" in keys else "mlp" if "mlp" in keys
+             else "attn" if "attn" in keys else None)
+    if layer == "attn":
+        return (layer, -1) if name in _ATTN_COLUMNS else (layer, -2) if name in _ATTN_ROWS else None
+    if layer is not None and name in EXPERT_LEAVES:
+        return layer, -2 if name == "w_down" else -1
+    return None
+
+
+def tp_axis(path, shape, arch: Optional[ArchConfig], m: int) -> Optional[int]:
+    """The axis (counted from the end) along which a rank of a model group
+    of ``m`` holds a slice of the leaf at ``path`` (its keys; list indices
+    and leading stacked dims are ignored), or None for a leaf it holds
+    whole: ``param_pspecs``' rule cut to the layouts of the module
+    docstring.  Routed expert stacks split by their own count (as
+    :func:`expert_rows`); every other leaf as :func:`tp_splits` decides for
+    its layer, so a tree with such leaves needs ``arch``."""
+    if m <= 1 or not path:
+        return None
+    keys = [k for k in path if isinstance(k, str)]
+    if is_expert_leaf(keys):
+        return -3 if len(shape) >= 3 and shape[-3] % m == 0 else None
+    leaf = _tp_leaf(keys) if keys else None
+    if leaf is None:
+        return None
+    layer, axis = leaf
+    if arch is None:
+        raise ValueError(f"the split of leaf {'/'.join(keys)} depends on the {layer} layer's "
+                         "dimensions: pass the arch")
+    if not tp_splits(layer, arch, m):
+        return None
+    if shape[axis] % m:
+        raise ValueError(f"leaf {'/'.join(keys)} of shape {tuple(shape)} does not split over {m} "
+                         f"ranks, which the arch splits its {layer} layer over")
+    return axis
+
+
+def rank_slice(a, axis: int, mi: MeshInfo):
+    """Model rank ``mi.model_index``'s slice of ``a`` (numpy or torch) along
+    ``axis``: a view."""
+    n = a.shape[axis] // mi.ep_size
+    idx = [slice(None)] * a.ndim
+    idx[axis] = slice(mi.model_index * n, (mi.model_index + 1) * n)
+    return a[tuple(idx)]
+
+
+def rank_cut(tree: Any, mi: MeshInfo, arch: Optional[ArchConfig] = None, path=()) -> Any:
     """This rank's part of a parameter tree (nested dicts of arrays or
-    tensors, scan-stacked or not): expert stacks sliced on their expert
-    axis (third from last), every other leaf as it is.  Slicing a numpy
-    tree before it is copied to the card keeps the other ranks' experts
-    off it."""
+    tensors, scan-stacked or not): each leaf sliced as :func:`tp_axis`
+    says (views), every other leaf as it is.  Slicing a numpy tree before
+    it is copied to the card keeps the other ranks' slices off it.
+    ``arch`` is needed for a tree with leaves of a tensor-parallel layer."""
     if isinstance(tree, dict):
-        return {k: rank_cut(v, mi, path + (k,)) for k, v in tree.items()}
+        return {k: rank_cut(v, mi, arch, path + (k,)) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [rank_cut(v, mi, path) for v in tree]
-    if is_expert_leaf(path) and tree.ndim >= 3:
-        rows = expert_rows(tree.shape[-3], mi)
-        return tree[(Ellipsis, rows, slice(None), slice(None))]
-    return tree
+        return [rank_cut(v, mi, arch, path) for v in tree]
+    axis = tp_axis(path, tree.shape, arch, mi.ep_size)
+    return tree if axis is None else rank_slice(tree, axis, mi)
 
 
 def leaf_seed(seed: int, *key) -> int:

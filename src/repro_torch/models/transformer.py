@@ -18,6 +18,7 @@ from . import attention as attn_lib
 from . import ssm as ssm_lib
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
 from .moe import LOCAL_MESH, MeshInfo, MoEOut, init_moe, moe_block
+from .sharding import tp_group
 
 
 class BlockAux(NamedTuple):
@@ -58,7 +59,8 @@ def _ffn(p: dict, x: torch.Tensor, h: torch.Tensor, arch: ArchConfig, moe: bool,
     if moe:
         out: MoEOut = moe_block(p["moe"], h, arch, mi, sieve=sieve)
         return x + out.y, BlockAux(out.aux_loss, out.counts, out.n_dropped)
-    return x + apply_mlp(p["mlp"], h, arch.act), _zero_aux(x.device)
+    # column- then row-parallel where the model group divides d_ff
+    return x + apply_mlp(p["mlp"], h, arch.act, tp_group("mlp", arch, mi)), _zero_aux(x.device)
 
 
 def attn_mlp_block_seq(
@@ -75,14 +77,15 @@ def attn_mlp_block_seq(
 ):
     """Full-sequence block (prefill).  Returns (x, cache, aux), the cache
     ``(k, v)`` or, for MLA, ``(c_kv, k_rope)``.  On a mesh ``x`` is this
-    rank's rows and the MoE is expert-parallel."""
+    rank's rows, the MoE is expert-parallel and attention and the dense FFN
+    tensor-parallel where the model group divides them."""
     h = apply_norm(p["norm1"], x, arch.norm)
     if arch.attn.kind == "mla":
-        a, *cache = attn_lib.mla_prefill(p["attn"], h, positions, arch.attn, q_chunk, kv_chunk)
+        a, *cache = attn_lib.mla_prefill(p["attn"], h, positions, arch.attn, q_chunk, kv_chunk, mi)
     else:
         a, *cache = attn_lib.gqa_prefill(
             p["attn"], h, positions, arch.attn, mrope_positions, causal=True,
-            q_chunk=q_chunk, kv_chunk=kv_chunk,
+            q_chunk=q_chunk, kv_chunk=kv_chunk, mi=mi,
         )
     x = x + a
     h = apply_norm(p["norm2"], x, arch.norm)
@@ -114,13 +117,13 @@ def attn_mlp_block_decode(
         a = attn_lib.gqa_decode_seqpar(p["attn"], h, position, cache[0], cache[1], arch.attn, mi,
                                        kv_scales=scales)
     elif arch.attn.kind == "mla":
-        a = attn_lib.mla_decode(p["attn"], h, position, cache[0], cache[1], arch.attn)
+        a = attn_lib.mla_decode(p["attn"], h, position, cache[0], cache[1], arch.attn, mi)
     elif paged is not None:
         a = attn_lib.gqa_decode_paged(p["attn"], h, position, cache[0], cache[1], paged, arch.attn,
                                       mrope_positions)
     else:
         a = attn_lib.gqa_decode(p["attn"], h, position, cache[0], cache[1], arch.attn,
-                                mrope_positions)
+                                mrope_positions, mi=mi)
     x = x + a
     h = apply_norm(p["norm2"], x, arch.norm)
     return _ffn(p, x, h, arch, moe, sieve, mi)

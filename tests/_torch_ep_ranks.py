@@ -88,7 +88,7 @@ def _lm(inp: dict, mesh, ep: str) -> dict:
     arch = cases.lm_arch(get_arch)
     mi = mesh_info_for(mesh, cases.LM_BATCH)
     lm = LM(arch, dtype=torch.float32, device="cpu", mesh_info=mi)
-    params = params_from_numpy(cases.unflatten(inp, "lm/params/"), "cpu", torch.float32, mi)
+    params = params_from_numpy(cases.unflatten(inp, "lm/params/"), "cpu", torch.float32, mi, arch)
     calls = {}
     _count_bodies(calls)
     logits, cache, aux = lm.prefill(params, {"tokens": _t(inp["lm/tokens"])},
@@ -115,7 +115,7 @@ def _lm_int8(inp: dict, mi) -> list:
     whether the two runs routed alike (equal per-layer counts)."""
     arch = cases.lm_arch(get_arch)
     lm = LM(arch, dtype=torch.float32, device="cpu", mesh_info=mi)
-    params = params_from_numpy(cases.unflatten(inp, "lm/params/"), "cpu", torch.float32, mi)
+    params = params_from_numpy(cases.unflatten(inp, "lm/params/"), "cpu", torch.float32, mi, arch)
     tokens = _t(inp["lm/tokens"])
     runs = []
     for int8 in ("0", "1"):

@@ -662,6 +662,35 @@ class TestExpertParallel:
                 assert all(n == 0 for k, n in got["launches"].items() if k not in path), (ep, got["launches"])
 
 
+@pytest.mark.cuda
+class TestTensorParallel:
+    def test_head_sharded_decode_matches_one_process(self, cuda):
+        """Four ranks share the card on gloo as a (1, 4) mesh: qwen3-moe's
+        attention (32 heads on 4 kv heads, dh 128) split by heads, 8 heads
+        on one kv head a rank.  Each rank's decode step, its partial of
+        ``wo`` summed over the group, equals the one-process step on the
+        card within the bf16 tolerance, and so does the rank's cache against
+        the one process's at its kv head (the new row projected by a
+        narrower product); and the step
+        launched ``decode_attention`` once, at the rank's head count, and
+        no other kernel."""
+        import _torch_tp_ranks
+        from repro_torch.kernels import build
+        from repro_torch.launch.mesh import run_on_mesh
+
+        build.build(build.KERNELS)  # once, before the ranks load the libraries
+        ranks = run_on_mesh(_torch_tp_ranks.cuda_rank_main, (1, 4), "gloo", "cuda:0")
+        for r in ranks:
+            assert r["heads"] == (8, 1)
+            assert torch.isfinite(r["mesh"].float()).all()
+            assert torch.allclose(r["mesh"].float(), r["one"].float(), **TOL), float(
+                (r["mesh"].float() - r["one"].float()).abs().max())
+            for got, want in zip(r["rank_cache"], r["one_cache"]):
+                assert torch.allclose(got.float(), want.float(), **TOL)
+            assert r["launches"].get("decode_attention") == 1, r["launches"]
+            assert all(n == 0 for k, n in r["launches"].items() if k != "decode_attention"), r["launches"]
+
+
 def _card_proxy():
     """The qwen3-moe proxy of the CPU tests with the head dim the attention
     kernels take (128; the proxy's 32 is refused on the card)."""
