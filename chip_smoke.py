@@ -168,7 +168,20 @@ Phases, each fatal on failure:
    through ``FaultTolerantDriver`` for 40 steps, asynchronous checkpoints
    every 10 into a temporary directory, a failure injected at step 25:
    one restart, from step 20, the restored state bitwise equal to the
-   step-20 checkpoint by sha256, all 40 steps done;
+   step-20 checkpoint by sha256, all 40 steps done.  (e) The hybrid, ssm
+   and audio families at full width, bf16, per-block remat, 5 steps of
+   ``make_train_step`` each (AdamW lr 3e-5, 2 warmup steps) on
+   ``SyntheticLM`` batches: zamba2-7b cut to 12 of 81 blocks (two segments
+   of the shared attention block, whose gradient sums both applications,
+   and 5 Mamba2 blocks; 2 x 1024 tokens), rwkv6-7b to 2 of 32 blocks (2 x
+   512, the WKV chunks recomputed in the backward pass) and whisper-base
+   whole (4 x 448 decoder tokens over 1500 stub frames): the step time,
+   its split into loss and gradients and AdamW, tokens/s, the model-FLOPs
+   share, the peak allocated memory against the prediction, the mean loss
+   of the last 2 steps below step 1's, no kernel launched.  (f) One block
+   of each at full width in float32 (zamba2's shared attention block and
+   one Mamba2 block, one rwkv6 block, whisper's first encoder and decoder
+   layer over 1500 frames) by (b)'s rule;
 9. expert parallelism, last, once every other model is freed: the fused
    head and tail at the all-to-all layout's decode shape (128 segments
    sharing 16 experts' weights through ``rhs_of_group``) held and timed as
@@ -205,7 +218,20 @@ Phases, each fatal on failure:
    block and one MoE layer: 128 MLA heads, d_ff 12288 and the two shared
    experts split 4 ways, 40 experts a rank) each held against one process
    by the rule of the (1, 8) slice, whose first layer's exact routing
-   applies only where both sides route the same inputs.
+   applies only where both sides route the same inputs.  Last, on the same
+   ranks, the hybrid, ssm and audio families tensor-parallel, their heads
+   (attention, Mamba2, RWKV6, cross-attention), FFNs and vocabulary split
+   4 ways: zamba2-7b one segment (the shared attention block and 5 Mamba2
+   blocks), rwkv6-7b 2 blocks, whisper-base whole, each drawn keyed on the
+   mesh; global rank 0 first runs the same slice as one process on the
+   card and sends its greedy tokens, then 4 prompts of 64 tokens (whisper's
+   over 1500 frames, 2 a data row) are prefilled and decoded ``TP_STEPS``
+   steps fed those tokens, the counts zeroed before the prefill: every
+   step's logits held against the one process's by the phase-4 rule, one
+   decode-attention launch per attention block and step (rows
+   ``decode_attention_tp_dh112`` and ``decode_attention_tp_dh64``, held
+   and timed as phase 3's rows before the runs), a rank's weights by
+   group.
 
 It logs the elapsed seconds at the end of each group of phases and a
 sha256 of the tokens of every one-process run (``tokens <run>`` lines;
@@ -1190,7 +1216,8 @@ def _attention_instance(tag: str, B: int, H: int, Kv: int, dh: int, kinds, seed:
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     G, page = H // Kv, 16
-    max_blocks, n_pool = T // page, B * (T // page) + 1
+    max_blocks = -(-T // page)
+    n_pool = B * max_blocks + 1
 
     def rnd(shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -3150,10 +3177,12 @@ def _train_full_width(card: str) -> dict:
     return out
 
 
-def _train_card_against_cpu() -> dict:
-    """(b): one layer at full width in float32, a batch of 1 x 64 tokens:
-    loss and every gradient leaf on the card against the same step on the
-    CPU (TF32 is off, phase 1)."""
+def _train_card_against_cpu(arch=None, what: str = "train (b)", desc: str = "one full-width layer",
+                            **lm_kw) -> dict:
+    """(b): one layer at full width in float32 (or ``arch``), a batch of 1 x
+    64 tokens (whisper: over 1500 stub frames): loss and every gradient
+    leaf on the card against the same step on the CPU (TF32 is off, phase
+    1)."""
     import numpy as np
     import torch
 
@@ -3161,19 +3190,21 @@ def _train_card_against_cpu() -> dict:
     from repro_torch.train.train_loop import _loss_and_grads
     from repro_torch.train.tree import leaves_with_paths, tree_map
 
-    arch = train_arch(n_layers=1)
-    card_lm = LM(arch, torch.float32, "cuda")
+    arch = arch or train_arch(n_layers=1)
+    card_lm = LM(arch, torch.float32, "cuda", **lm_kw)
     params = tree_map(lambda p: p.requires_grad_(True), card_lm.init(seed=1))
     cpu_params = tree_map(lambda p: p.detach().cpu().requires_grad_(True), params)
     rng = np.random.default_rng(1)
     toks = rng.integers(0, arch.vocab_size, (1, 65)).astype(np.int32)
     batch = {"tokens": torch.from_numpy(toks[:, :-1]), "labels": torch.from_numpy(toks[:, 1:])}
+    if arch.family == "audio":
+        batch["embeds"] = LM(arch, torch.float32, "cpu", **lm_kw).stub_inputs(1, arch.enc_seq, seed=1)["embeds"]
     t0 = time.perf_counter()
     loss, metrics, grads = _loss_and_grads(card_lm, params, {k: v.cuda() for k, v in batch.items()})
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cpu_loss, cpu_metrics, cpu_grads = _loss_and_grads(LM(arch, torch.float32, "cpu"), cpu_params, batch)
+    cpu_loss, cpu_metrics, cpu_grads = _loss_and_grads(LM(arch, torch.float32, "cpu", **lm_kw), cpu_params, batch)
     cpu_s = time.perf_counter() - t0
     worst_cos, worst_rel, rows = 1.0, 0.0, []
     for (path, g), c in zip(leaves_with_paths(grads), [c for _, c in leaves_with_paths(cpu_grads)]):
@@ -3186,15 +3217,15 @@ def _train_card_against_cpu() -> dict:
     counts_equal = bool(torch.equal(metrics["aux"].counts.cpu(), cpu_metrics["aux"].counts))
     out = dict(loss_card=float(loss), loss_cpu=float(cpu_loss), worst_cosine=worst_cos,
                worst_rel_err=worst_rel, leaves=rows, counts_equal=counts_equal, card_s=card_s, cpu_s=cpu_s)
-    log(f"train (b): one full-width layer in float32, batch 1 x 64: loss card {float(loss):.6f}, CPU "
+    log(f"{what}: {desc} in float32, batch 1 x 64: loss card {float(loss):.6f}, CPU "
         f"{float(cpu_loss):.6f}; over {len(rows)} gradient leaves the worst cosine {worst_cos:.7f} (bound "
         f"{TRAIN_MIN_COSINE}) and the worst max |err| / max |grad| {worst_rel:.2e} (bound {TRAIN_MAX_REL_ERR}); "
         f"routing counts equal: {counts_equal}; card {card_s:.1f} s, CPU {cpu_s:.1f} s")
     if abs(float(loss) - float(cpu_loss)) > 1e-4 * abs(float(cpu_loss)):
-        fail(f"train (b): the card's loss {float(loss)} differs from the CPU's {float(cpu_loss)}")
+        fail(f"{what}: the card's loss {float(loss)} differs from the CPU's {float(cpu_loss)}")
     if worst_cos < TRAIN_MIN_COSINE or worst_rel > TRAIN_MAX_REL_ERR:
         bad = [r for r in rows if r[1] < TRAIN_MIN_COSINE or r[2] > TRAIN_MAX_REL_ERR]
-        fail(f"train (b): gradient leaves beyond the bounds: {bad}")
+        fail(f"{what}: gradient leaves beyond the bounds: {bad}")
     del params, cpu_params, grads, cpu_grads
     gc.collect()
     torch.cuda.empty_cache()
@@ -3313,6 +3344,158 @@ def _train_driver() -> dict:
     return out
 
 
+# (e) the hybrid, ssm and audio families at full width: (config, its cut,
+# rows, tokens a row (whisper: decoder tokens over 1500 stub frames)):
+# zamba2 at 12 of 81 blocks, two segments of the shared attention block and
+# 5 Mamba2 blocks (the shared block's gradient sums two applications);
+# rwkv6 at 2 of 32 blocks; whisper-base whole
+TRAIN_FAMILIES = (
+    ("zamba2-7b", {"n_layers": 12}, 2, 1024),
+    ("rwkv6-7b", {"n_layers": 2}, 2, 512),
+    ("whisper-base", {}, 4, 448),
+)
+FAMILY_TRAIN_STEPS = 5
+# AdamW's peak rate: the default 3e-4 overshoots from random weights at
+# full width in the first steps (zamba2-7b: loss 11.11 -> 16.44 after the
+# first update, PERF.md), and a few steps must show the loss falling
+FAMILY_TRAIN_LR = 3e-5
+# peak allocated memory predicted from the parameter counts (PERF.md,
+# section 6) before the first run
+FAMILY_PEAK_PREDICTED_GB = {"zamba2-7b": (16.0, 19.0), "rwkv6-7b": (12.5, 15.0), "whisper-base": (2.0, 4.0)}
+
+
+def _family_chunks(arch) -> dict:
+    """Whisper's 1500 frames take attention chunks that divide them."""
+    return dict(q_chunk=WHISPER_CHUNK, kv_chunk=WHISPER_CHUNK) if arch.family == "audio" else {}
+
+
+def _model_flops(arch, params, B: int, S: int) -> float:
+    """6 x parameters x the tokens that pass them, a training step's matmul
+    FLOPs: every leaf but the embedding table (a gather); zamba2's shared
+    block once per segment; whisper's encoder over its frames, the rest
+    over the decoder's tokens."""
+    from repro_torch.train.tree import leaves_with_paths
+
+    frames = arch.enc_seq if arch.family == "audio" else S
+    nseg = arch.n_layers // arch.attn_every if arch.family == "hybrid" else 1
+    total = 0
+    for path, t in leaves_with_paths(params):
+        if path[0] == "embed":
+            continue
+        tokens = B * (frames if path[0] in ("enc_blocks", "enc_norm") else S)
+        total += 6 * t.numel() * tokens * (nseg if path[0] == "shared_attn" else 1)
+    return float(total)
+
+
+def _train_family(name: str, cut: dict, B: int, S: int, card: str) -> dict:
+    """(e) one family: ``FAMILY_TRAIN_STEPS`` steps of ``make_train_step``
+    at full width, bf16, per-block remat, AdamW (lr ``FAMILY_TRAIN_LR``)
+    with 2 warmup steps, on
+    ``SyntheticLM`` batches (whisper's frames from its stub); the loss
+    falling, no kernel of the port launched; a last step split into loss
+    and gradients, then AdamW."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, SyntheticLM, to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+    from repro_torch.train.optimizer import AdamWConfig, adamw_update
+    from repro_torch.train.train_loop import _microbatched_grads
+    from repro_torch.train.tree import leaves
+
+    arch = dataclasses.replace(get_arch(name), **cut)
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    lm = LM(arch, torch.bfloat16, "cuda", remat=True, **_family_chunks(arch))
+    tc = TrainConfig(opt=AdamWConfig(lr=FAMILY_TRAIN_LR, warmup_steps=2, total_steps=FAMILY_TRAIN_STEPS + 1))
+    params, opt, res = init_train_state(lm, 0, tc)
+    n_params = sum(t.numel() for t in leaves(params))
+    data = SyntheticLM(DataConfig(vocab_size=arch.vocab_size, seq_len=S, global_batch=B))
+    batches = []
+    for i in range(FAMILY_TRAIN_STEPS + 1):
+        b = to_device(data.batch(i), "cuda")
+        if arch.family == "audio":
+            b.update(lm.stub_inputs(B, arch.enc_seq, seed=i))
+        batches.append(b)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = make_train_step(lm, tc)
+    ops.reset_launches()
+    losses, step_ms = [], []
+    for i in range(FAMILY_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, res, m = step(params, opt, batches[i], res)
+        losses.append(float(m["loss"]))
+        step_ms.append(1e3 * (time.perf_counter() - t))
+    launched = {k: n for k, n in ops.LAUNCHES.items() if n}
+    split = {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, _, grads = _microbatched_grads(lm, params, batches[-1], 1)
+    torch.cuda.synchronize()
+    split["loss_and_grads_ms"] = 1e3 * (time.perf_counter() - t)
+    t = time.perf_counter()
+    params, opt, _ = adamw_update(tc.opt, params, grads, opt)
+    torch.cuda.synchronize()
+    split["adamw_ms"] = 1e3 * (time.perf_counter() - t)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del grads
+    timed = spread(step_ms[1:])  # steps 2 on
+    flops = _model_flops(arch, params, B, S)
+    cut_desc = f"{arch.n_layers} blocks" + (f" + {arch.enc_layers} encoder layers" if arch.encdec else "")
+    out = dict(arch=f"{name} full width, {cut_desc}, bf16, remat", params=n_params, init_s=init_s,
+               batch=(B, S), losses=losses, step_ms=timed, split=split, tokens_per_s=B * S / (timed["median"] / 1e3),
+               model_flops=flops, model_flops_share=flops / (timed["median"] / 1e3) / PEAK_BF16_FLOPS,
+               peak_gb=peak_gb, base_gb=base_gb, predicted_peak_gb=FAMILY_PEAK_PREDICTED_GB[name],
+               launches=launched)
+    lo, hi = FAMILY_PEAK_PREDICTED_GB[name]
+    log(f"train (e) {name}: {out['arch']}, {n_params / 1e9:.3f} B parameters, batch {B} x {S} tokens"
+        f"{f' over {arch.enc_seq} frames' if arch.encdec else ''}; init {init_s:.1f} s")
+    log(f"train (e) {name}: step {timed['median']:.1f} ms ({timed['min']:.1f}-{timed['max']:.1f}, steps 2-"
+        f"{FAMILY_TRAIN_STEPS}, host clock), loss and gradients {split['loss_and_grads_ms']:.1f} ms, AdamW "
+        f"{split['adamw_ms']:.1f} ms; {out['tokens_per_s']:.0f} tokens/s, model-FLOPs share "
+        f"{out['model_flops_share']:.4f} ({flops / 1e12:.2f} TFLOP a step over {PEAK_BF16_FLOPS / 1e12:.0f} "
+        f"TFLOP/s); peak allocated {peak_gb:.2f} GB ({base_gb:.2f} GB before), predicted {lo:.1f}-{hi:.1f} GB "
+        f"| {card}")
+    log(f"train (e) {name}: loss by step " + ", ".join(f"{x:.4f}" for x in losses))
+    if not all(np.isfinite(losses)):
+        fail(f"train (e) {name}: a loss is not finite: {losses}")
+    note_tokens(f"train (e) {name} losses", losses)
+    if not np.mean(losses[-2:]) < losses[0]:
+        fail(f"train (e) {name}: the mean loss of the last 2 steps {np.mean(losses[-2:]):.4f} is not below "
+             f"step 1's {losses[0]:.4f}")
+    if launched:
+        fail(f"train (e) {name}: the training path launched the port's CUDA kernels: {launched}")
+    del params, opt, res, batches, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_families(card: str) -> dict:
+    """(e) and (f): each family's training run at full width, then one
+    float32 block of it on the card against the CPU, leaf for leaf, as (b)
+    holds qwen3's layer: zamba2's shared attention block and one Mamba2
+    block, one rwkv6 block, whisper's first encoder and decoder layer."""
+    from repro_torch.configs import get_arch
+
+    one_block = {"hybrid": dict(n_layers=2, attn_every=2), "ssm": dict(n_layers=1),
+                 "audio": dict(n_layers=1, enc_layers=1)}
+    out = {}
+    for name, cut, B, S in TRAIN_FAMILIES:
+        out[name] = _train_family(name, cut, B, S, card)
+        arch = get_arch(name)
+        small = dataclasses.replace(arch, **one_block[arch.family])
+        out[name]["card_vs_cpu"] = _train_card_against_cpu(
+            small, f"train (f) {name}", "one block at full width", **_family_chunks(small))
+    return out
+
+
 def phase_train(card: str) -> dict:
     """Phase 11: training on the card, after deepseek-v2 is freed."""
     import torch
@@ -3320,7 +3503,8 @@ def phase_train(card: str) -> dict:
     log(f"training: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before the phase")
     out, t0 = {}, time.perf_counter()
     for part, fn in (("full_width", lambda: _train_full_width(card)), ("card_vs_cpu", _train_card_against_cpu),
-                     ("dual_raises", _train_dual_raises), ("driver", _train_driver)):
+                     ("dual_raises", _train_dual_raises), ("driver", _train_driver),
+                     ("families", lambda: _train_families(card))):
         t = time.perf_counter()
         out[part] = fn()
         out[part]["part_s"] = time.perf_counter() - t
@@ -3355,8 +3539,7 @@ def _recurrent_lm(arch, device: str):
 
     from repro_torch.models import LM
 
-    chunk = dict(q_chunk=WHISPER_CHUNK, kv_chunk=WHISPER_CHUNK) if arch.family == "audio" else {}
-    return LM(arch, torch.bfloat16, device, **chunk)
+    return LM(arch, torch.bfloat16, device, **_family_chunks(arch))
 
 
 def _tree_bytes(tree) -> int:
@@ -3592,6 +3775,22 @@ TP_STEPS = 6
 TP_RUN = "tp_psum_fused"
 TP_PATH = EP_PATHS["1"] + ("decode_attention",)
 TP_ROW = "tp_g8"  # phase 3's tag of the dense attention row at a TP rank's decode shape
+# the hybrid, ssm and audio families on the (2, 4) mesh after qwen3 and
+# deepseek-v2: zamba2 one segment (the shared attention block and 5 Mamba2
+# blocks), rwkv6 2 of 32 blocks, whisper-base whole; 4 prompts of 64 tokens
+# (whisper's over 1500 stub frames), 2 a data row, and TP_STEPS decode steps
+TP_FAMILIES = (("zamba2-7b", {"n_layers": 6}), ("rwkv6-7b", {"n_layers": 2}), ("whisper-base", {}))
+TP_FAM_SLOTS, TP_FAM_PROMPT = 4, 64
+# phase 3's tags of the dense attention rows at a rank's decode shape
+# (rows 3g, 3h): zamba2's shared attention (8 heads on 8 kv heads, dh 112)
+# and whisper's decoder (2 on 2, dh 64)
+TP_FAM_ROWS = {"zamba2-7b": "tp_dh112", "whisper-base": "tp_dh64"}
+# a rank's weights by group, predicted from the shapes (PERF.md, section 6)
+TP_FAM_PREDICTED = {
+    "zamba2-7b": "attention 0.026, ssm 0.199, embedding/logits 0.115, rest 0.077, in all 0.416; 1.649 whole",
+    "rwkv6-7b": "ssm 0.271, embedding/logits 0.268, in all 0.539; 1.95 whole",
+    "whisper-base": "attention 0.009, embedding/logits 0.027, rest 0.013, in all 0.049; 0.195 whole",
+}
 EP_PARITY_PROMPT = 32  # tokens of each of the 8 prompts of the 2-layer parity
 EP_INT8_STEPS = 8  # decode steps of the 2-layer int8 check
 
@@ -4034,13 +4233,14 @@ def _ep_parity_compare(ep: str, got: dict, own: dict, want: dict, same_inputs: b
     return out
 
 
-WEIGHT_GROUPS = ("experts", "attention", "embedding_logits", "rest")
+WEIGHT_GROUPS = ("experts", "attention", "ssm", "embedding_logits", "rest")
 
 
 def _weight_groups(params) -> dict:
     """A rank's parameter bytes (GB) by group: the routed experts, the
-    attention, the embedding and logits tables, the rest (norms, routers,
-    the dense and shared-expert FFNs)."""
+    attention (whisper's cross-attention too), the Mamba2 and RWKV6 blocks,
+    the embedding and logits tables, the rest (norms, routers, the dense
+    and shared-expert FFNs, whisper's decoder positions)."""
     from repro_torch.models.sharding import is_expert_leaf
 
     out = dict.fromkeys(WEIGHT_GROUPS, 0.0)
@@ -4053,7 +4253,8 @@ def _weight_groups(params) -> dict:
             for i, v in enumerate(t):
                 walk(v, path + (i,))
         else:
-            group = ("experts" if is_expert_leaf(path) else "attention" if "attn" in path
+            group = ("experts" if is_expert_leaf(path) else "attention" if "attn" in path or "xattn" in path
+                     else "ssm" if "mamba" in path or "rwkv" in path
                      else "embedding_logits" if path[0] in ("embed", "w_out") else "rest")
             out[group] += t.numel() * t.element_size() / 1e9
 
@@ -4140,6 +4341,100 @@ def _tp_rank(mesh, n_layers: int) -> dict:
     t0 = time.perf_counter()
     out["deepseek"]["parity"] = _ep_parity(dlm, dparams, mi)
     out["deepseek"]["parity_s"] = time.perf_counter() - t0
+    del dlm, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["families"] = {name: _tp_family(mesh, name, cut) for name, cut in TP_FAMILIES}
+    return out
+
+
+def _tp_family(mesh, name: str, cut: dict) -> dict:
+    """One recurrent family's slice on a rank of the (2, 4) mesh: global
+    rank 0 first runs it as one process on the card (keyed weights from
+    seed 0, the same numbers), prefill and ``TP_STEPS`` greedy decode
+    steps, and sends every rank its tokens; then every rank draws its
+    slices keyed, prefills the same prompts and decodes fed those tokens,
+    the launch counts zeroed just before the prefill.  Rank 0 holds the
+    mesh's logits at every step against the one process's by the phase-4
+    rule; the launches must be the attention blocks' one a step each."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import mesh_info_for
+    from repro_torch.models import LM
+
+    dev, bf = mesh.device, torch.bfloat16
+    arch = dataclasses.replace(get_arch(name), **cut)
+    chunks = _family_chunks(arch)
+    B, P, V = TP_FAM_SLOTS, TP_FAM_PROMPT, arch.vocab_size
+    frames = arch.enc_seq if arch.encdec else None
+    mi = mesh_info_for(mesh, B)
+    tokens = torch.zeros((B, TP_STEPS), dtype=torch.int64)
+
+    def positions(i):
+        return torch.full((B,), P + i, dtype=torch.int32, device=dev)
+
+    one = []
+    if mesh.rank == 0:
+        ref = LM(arch, bf, dev, **chunks)
+        rp = ref.init(seed=0, keyed=True)
+        batch = _recurrent_batch(ref, B, P, frames, seed=5)
+        logits, cache, _ = ref.prefill(rp, batch, max_seq=P + TP_STEPS)
+        for i in range(TP_STEPS + 1):
+            one.append(logits[..., :V].float().cpu())
+            if i == TP_STEPS:
+                break
+            tok = logits[:, 0, :V].argmax(-1)
+            tokens[:, i] = tok.cpu()
+            logits, _, _ = ref.decode_step(rp, {"tokens": tok[:, None], "position": positions(i)}, cache)
+        del ref, rp, cache, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.broadcast(tokens, src=0)
+    lm = LM(arch, bf, dev, mesh_info=mi, **chunks)
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = lm.init(seed=0)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0, "weights_gb": (torch.cuda.memory_allocated() - before) / 1e9,
+           "by_group": _weight_groups(params), "tp": lm._tp()}
+    batch = _recurrent_batch(lm, B, P, frames, seed=5)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache, _ = lm.prefill(params, batch, max_seq=P + TP_STEPS)
+    torch.cuda.synchronize()
+    out["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+    got, step_ms = [logits[..., :V].float().cpu()], []
+    for i in range(TP_STEPS):
+        t0 = time.perf_counter()
+        logits, _, _ = lm.decode_step(params, {"tokens": tokens[:, i:i + 1].to(dev), "position": positions(i)},
+                                      cache)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        got.append(logits[..., :V].float().cpu())
+    out["launches"] = {k: n for k, n in ops.LAUNCHES.items() if n}
+    attn_blocks = (arch.n_layers // arch.attn_every if arch.family == "hybrid"
+                   else arch.n_layers if arch.family == "audio" else 0)
+    want = {"decode_attention": attn_blocks * TP_STEPS} if attn_blocks else {}
+    if out["launches"] != want:
+        raise RuntimeError(f"tp {name}: launches {out['launches']} over prefill and {TP_STEPS} decode steps; "
+                           f"{want} required")
+    out["decode_step_ms"] = spread(step_ms[1:])
+    if one:
+        out["parity"] = []
+        for stage, (g, w) in enumerate(zip(got, one)):
+            err, scale = float((g - w).abs().max()), float(w.abs().max())
+            cos = float(torch.nn.functional.cosine_similarity(g.flatten(), w.flatten(), dim=0))
+            out["parity"].append(dict(stage="prefill" if stage == 0 else f"decode {stage}", max_abs_err=err,
+                                      max_logit=scale, rel_err=err / scale, cosine=cos))
+            if not torch.isfinite(g).all() or err > 5e-2 * scale or cos < 0.999:
+                raise RuntimeError(f"tp {name} {out['parity'][-1]['stage']}: the mesh's logits differ from one "
+                                   f"process by {err} (largest logit {scale}, cosine {cos})")
+    del lm, params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4446,6 +4741,23 @@ def _tp_phase(card: str, arch, backend: str, devices, layout: str) -> dict:
         out[f"parity_{name}"] = par
         log(f"tp parity, {name} 2-layer slice as a {TP_SHAPE} mesh against one process: " + ", ".join(
             f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}" for k, v in par.items()))
+    fams = out["families"] = {}
+    for name, _ in TP_FAMILIES:
+        r0 = ranks[0]["families"][name]
+        if r0["tp"] != (name != "rwkv6-7b"):
+            fail(f"tensor parallelism: {name}'s attention split by heads is {r0['tp']} on the (2, 4) mesh")
+        fams[name] = dict({k: r0[k] for k in ("weights_gb", "by_group", "init_s", "prefill_ms", "decode_step_ms",
+                                               "parity")}, launches_rank0=r0["launches"],
+                          decode_step_ms_ranks=[r["families"][name]["decode_step_ms"]["median"] for r in ranks])
+        _log_groups(f"tp {TP_SHAPE} memory, rank 0's {name} slice by group", r0["by_group"], TP_FAM_PREDICTED[name])
+        worst = max(r0["parity"], key=lambda e: e["rel_err"])
+        log(f"tp {name}: rank 0's weights allocated {r0['weights_gb']:.3f} GB; prefill of {TP_FAM_SLOTS} x "
+            f"{TP_FAM_PROMPT} tokens {r0['prefill_ms']:.1f} ms, decode step "
+            f"{r0['decode_step_ms']['median']:.1f} ms ({r0['decode_step_ms']['min']:.1f}-"
+            f"{r0['decode_step_ms']['max']:.1f}, rank 0, host clock, gloo), rank 0 launches {r0['launches']}; "
+            f"against one process over prefill and {TP_STEPS} steps the worst max |err| {worst['max_abs_err']:.4g} "
+            f"(relative {worst['rel_err']:.4g}, {worst['stage']}), the lowest cosine "
+            f"{min(e['cosine'] for e in r0['parity']):.6f} | {card}")
     run = out["runs"][TP_RUN]
     log(f"tp {TP_RUN}: decode step {run['decode_step_ms']['median']:.1f} ms, a rank's collectives "
         f"{run['decode_coll_ms']['median']:.1f} ms (host clock, gloo through host memory: not NVLink); rank "
@@ -4456,15 +4768,27 @@ def _tp_phase(card: str, arch, backend: str, devices, layout: str) -> dict:
 
 
 def phase_tp_kernels() -> dict:
-    """Phase 3's row of the dense decode-attention kernel at a tensor-parallel
-    rank's decode shape: qwen3's attention on a (2, 4) mesh, 4 slots of a
-    data row, 8 heads on one kv head, dh 128, at lengths in the middle of
-    the (2, 4) run's decode."""
+    """Phase 3's rows of the dense decode-attention kernel at a
+    tensor-parallel rank's decode shape: qwen3's attention on a (2, 4) mesh,
+    4 slots of a data row, 8 heads on one kv head, dh 128, at lengths in the
+    middle of the (2, 4) run's decode (row 3f); zamba2's shared attention
+    (8 heads on 8 kv heads, dh 112; row 3g) and whisper's decoder (2 on 2,
+    dh 64; row 3h) on the same mesh, 2 slots of a data row over the
+    families' cache of ``TP_FAM_PROMPT + TP_STEPS`` positions."""
     import numpy as np
+
+    from repro_torch.configs import get_arch
 
     lens = [len(p) + TP_STEPS // 2 for p in _ep_prompts(ep_arch())[: EP_SLOTS // TP_SHAPE[0]]]
     rows = _attention_instance(TP_ROW, EP_SLOTS // TP_SHAPE[0], 8, 1, 128, ("dense",), seed=8,
                                serving=np.asarray(lens))
+    B, T, m = TP_FAM_SLOTS // TP_SHAPE[0], TP_FAM_PROMPT + TP_STEPS, TP_SHAPE[1]
+    fam_lens = np.full(B, TP_FAM_PROMPT + TP_STEPS // 2)
+    for (name, _), seed in zip(TP_FAMILIES, (112, 113, 64)):
+        if name in TP_FAM_ROWS:
+            a = get_arch(name).attn
+            rows.update(_attention_instance(TP_FAM_ROWS[name], B, a.n_heads // m, a.n_kv_heads // m, a.d_head,
+                                            ("dense",), seed=seed, T=T, serving=fam_lens))
     for name, r in rows.items():
         del r["entry"]
         _log_row(name, r)
@@ -4559,6 +4883,8 @@ def main() -> None:
     launches.update({f"{k}{DSV2_SUFFIX}": deepseek["three_call"]["launches"][k] for k in DSV2_THREE_CALL_PATH})
     launches.update({f"{k}{EP_SUFFIX}": ep["runs"]["a2a_fused"]["launches_rank0"][k] for k in EP_PATHS["1"]})
     launches[f"decode_attention_{TP_ROW}"] = ep["tp"]["runs"][TP_RUN]["launches_rank0"]["decode_attention"]
+    for name, tag in TP_FAM_ROWS.items():
+        launches[f"decode_attention_{tag}"] = ep["tp"]["families"][name]["launches_rank0"]["decode_attention"]
     for name, r in kernels.items():
         if "path_launches" in r:
             launches[name] = r["path_launches"]

@@ -80,9 +80,9 @@ def params_from_numpy(tree: Dict[str, Any], device, dtype: torch.dtype,
 
     With ``mesh_info`` the result is that rank's parameters
     (``sharding.rank_cut``: its experts, and its slices of the attention
-    heads, the dense and shared-expert FFNs and the vocabulary where the
-    model group divides them), cut on the host before anything is copied
-    to ``device``.  On a mesh a tree with any of those layers needs
+    heads, the dense and shared-expert FFNs, the Mamba2 and RWKV6 heads and
+    the vocabulary where the model group divides them), cut on the host
+    before anything is copied to ``device``.  On a mesh a tree with any of those layers needs
     ``arch``, which decides each layer's split (``sharding.tp_splits``)."""
     device = resolve_device(device)
     tree = rank_cut(tree, mesh_info, arch)

@@ -3,8 +3,11 @@
 
 Runs the fault-tolerant training driver on the requested arch, reduced by
 default (``--full`` for the published widths), on the card unless
-``--device cpu`` is given.  It takes the reference launcher's flags;
-``--mesh`` (data- and tensor-parallel training) is not ported and raises.
+``--device cpu`` is given: every family whose batches are tokens (the
+decoder-only families, zamba2's hybrid and rwkv6's ssm).  An audio arch
+raises: ``SyntheticLM`` makes no encoder frames.  It takes the reference
+launcher's flags; ``--mesh`` (data- and tensor-parallel training) is not
+ported and raises.
 """
 
 from __future__ import annotations
@@ -55,6 +58,11 @@ def main(argv=None):
             "--mesh: data- and tensor-parallel training are not ported (ROADMAP Queue 1); the "
             "port trains on one device")
     arch = get_arch(args.arch)
+    if arch.family == "audio":
+        raise ValueError(
+            f"--arch {args.arch}: the audio family trains on encoder frames (batch['embeds'], "
+            "(batch, frames, d_model)) beside its tokens and labels, and the synthetic data pipeline "
+            "makes tokens only; the reference's launcher has no frame source either")
     if args.reduced:
         arch = arch.reduced()
     lm = LM(arch, dtype=torch.float32 if args.reduced else torch.bfloat16, device=args.device,

@@ -15,7 +15,8 @@ On a mesh (``mi``) whose model group splits the heads
 its heads' slices of the projections, computes the one-process function
 on a config of its ``n_heads / m`` (and ``n_kv_heads / m``) heads, and the
 partial outputs of ``wo`` are summed over the group in float32
-(:func:`_project_out`); its GQA cache holds its kv heads.
+(:func:`_project_out`); its GQA cache holds its kv heads.  Whisper's
+cross-attention splits by heads the same way (its own ``xattn`` layer).
 """
 
 from __future__ import annotations
@@ -503,14 +504,17 @@ def cross_attention(
     enc_k: torch.Tensor,  # (B, Se, H, dh) projected from the encoder's states
     enc_v: torch.Tensor,
     cfg: AttnConfig,
+    group=None,
 ) -> torch.Tensor:
     """Non-causal attention of the decoder's queries over the encoder's
-    K/V: the plain ``flash_attention``, as in the reference."""
+    K/V: the plain ``flash_attention``, as in the reference.  With
+    ``group`` (the heads split over a model group) the weights and the K/V
+    are this rank's heads' and the partials of ``wo`` are summed."""
     B, Sq, _ = x.shape
-    q = (x @ params["wq"]).reshape(B, Sq, cfg.n_heads, cfg.d_head)
+    q = (x @ params["wq"]).reshape(B, Sq, -1, cfg.d_head)
     o = flash_attention(q, enc_k, enc_v, causal=False, q_chunk=_divisor_chunk(Sq, 1024),
                         kv_chunk=_divisor_chunk(enc_k.shape[1], 1024))
-    return o.reshape(B, Sq, -1) @ params["wo"]
+    return coll.row_parallel_sum(o.reshape(B, Sq, -1) @ params["wo"], group)
 
 
 def init_cross_attention(gen, cfg: AttnConfig, d_model: int, dtype, device) -> dict:
@@ -524,8 +528,9 @@ def init_cross_attention(gen, cfg: AttnConfig, d_model: int, dtype, device) -> d
 
 
 def project_cross_kv(params: dict, enc_states: torch.Tensor, cfg: AttnConfig):
-    """The encoder states' K and V, (B, Se, H, dh) each."""
+    """The encoder states' K and V, (B, Se, H, dh) each (a tensor-parallel
+    rank's heads from its columns of ``wk``/``wv``)."""
     B, Se, _ = enc_states.shape
-    k = (enc_states @ params["wk"]).reshape(B, Se, cfg.n_heads, cfg.d_head)
-    v = (enc_states @ params["wv"]).reshape(B, Se, cfg.n_heads, cfg.d_head)
+    k = (enc_states @ params["wk"]).reshape(B, Se, -1, cfg.d_head)
+    v = (enc_states @ params["wv"]).reshape(B, Se, -1, cfg.d_head)
     return k, v

@@ -25,17 +25,21 @@ On a mesh (``LM(mesh_info=...)``, from :mod:`repro_torch.launch.mesh`)
 every rank runs the same entry points on the global batch, as the JAX
 ones run under ``shard_map`` and GSPMD: a rank computes its rows of the
 batch, holds its experts and, tensor-parallel, its slices of the
-attention heads, the dense and shared-expert FFNs and the vocabulary
+attention heads, the dense and shared-expert FFNs, the Mamba2 and RWKV6
+heads, whisper's cross-attention and the vocabulary
 (:mod:`repro_torch.models.sharding`), and its rows of the cache (its kv
-heads where the heads are split; when the kv heads do not divide the
-model group, its slice of the positions: sequence-parallel decode), and
-returns the global logits and step counts.  The hybrid, ssm and audio
-families run on one process only.
+heads where the heads are split; when a decoder-only family's kv heads do
+not divide the model group, its slice of the positions:
+sequence-parallel decode; its heads of the SSM states and of whisper's
+cross K/V), and returns the global logits and step counts.
 
-Training (:meth:`LM.forward`, :meth:`LM.loss`) runs the decoder-only
-families under autograd on one process; ``remat=True`` recomputes each
-block in the backward pass (``torch.utils.checkpoint``, where the
-reference wraps its scan body in ``jax.checkpoint``).
+Training (:meth:`LM.forward`, :meth:`LM.loss`) runs every family under
+autograd on one process; ``remat=True`` recomputes each block in the
+backward pass (``torch.utils.checkpoint``, where the reference wraps its
+scan bodies in ``jax.checkpoint``).  The hybrid, ssm and audio families
+share one walk of their blocks between prefill and training (its
+``collect_cache`` switch), and decode through the same walk with the
+states written back in place.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
@@ -57,7 +62,7 @@ from .attention import project_cross_kv
 from .layers import apply_norm, embed, init_norm, lm_logits, sinusoidal_positions
 from .moe import LOCAL_MESH, MeshInfo
 from .sharding import (batch_rows, expert_rows, is_expert_leaf, leaf_seed, padded_vocab, rank_attn,
-                       rank_slice, seq_positions, tp_axis, tp_group, tp_splits)
+                       rank_heads, rank_part, seq_positions, ssm_heads, tp_group, tp_splits)
 from .ssm import Mamba2State, RWKV6State
 from .transformer import BlockAux
 
@@ -126,11 +131,6 @@ class LM:
                 f"ported yet (ported: {', '.join(DECODER_FAMILIES)} with "
                 f"{' or '.join(PORTED_ATTENTION)} attention, hybrid and audio with gqa, "
                 "ssm with none)"
-            )
-        if arch.family in RECURRENT_FAMILIES and mesh_info != LOCAL_MESH:
-            raise NotImplementedError(
-                f"the {arch.family} family runs on one process: its mesh layout (the "
-                "reference shards the SSM heads under GSPMD) is not ported"
             )
         self.arch = arch
         # leading dense blocks of a MoE model (DeepSeek-V2: 1)
@@ -210,39 +210,37 @@ class LM:
         the same distribution by a generator of its own; expert stacks only
         at this rank's rows (``sharding.expert_rows``), and the other leaves
         that the model group splits (``sharding.tp_axis``) drawn whole in
-        float32 and cut to this rank's slice before the cast, so the rank
-        holds the numbers of a one-process keyed draw."""
-        dev, m = self.device, self.mi.ep_size
+        float32 and cut to this rank's part (``sharding.rank_part``) before
+        the cast, so the rank holds the numbers of a one-process keyed
+        draw."""
+        dev = self.device
 
         def normals(key, shape):
             gen = torch.Generator(device=dev)
             gen.manual_seed(leaf_seed(seed, *key))
             return torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
 
-        def draw(key, shape, scale, dtype, axis=None):
-            w = normals(key, shape)
-            if axis is None:
-                return w.mul_(scale).to(dtype)
-            return rank_slice(w, axis, self.mi).mul(scale).to(dtype)
-
         def leaf(path, t):
             name = path[-1]
-            axis = None if is_expert_leaf(path) else tp_axis(path, t.shape, self.arch, m)
-            if name in ("scale", "q_norm_scale", "kv_norm_scale", "bias", "bq", "bk", "bv"):
-                shape = t.shape if axis is None else rank_slice(t, axis, self.mi).shape
-                fill = torch.ones if name in ("scale", "q_norm_scale", "kv_norm_scale") else torch.zeros
-                return fill(shape, dtype=t.dtype, device=dev)
             if is_expert_leaf(path):
                 rows = expert_rows(t.shape[0], self.mi)
-                return torch.stack([draw(path + (e,), t.shape[1:], t.shape[-2] ** -0.5, t.dtype)
+                return torch.stack([normals(path + (e,), t.shape[1:]).mul_(t.shape[-2] ** -0.5).to(t.dtype)
                                     for e in range(rows.start, rows.stop)])
+
+            def cut(w):
+                return rank_part(w, path, self.arch, self.mi)
+
+            if name in ("scale", "q_norm_scale", "kv_norm_scale", "bias", "bq", "bk", "bv"):
+                fill = torch.ones if name in ("scale", "q_norm_scale", "kv_norm_scale") else torch.zeros
+                return fill(cut(t).shape, dtype=t.dtype, device=dev)
             if "mamba" in path or "rwkv" in path:
-                return ssm.init_leaf(name, t.shape, t.dtype, dev, lambda shape: normals(path, shape))
+                # a copy: a view would keep the whole leaf alive
+                return cut(ssm.init_leaf(name, t.shape, t.dtype, dev, lambda shape: normals(path, shape))).clone()
             # embeddings, logits and the router: normal * 0.02; whisper's
             # decoder positions: * 0.01; others He
             scale = {"embed": 0.02, "w_out": 0.02, "w_router": 0.02, "dec_pos": 0.01}.get(
                 name, t.shape[-2] ** -0.5)
-            return draw(path, t.shape, scale, t.dtype, axis)
+            return cut(normals(path, t.shape)).mul(scale).to(t.dtype)
 
         def walk(tree, path=()):
             if isinstance(tree, dict):
@@ -279,8 +277,8 @@ class LM:
         length instead.  (The reference's ``REPRO_SEQPAR=0``, which selects
         that GSPMD layout for comparison, has no counterpart.)"""
         a, mi = self.arch.attn, self.mi
-        return (a.kind == "gqa" and a.mrope_sections is None and mi.ep_size > 1
-                and a.n_kv_heads % mi.ep_size != 0)
+        return (self.arch.family in DECODER_FAMILIES and a.kind == "gqa" and a.mrope_sections is None
+                and mi.ep_size > 1 and a.n_kv_heads % mi.ep_size != 0)
 
     def _tp(self) -> bool:
         """Head-sharded attention (tensor parallelism): on a mesh whose model
@@ -316,9 +314,9 @@ class LM:
         (tail, batch, ...)}``; ssm ``{"blocks": RWKV6State (n_layers,
         batch, ...)}``; audio ``{"self": (k, v) (n_layers, batch, max_seq,
         Kv, dh), "cross": (k, v) (n_layers, batch, enc_seq, H, dh)}``."""
-        if self.arch.family in RECURRENT_FAMILIES:
-            return self._state_cache(batch, max_seq)
         rows = batch_rows(batch, self.mi)
+        if self.arch.family in RECURRENT_FAMILIES:
+            return self._state_cache(rows.stop - rows.start, max_seq)
         if self._seq_par():
             positions = seq_positions(max_seq, self.mi)
             max_seq = positions.stop - positions.start
@@ -341,20 +339,27 @@ class LM:
         return tuple(torch.zeros(shape, dtype=self.dtype, device=self.device) for _ in range(2))
 
     def _state_cache(self, batch: int, max_seq: int) -> Dict[str, Any]:
-        arch, dtype, dev = self.arch, self.dtype, self.device
+        """The zeroed decode cache of a hybrid, ssm or audio model for
+        ``batch`` rows (this rank's), in this rank's heads."""
+        arch, dtype, dev, mi = self.arch, self.dtype, self.device, self.mi
         a = arch.attn
+        kv_heads = rank_attn(a, mi).n_kv_heads
         if arch.family == "hybrid":
             nseg, per, tail = _zamba_layout(arch)
-            c = {"mamba_seg": ssm.mamba2_init_state(batch, arch.d_model, arch.ssm, dtype, dev, (nseg, per)),
-                 "attn": self._kv(nseg, batch, max_seq, a.n_kv_heads)}
+            heads = rank_heads("mamba", ssm_heads(arch), arch, mi)
+
+            def states(stack):
+                return ssm.mamba2_init_state(batch, arch.d_model, arch.ssm, dtype, dev, stack, heads)
+
+            c = {"mamba_seg": states((nseg, per)), "attn": self._kv(nseg, batch, max_seq, kv_heads)}
             if tail:
-                c["mamba_tail"] = ssm.mamba2_init_state(batch, arch.d_model, arch.ssm, dtype, dev, (tail,))
+                c["mamba_tail"] = states((tail,))
             return c
         if arch.family == "ssm":
-            return {"blocks": ssm.rwkv6_init_state(batch, arch.d_model, arch.ssm, dtype, dev,
-                                                   (arch.n_layers,))}
-        return {"self": self._kv(arch.n_layers, batch, max_seq, a.n_kv_heads),
-                "cross": self._kv(arch.n_layers, batch, arch.enc_seq, a.n_heads)}
+            return {"blocks": ssm.rwkv6_init_state(batch, arch.d_model, arch.ssm, dtype, dev, (arch.n_layers,),
+                                                   rank_heads("rwkv", ssm_heads(arch), arch, mi))}
+        return {"self": self._kv(arch.n_layers, batch, max_seq, kv_heads),
+                "cross": self._kv(arch.n_layers, batch, arch.enc_seq, rank_heads("xattn", a.n_heads, arch, mi))}
 
     def init_paged_cache(self, n_pool: int, page: int) -> Dict[str, Any]:
         """Paged KV cache: per-layer shared block pools ``(n_layers, n_pool,
@@ -429,15 +434,20 @@ class LM:
             logits = torch.where(live, logits, -1e30)
         return logits
 
+    def _embed_tokens(self, p, tokens: torch.Tensor) -> torch.Tensor:
+        """The tokens' embeddings (vocab-parallel where the model group
+        splits the vocabulary)."""
+        group = self._vocab_group()
+        first = 0 if group is None else self.mi.model_index * p["embed"].shape[0]
+        return embed(p["embed"], tokens, group, first)
+
     def _embed_in(self, p, batch) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Token embeddings, or the modality stub's precomputed ``embeds``,
         and the batch's M-RoPE positions (None without them)."""
         if "embeds" in batch:
             x = batch["embeds"].to(self.dtype)
         else:
-            group = self._vocab_group()
-            first = 0 if group is None else self.mi.model_index * p["embed"].shape[0]
-            x = embed(p["embed"], batch["tokens"], group, first)
+            x = self._embed_tokens(p, batch["tokens"])
         return x, batch.get("mrope_positions")
 
     def stub_inputs(self, batch: int, seq: int, seed: int) -> Dict[str, torch.Tensor]:
@@ -482,11 +492,11 @@ class LM:
         positions; the logits and the StepAux are global.
 
         The other families return their decode cache (``init_cache``'s
-        layout) with the prompt's states and K/V: the K/V of ``max_seq``
-        positions (of the prompt's by default), the Mamba2 and RWKV6
-        states after the prompt, whisper's cross K/V of its frames.  The
-        audio batch is ``embeds`` (B, frames, d) and the decoder's
-        ``tokens`` (B, S)."""
+        layout, on a mesh this rank's) with the prompt's states and K/V:
+        the K/V of ``max_seq`` positions (of the prompt's by default), the
+        Mamba2 and RWKV6 states after the prompt, whisper's cross K/V of its
+        frames.  The audio batch is ``embeds`` (B, frames, d) and the
+        decoder's ``tokens`` (B, S)."""
         if self.arch.family in RECURRENT_FAMILIES:
             return self._prefill_states(p, batch, max_seq)
         batch = self._rank_batch(batch)
@@ -544,19 +554,18 @@ class LM:
         hidden states (B, S, d): the training path, differentiable in
         ``p``.  batch: ``tokens`` (B, S) or the stub's ``embeds`` (B, S, d),
         optionally ``positions`` (B, S), ``mrope_positions`` (3, B, S) and
-        ``sieve``.  The decoder-only families only, on one process."""
+        ``sieve``; for the audio family the encoder's ``embeds`` (B,
+        frames, d) and the decoder's ``tokens`` (B, Sd), ``h`` then the
+        decoder's.  On one process."""
         arch = self.arch
-        if arch.family in RECURRENT_FAMILIES:
-            raise NotImplementedError(
-                f"LM.forward for the {arch.family} family is not ported (ROADMAP Queue 1, "
-                "'the hybrid, ssm and audio families' forward'): its prefill writes the "
-                "Mamba2/RWKV6 states and K/V in place, which autograd cannot take as it is"
-            )
         if self.mi != LOCAL_MESH:
             raise NotImplementedError(
                 "training on a mesh is not ported (ROADMAP Queue 1, data- and tensor-parallel "
                 "training): the collectives of torch.distributed carry no gradient"
             )
+        if arch.family in RECURRENT_FAMILIES:
+            x, _ = self._recurrent_seq(p, batch, collect_cache=False)
+            return apply_norm(p["final_norm"], x, arch.norm), _empty_aux(x.device)
         x, mrope = self._embed_in(p, batch)
         B, S = x.shape[:2]
         positions = batch.get("positions")
@@ -606,9 +615,9 @@ class LM:
         ``init_cache`` and ``prefill`` lay it out), the logits are global;
         a cache split along the sequence decodes sequence-parallel.
 
-        The other families update every state and K/V leaf of ``cache`` in
-        place; whisper's decoder adds the learned position
-        ``dec_pos[position % 448]``."""
+        The other families update every state and K/V leaf of ``cache`` (on
+        a mesh this rank's) in place; whisper's decoder adds the learned
+        position ``dec_pos[position % 448]``."""
         if self.arch.family in RECURRENT_FAMILIES:
             return self._decode_states(p, batch, cache)
         arch = self.arch
@@ -648,99 +657,161 @@ class LM:
     # hybrid, ssm and audio families
     # ------------------------------------------------------------------
 
-    def _walk_mamba(self, blocks, x, states: Mamba2State, step: bool) -> torch.Tensor:
-        """Mamba2 blocks from ``states`` (stacked over the blocks), each
-        block's new state written back in place."""
-        for i, blk in enumerate(blocks):
-            st = Mamba2State(*(leaf[i] for leaf in states))
-            x, new = tf.mamba_block(blk, x, self.arch, st, step)
-            for dst, src in zip(st, new):
-                dst.copy_(src)
-        return x
+    def _run(self, fn, *args):
+        """``fn(*args)``; under ``remat`` with gradients enabled recomputed
+        in the backward pass (``torch.utils.checkpoint``), as the reference
+        checkpoints its scan bodies."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
 
-    def _walk_hybrid_stack(self, p, x, positions, cache, step: bool) -> torch.Tensor:
-        """zamba2: each segment is the shared attention block, with the
-        segment's own KV slot, then its Mamba2 blocks; the Mamba2 tail
-        follows.  ``step``: one decode token at ``positions`` (B,); else the
-        prompt, whose K/V fill the slot's first positions."""
+    def _walk_mamba(self, blocks, x, states: Optional[Mamba2State], step: bool, collect_cache: bool):
+        """Mamba2 blocks.  ``step``: one token from ``states`` (stacked over
+        the blocks), each block's new state written back in place.  Else
+        each block runs the sequence from zeros, and with ``collect_cache``
+        its final state is returned, stacked (a ``Mamba2State``)."""
+        new = []
+        for i, blk in enumerate(blocks):
+            st = Mamba2State(*(leaf[i] for leaf in states)) if step else None
+            x, out = self._run(tf.mamba_block, blk, x, self.arch, st, step, self.mi)
+            if step:
+                for dst, src in zip(st, out):
+                    dst.copy_(src)
+            elif collect_cache:
+                new.append(out)
+        return x, (Mamba2State(*(torch.stack(leaf) for leaf in zip(*new))) if new else None)
+
+    def _shared_attn_seq(self, blk, x, positions):
+        x, kv, _ = tf.attn_mlp_block_seq(blk, x, positions, self.arch, False, q_chunk=self.q_chunk,
+                                         kv_chunk=self.kv_chunk, mi=self.mi)
+        return x, kv
+
+    def _walk_hybrid_stack(self, p, x, positions, cache, collect_cache: bool, step: bool):
+        """zamba2 (``repro.models.model.LM._walk_hybrid_stack``): each
+        segment is the shared attention block, with the segment's own KV
+        slot, then its Mamba2 blocks; the Mamba2 tail follows.  ``step``:
+        one decode token at ``positions`` (B,), the K/V row and the states
+        written into ``cache`` in place.  Else the sequence, every state from
+        zeros: with ``collect_cache`` (prefill) returns ``(x, cache)``, the
+        cache of the prompt's K/V (S positions) and final states, without
+        (training) ``(x, None)``.  The shared block's weights serve every
+        segment, so its gradient sums over the applications."""
         arch = self.arch
-        k_cache, v_cache = cache["attn"]
+        segs, kv = [], []
         for s, seg in enumerate(p["mamba_seg"]):
+            states = None
             if step:
                 x, _ = tf.attn_mlp_block_decode(p["shared_attn"], x, positions,
-                                                (k_cache[s], v_cache[s]), arch, False)
+                                                tuple(leaf[s] for leaf in cache["attn"]), arch, False,
+                                                mi=self.mi)
+                states = Mamba2State(*(leaf[s] for leaf in cache["mamba_seg"]))
             else:
-                x, (k, v), _ = tf.attn_mlp_block_seq(p["shared_attn"], x, positions, arch, False,
-                                                     q_chunk=self.q_chunk, kv_chunk=self.kv_chunk)
-                k_cache[s, :, : k.shape[1]].copy_(k)
-                v_cache[s, :, : v.shape[1]].copy_(v)
-            x = self._walk_mamba(seg, x, Mamba2State(*(leaf[s] for leaf in cache["mamba_seg"])), step)
-        if "mamba_tail" in cache:
-            x = self._walk_mamba(p["mamba_tail"], x, cache["mamba_tail"], step)
-        return x
+                x, c = self._run(self._shared_attn_seq, p["shared_attn"], x, positions)
+                if collect_cache:
+                    kv.append(c)
+            x, st = self._walk_mamba(seg, x, states, step, collect_cache)
+            segs.append(st)
+        tail = None
+        if "mamba_tail" in p:
+            x, tail = self._walk_mamba(p["mamba_tail"], x, cache["mamba_tail"] if step else None, step,
+                                       collect_cache)
+        if step or not collect_cache:
+            return x, None
+        new = {"mamba_seg": Mamba2State(*(torch.stack(leaf) for leaf in zip(*segs))),
+               "attn": tuple(torch.stack(leaf) for leaf in zip(*kv))}
+        if tail is not None:
+            new["mamba_tail"] = tail
+        return x, new
 
-    def _walk_rwkv_stack(self, p, x, states: RWKV6State) -> torch.Tensor:
-        """RWKV6 blocks from ``states`` (stacked over the blocks), each
-        block's new state written back in place."""
+    def _walk_rwkv_stack(self, p, x, states: RWKV6State, collect_cache: bool, step: bool):
+        """RWKV6 blocks from ``states`` (stacked over the blocks).
+        ``step``: each block's new state written back in place.  Else with
+        ``collect_cache`` the final states are returned, stacked."""
+        new = []
         for i, blk in enumerate(p["blocks"]):
             st = RWKV6State(*(leaf[i] for leaf in states))
-            x, new = tf.rwkv_block(blk, x, self.arch, st)
-            for dst, src in zip(st, new):
-                dst.copy_(src)
-        return x
+            x, out = self._run(tf.rwkv_block, blk, x, self.arch, st, self.mi)
+            if step:
+                for dst, src in zip(st, out):
+                    dst.copy_(src)
+            elif collect_cache:
+                new.append(out)
+        return x, (RWKV6State(*(torch.stack(leaf) for leaf in zip(*new))) if new else None)
 
     def _whisper_encode(self, p, frames: torch.Tensor) -> torch.Tensor:
         arch = self.arch
         x = frames.to(self.dtype)
         x = x + sinusoidal_positions(x.shape[1], arch.d_model, x.device).to(x.dtype)[None]
         for blk in p["enc_blocks"]:
-            x = tf.enc_block(blk, x, arch, q_chunk=self.q_chunk, kv_chunk=self.kv_chunk)
+            x = self._run(tf.enc_block, blk, x, arch, self.q_chunk, self.kv_chunk, self.mi)
         return apply_norm(p["enc_norm"], x, arch.norm)
+
+    def _dec_block_seq(self, blk, x, enc):
+        """One decoder block over the sequence, its cross K/V projected from
+        the encoder's states: ``(x, self K/V, cross K/V)``."""
+        S = x.shape[1]
+        enc_kv = project_cross_kv(blk["xattn"], enc, self.arch.attn)
+        x, kv = tf.dec_block_seq(blk, x, enc_kv, self.arch, q_chunk=min(self.q_chunk, S),
+                                 kv_chunk=min(self.kv_chunk, S), mi=self.mi)
+        return x, kv, enc_kv
+
+    def _recurrent_seq(self, p, batch: Dict[str, Any], collect_cache: bool):
+        """The hybrid, ssm or audio stack over a whole sequence (this rank's
+        rows): ``(x, cache)``, the cache of the prompt (K/V of its S
+        positions, final states, whisper's cross K/V) with
+        ``collect_cache``, else None."""
+        arch = self.arch
+        if arch.family == "audio":
+            enc = self._whisper_encode(p, batch["embeds"])
+            x = self._embed_tokens(p, batch["tokens"])
+            x = x + p["dec_pos"][: x.shape[1]][None]
+            kv, cross = [], []
+            for blk in p["blocks"]:
+                x, c, e = self._run(self._dec_block_seq, blk, x, enc)
+                if collect_cache:
+                    kv.append(c)
+                    cross.append(e)
+            if not collect_cache:
+                return x, None
+            return x, {"self": tuple(torch.stack(leaf) for leaf in zip(*kv)),
+                       "cross": tuple(torch.stack(leaf) for leaf in zip(*cross))}
+        x = self._embed_in(p, batch)[0]
+        B, S = x.shape[:2]
+        if arch.family == "hybrid":
+            positions = batch.get("positions")
+            if positions is None:
+                positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+            return self._walk_hybrid_stack(p, x, positions, None, collect_cache, step=False)
+        x, states = self._walk_rwkv_stack(p, x, self._state_cache(B, 0)["blocks"], collect_cache, step=False)
+        return x, (None if states is None else {"blocks": states})
 
     def _prefill_states(self, p, batch: Dict[str, Any], max_seq: Optional[int]):
         arch = self.arch
-        audio = arch.family == "audio"
-        x = embed(p["embed"], batch["tokens"]) if audio else self._embed_in(p, batch)[0]
-        B, S = x.shape[:2]
+        batch = self._rank_batch(batch)
+        S = (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[1]
         if max_seq is not None and max_seq < S:
             raise ValueError(f"a cache of {max_seq} positions cannot hold a {S}-token prompt")
-        T = S if max_seq is None else max_seq
-        if arch.family == "hybrid":
-            cache = self.init_cache(B, T)
-            positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
-            x = self._walk_hybrid_stack(p, x, positions, cache, step=False)
-        elif arch.family == "ssm":
-            cache = self.init_cache(B, 0)
-            x = self._walk_rwkv_stack(p, x, cache["blocks"])
-        else:
-            enc = self._whisper_encode(p, batch["embeds"])
-            x = x + p["dec_pos"][:S][None]
-            cache = {"self": self._kv(arch.n_layers, B, T, arch.attn.n_kv_heads)}
-            cross = []
-            for i, blk in enumerate(p["blocks"]):
-                enc_kv = project_cross_kv(blk["xattn"], enc, arch.attn)
-                x, (k, v) = tf.dec_block_seq(blk, x, enc_kv, arch, q_chunk=min(self.q_chunk, S),
-                                             kv_chunk=min(self.kv_chunk, S))
-                cache["self"][0][i, :, :S].copy_(k)
-                cache["self"][1][i, :, :S].copy_(v)
-                cross.append(enc_kv)
-            cache["cross"] = tuple(torch.stack(leaf) for leaf in zip(*cross))
+        x, cache = self._recurrent_seq(p, batch, collect_cache=True)
+        for key in ("attn", "self"):  # K/V of the prompt's positions, padded to the decode cache's
+            if key in cache and max_seq is not None:
+                cache[key] = tuple(F.pad(t, (0, 0, 0, 0, 0, max_seq - S)) for t in cache[key])
         h = apply_norm(p["final_norm"], x, arch.norm)
-        return self._logits(p, h[:, -1:, :]), cache, _empty_aux(x.device)
+        return self._all_rows(self._logits(p, h[:, -1:, :])), cache, _empty_aux(x.device)
 
     def _decode_states(self, p, batch: Dict[str, Any], cache: Dict[str, Any]):
         arch = self.arch
+        batch = self._rank_batch(batch)
         x, _ = self._embed_in(p, batch)
         position = batch["position"]
         if arch.family == "hybrid":
-            x = self._walk_hybrid_stack(p, x, position, cache, step=True)
+            x, _ = self._walk_hybrid_stack(p, x, position, cache, collect_cache=True, step=True)
         elif arch.family == "ssm":
-            x = self._walk_rwkv_stack(p, x, cache["blocks"])
+            x, _ = self._walk_rwkv_stack(p, x, cache["blocks"], collect_cache=True, step=True)
         else:
             # structural clamp: the decoder has 448 learned positions
             x = x + p["dec_pos"][position.long() % p["dec_pos"].shape[0]][:, None, :]
             (sk, sv), (ck, cv) = cache["self"], cache["cross"]
             for i, blk in enumerate(p["blocks"]):
-                x = tf.dec_block_decode(blk, x, position, (sk[i], sv[i]), (ck[i], cv[i]), arch)
+                x = tf.dec_block_decode(blk, x, position, (sk[i], sv[i]), (ck[i], cv[i]), arch, self.mi)
         h = apply_norm(p["final_norm"], x, arch.norm)
-        return self._logits(p, h), cache, _empty_aux(x.device)
+        return self._all_rows(self._logits(p, h)), cache, _empty_aux(x.device)

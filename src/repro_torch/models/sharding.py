@@ -1,5 +1,5 @@
 """What one rank of a mesh holds (counterpart of ``repro.models.sharding``'s
-``param_pspecs``/``cache_pspecs``, cut to the decoder-only families).
+``param_pspecs``/``cache_pspecs``).
 
 GSPMD's layouts over the ``"model"`` axis become the slices a rank keeps.
 With m ranks in the model group, model rank r holds, wherever m divides
@@ -14,12 +14,23 @@ which gives a layer the group it sums over, ask it):
   ``[r * Kv / m, ...)``, and ``wo`` by the same heads' rows; MLA's
   ``w_uq``, ``w_uk``, ``w_uv`` by heads and ``wo`` by their rows, the
   low-rank down projections ``w_dq``, ``w_dkv``, ``w_kr`` and the norms
-  whole, as ``param_pspecs`` keeps them.
+  whole, as ``param_pspecs`` keeps them.  Zamba2's shared block and
+  whisper's encoder and decoder self-attention are GQA.
+* **Cross-attention** (whisper, ``xattn``): ``wq``, ``wk``, ``wv`` by the
+  columns of heads ``[r * H / m, ...)`` (its K/V have H heads), ``wo`` by
+  their rows.
 * **Dense FFN and shared experts**: ``w_gate``/``w_up`` by columns
   ``[r * F / m, ...)``, ``w_down`` by the same rows.
+* **Mamba2** (``mamba``): heads ``[r * H / m, ...)``; ``w_out`` by the
+  heads' rows of ``d_inner``.
+* **RWKV6 time mix** (``rwkv``): ``w_r``, ``w_k``, ``w_v``, ``w_g`` by the
+  columns of heads ``[r * H / m, ...)``, ``u`` by those heads, ``w_o`` by
+  their rows; **channel mix** (``cmix``): ``w_ck`` by columns ``[r * F /
+  m, ...)``, ``w_cv`` by the same rows.
 * **Embedding and logits** (vocab parallelism): rows ``[r * V / m, ...)``
   of the padded ``embed`` table, columns of ``w_out``.
-* The router, the norms and every other leaf whole.
+* The router, the norms, whisper's ``dec_pos``, RWKV6's token-shift mixes
+  and every other leaf whole.
 
 A row-parallel layer's rank computes the one-process function on its
 slices (``n_heads / m`` heads, ``d_ff / m`` columns) and the partial
@@ -27,28 +38,48 @@ outputs are summed over the model group in float32, rounded once
 (``collectives.row_parallel_sum``).  After every such sum each model rank
 holds the whole residual stream, which is what the expert-parallel bodies
 take.  A vocab-parallel lookup sums masked local rows; the logits are
-gathered to the whole vocabulary before the padding mask.
+gathered to the whole vocabulary before the padding mask.  Mamba2's gated
+RMSNorm normalises over the whole ``d_inner``: a rank sums its squares
+over the group before it scales (``ssm._gated_out``).
 
 Where the port's layout is its own (none of these changes a value, only
 what a rank holds):
 
 * **Attention is split by whole heads only, where m divides both H and
   Kv.**  Otherwise it stays whole on every rank and decode runs
-  sequence-parallel over the cache (qwen3's 4 kv heads on 8 ranks);
+  sequence-parallel over the cache (qwen3's 4 kv heads on 8 ranks; the
+  hybrid and audio families keep such attention whole and replicated);
   ``param_pspecs`` then splits ``wk``/``wv`` by columns mid-head and GSPMD
   regathers, which an explicit layout cannot follow.
 * **MLA's latent cache** ``(c_kv, k_rope)`` stays whole on each model rank
   for its batch rows: each rank's heads need all of it.  ``cache_pspecs``
   splits its sequence and GSPMD gathers it for the absorbed attention.
+* **Mamba2's fused ``w_in``** (columns ``[z, x, B, C, dt]``): a rank holds
+  its heads' ``z``, ``x`` and ``dt`` columns and ``B``/``C`` whole (one
+  group), where ``param_pspecs`` cuts the fused columns evenly across
+  their parts; ``conv_w``/``conv_b`` (channels ``[x, B, C]``) and the conv
+  state likewise, its heads' ``x`` channels and ``B``/``C`` whole;
+  ``A_log``, ``D``, ``dt_bias`` by head and ``norm_scale`` by its heads'
+  channels, all of which ``param_pspecs`` keeps whole.  The SSM state goes
+  by head, as ``cache_pspecs`` has it.
+* **RWKV6's decay LoRA**: ``wA`` whole and ``wB`` by the columns of the
+  rank's heads (``w0`` and ``ln_x_scale`` by them too), so the decay comes
+  out per head with no sum; ``param_pspecs`` splits ``wA`` by columns and
+  ``wB`` by rows and GSPMD sums the LoRA's partials over the whole width.
+* **RWKV6's ``w_cr``** stays whole: its sigmoid gates the whole-width sum
+  of the row-parallel ``w_cv``, so a rank computes the whole gate rather
+  than gather it; ``param_pspecs`` splits it by columns.
 * **A dimension m does not divide** leaves the leaf whole, as
   ``param_pspecs`` replicates it.
 
 Caches: a rank holds its ``B / dp`` rows of the batch and, of a GQA cache,
 ``Kv / m`` kv heads where attention is split by heads
 (``cache_pspecs``' head rule), or its ``T / m`` slice of the positions on
-the sequence-parallel path.  ``repro.models.shard_compat`` (a
-``shard_map`` shim over JAX versions) has no counterpart, and neither has
-``LM._sp`` (Megatron-SP, a sharding constraint that moves no value).
+the sequence-parallel path; whisper's cross K/V its heads; Mamba2's and
+RWKV6's states their heads (the token-shift states whole).
+``repro.models.shard_compat`` (a ``shard_map`` shim over JAX versions) has
+no counterpart, and neither has ``LM._sp`` (Megatron-SP, a sharding
+constraint that moves no value).
 """
 
 from __future__ import annotations
@@ -56,6 +87,9 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 from typing import TYPE_CHECKING, Any, Optional
+
+import numpy as np
+import torch
 
 from repro_torch.configs.base import ArchConfig, AttnConfig
 
@@ -125,21 +159,40 @@ def padded_vocab(arch: ArchConfig) -> int:
     return -(-arch.vocab_size // 128) * 128
 
 
-TP_LAYERS = ("attn", "mlp", "shared", "vocab")
+TP_LAYERS = ("attn", "xattn", "mlp", "shared", "vocab", "mamba", "rwkv", "cmix")
+
+
+def ssm_heads(arch: ArchConfig) -> int:
+    """The heads of a Mamba2 block (``expand * d_model / head_dim``) or of
+    an RWKV6 time mix (``d_model / head_dim``); 0 without SSM blocks."""
+    cfg = arch.ssm
+    if cfg is None:
+        return 0
+    width = cfg.expand * arch.d_model if cfg.kind == "mamba2" else arch.d_model
+    return width // cfg.head_dim
 
 
 def tp_splits(layer: str, arch: ArchConfig, m: int) -> bool:
     """Whether a model group of ``m`` splits ``layer`` of ``arch``: attention
-    by heads (:func:`heads_split`), the dense FFN by ``d_ff`` columns, the
-    shared experts by ``n_shared * d_expert`` columns, the vocabulary by
-    padded rows, each where m divides it.  The one decision behind a
-    rank's slices and its layers' sums."""
+    by heads (:func:`heads_split`), whisper's cross-attention by its heads,
+    the dense FFN by ``d_ff`` columns, the shared experts by ``n_shared *
+    d_expert`` columns, the vocabulary by padded rows, Mamba2 (one group)
+    and the RWKV6 time mix by their heads, the RWKV6 channel mix by ``d_ff``
+    columns, each where m divides it.  The one decision behind a rank's
+    slices and its layers' sums."""
     if layer not in TP_LAYERS:
         raise ValueError(f"no tensor-parallel layer {layer!r}; one of {TP_LAYERS}")
     if m <= 1:
         return False
     if layer == "attn":
         return heads_split(arch.attn, m)
+    if layer == "xattn":
+        return arch.encdec and arch.attn.n_heads % m == 0
+    if layer in ("mamba", "rwkv", "cmix"):
+        kind = "mamba2" if layer == "mamba" else "rwkv6"
+        if arch.ssm is None or arch.ssm.kind != kind or (layer == "mamba" and arch.ssm.n_groups != 1):
+            return False
+        return (arch.d_ff if layer == "cmix" else ssm_heads(arch)) % m == 0
     if layer == "shared":
         if arch.moe is None or not arch.moe.n_shared:
             return False
@@ -155,6 +208,19 @@ def tp_group(layer: str, arch: ArchConfig, mi: MeshInfo):
     return mi.model_group if tp_splits(layer, arch, mi.ep_size) else None
 
 
+def rank_heads(layer: str, n: int, arch: ArchConfig, mi: MeshInfo) -> int:
+    """This rank's share of ``n`` heads of ``layer``: ``n / m`` where the
+    model group splits the layer, else ``n``."""
+    return n // mi.ep_size if tp_splits(layer, arch, mi.ep_size) else n
+
+
+# Mamba2 leaves cut along their last axis (the fused ones by
+# :func:`tp_segments`), RWKV6 leaves by columns and by rows
+_MAMBA_COLUMNS = ("w_in", "conv_w", "conv_b", "A_log", "D", "dt_bias", "norm_scale")
+_RWKV_COLUMNS = ("w_r", "w_k", "w_v", "w_g", "wB", "w0", "ln_x_scale")
+_RWKV_ROWS = ("w_o", "u")
+
+
 def _tp_leaf(keys: list):
     """The tensor-parallel layer of a leaf (its path's keys) and the axis a
     rank slices, counted from the end; None for a leaf no layer splits."""
@@ -163,13 +229,34 @@ def _tp_leaf(keys: list):
         return "vocab", -2
     if keys == ["w_out"]:
         return "vocab", -1
+    if "mamba" in keys:
+        return ("mamba", -1) if name in _MAMBA_COLUMNS else ("mamba", -2) if name == "w_out" else None
+    if "rwkv" in keys:
+        if name in ("w_ck", "w_cv"):
+            return "cmix", -1 if name == "w_ck" else -2
+        return ("rwkv", -1) if name in _RWKV_COLUMNS else ("rwkv", -2) if name in _RWKV_ROWS else None
     layer = ("shared" if "moe" in keys and "shared" in keys else "mlp" if "mlp" in keys
-             else "attn" if "attn" in keys else None)
-    if layer == "attn":
+             else "xattn" if "xattn" in keys else "attn" if "attn" in keys else None)
+    if layer in ("attn", "xattn"):
         return (layer, -1) if name in _ATTN_COLUMNS else (layer, -2) if name in _ATTN_ROWS else None
     if layer is not None and name in EXPERT_LEAVES:
         return layer, -2 if name == "w_down" else -1
     return None
+
+
+def tp_segments(keys, arch: ArchConfig):
+    """The parts of a fused leaf's split axis as ``(length, split)`` pairs,
+    in order: Mamba2's ``w_in`` columns ``[z, x, B, C, dt]`` and its conv
+    channels ``[x, B, C]``, where a rank holds its share of each split part
+    and the unsplit ``B``/``C`` whole.  None for any other leaf (the axis
+    splits evenly)."""
+    if "mamba" not in keys or keys[-1] not in ("w_in", "conv_w", "conv_b"):
+        return None
+    H = ssm_heads(arch)
+    d_inner, BC = H * arch.ssm.head_dim, 2 * arch.ssm.n_groups * arch.ssm.d_state
+    if keys[-1] == "w_in":
+        return (d_inner, True), (d_inner, True), (BC, False), (H, True)
+    return (d_inner, True), (BC, False)
 
 
 def tp_axis(path, shape, arch: Optional[ArchConfig], m: int) -> Optional[int]:
@@ -177,9 +264,11 @@ def tp_axis(path, shape, arch: Optional[ArchConfig], m: int) -> Optional[int]:
     of ``m`` holds a slice of the leaf at ``path`` (its keys; list indices
     and leading stacked dims are ignored), or None for a leaf it holds
     whole: ``param_pspecs``' rule cut to the layouts of the module
-    docstring.  Routed expert stacks split by their own count (as
-    :func:`expert_rows`); every other leaf as :func:`tp_splits` decides for
-    its layer, so a tree with such leaves needs ``arch``."""
+    docstring (a fused leaf's slice is made of its parts', as
+    :func:`tp_segments` lays them out).  Routed expert stacks split by
+    their own count (as :func:`expert_rows`); every other leaf as
+    :func:`tp_splits` decides for its layer, so a tree with such leaves
+    needs ``arch``."""
     if m <= 1 or not path:
         return None
     keys = [k for k in path if isinstance(k, str)]
@@ -194,7 +283,9 @@ def tp_axis(path, shape, arch: Optional[ArchConfig], m: int) -> Optional[int]:
                          "dimensions: pass the arch")
     if not tp_splits(layer, arch, m):
         return None
-    if shape[axis] % m:
+    segments = tp_segments(keys, arch)
+    widths = [n for n, split in segments if split] if segments else [shape[axis]]
+    if segments and sum(n for n, _ in segments) != shape[axis] or any(n % m for n in widths):
         raise ValueError(f"leaf {'/'.join(keys)} of shape {tuple(shape)} does not split over {m} "
                          f"ranks, which the arch splits its {layer} layer over")
     return axis
@@ -209,18 +300,38 @@ def rank_slice(a, axis: int, mi: MeshInfo):
     return a[tuple(idx)]
 
 
+def rank_part(a, path, arch: Optional[ArchConfig], mi: MeshInfo):
+    """This rank's part of the leaf ``a`` (numpy or torch) at ``path``: ``a``
+    itself where :func:`tp_axis` keeps it whole, else the rank's slice (a
+    view), or for a fused leaf the rank's slice of each split part beside
+    the whole unsplit parts, joined along the axis (a copy)."""
+    axis = tp_axis(path, a.shape, arch, mi.ep_size)
+    if axis is None:
+        return a
+    segments = tp_segments([k for k in path if isinstance(k, str)], arch)
+    if segments is None:
+        return rank_slice(a, axis, mi)
+    parts, at = [], 0
+    for n, split in segments:
+        idx = [slice(None)] * a.ndim
+        idx[axis] = slice(at, at + n)
+        part = a[tuple(idx)]
+        parts.append(rank_slice(part, axis, mi) if split else part)
+        at += n
+    return torch.cat(parts, dim=axis) if isinstance(a, torch.Tensor) else np.concatenate(parts, axis=axis)
+
+
 def rank_cut(tree: Any, mi: MeshInfo, arch: Optional[ArchConfig] = None, path=()) -> Any:
     """This rank's part of a parameter tree (nested dicts of arrays or
-    tensors, scan-stacked or not): each leaf sliced as :func:`tp_axis`
-    says (views), every other leaf as it is.  Slicing a numpy tree before
-    it is copied to the card keeps the other ranks' slices off it.
-    ``arch`` is needed for a tree with leaves of a tensor-parallel layer."""
+    tensors, scan-stacked or not): each leaf as :func:`rank_part` cuts it,
+    every other leaf as it is.  Slicing a numpy tree before it is copied to
+    the card keeps the other ranks' slices off it.  ``arch`` is needed for a
+    tree with leaves of a tensor-parallel layer."""
     if isinstance(tree, dict):
         return {k: rank_cut(v, mi, arch, path + (k,)) for k, v in tree.items()}
     if isinstance(tree, list):
         return [rank_cut(v, mi, arch, path) for v in tree]
-    axis = tp_axis(path, tree.shape, arch, mi.ep_size)
-    return tree if axis is None else rank_slice(tree, axis, mi)
+    return rank_part(tree, path, arch, mi)
 
 
 def leaf_seed(seed: int, *key) -> int:

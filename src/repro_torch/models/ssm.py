@@ -12,6 +12,19 @@ token-shift states stay in the model dtype.
 Simplifications of the reference, kept: Mamba2 with no projection bias
 and RMSNorm gating; RWKV6's r/k/v/g token-shift mixes are static learned
 ratios (the dynamic mix LoRA is omitted), its decay LoRA is Finch's.
+
+The sequence forms run under autograd (training): neither writes to its
+input state, and under autograd each chunk of RWKV6's WKV recurrence is
+recomputed in the backward pass (``torch.utils.checkpoint``, the
+reference's ``jax.checkpoint(chunk_body)``), so its per-step states are
+not kept.
+
+On a tensor-parallel rank (``sharding.tp_splits``' ``mamba``, ``rwkv`` and
+``cmix`` layers) a block's weights are the rank's slices: the functions
+read their head counts from them (Mamba2's ``A_log``, RWKV6's ``u``) and
+take the model group (``group``) whose sums the block needs: Mamba2's
+gated RMSNorm over the whole ``d_inner`` and its ``w_out``, RWKV6's
+``w_o`` and ``w_cv`` (row-parallel sums in float32).
 """
 
 from __future__ import annotations
@@ -20,8 +33,10 @@ from typing import Callable, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import SSMConfig
+from . import collectives as coll
 
 # leaves the reference keeps in float32 whatever the model dtype
 # (repro/models/ssm.py:36-53, 265-293)
@@ -96,10 +111,12 @@ class Mamba2State(NamedTuple):
 
 
 def mamba2_init_state(batch: int, d_model: int, cfg: SSMConfig, dtype, device,
-                      stack: Tuple[int, ...] = ()) -> Mamba2State:
+                      stack: Tuple[int, ...] = (), heads: int | None = None) -> Mamba2State:
     """Zero states; ``stack`` prepends layer axes (the cache's stacked
-    layout)."""
-    d_inner, H = mamba2_dims(d_model, cfg)
+    layout).  ``heads``: a tensor-parallel rank's heads (its conv channels
+    are their ``x`` channels and ``B``/``C`` whole)."""
+    H = heads or mamba2_dims(d_model, cfg)[1]
+    d_inner = H * cfg.head_dim
     conv_ch = d_inner + 2 * cfg.n_groups * cfg.d_state
     return Mamba2State(
         conv=torch.zeros(stack + (batch, cfg.conv_width - 1, conv_ch), dtype=dtype, device=device),
@@ -108,8 +125,14 @@ def mamba2_init_state(batch: int, d_model: int, cfg: SSMConfig, dtype, device,
     )
 
 
-def _mamba2_preproject(params, x, cfg: SSMConfig, d_model: int):
-    d_inner, H = mamba2_dims(d_model, cfg)
+def _mamba2_local_dims(params, cfg: SSMConfig):
+    """(d_inner, H) of the block whose weights are ``params``: the model's,
+    or a tensor-parallel rank's heads (``A_log`` holds one entry a head)."""
+    H = params["A_log"].shape[-1]
+    return H * cfg.head_dim, H
+
+
+def _mamba2_preproject(params, x, cfg: SSMConfig, d_inner: int):
     GN = cfg.n_groups * cfg.d_state
     proj = x @ params["w_in"]
     z = proj[..., :d_inner]
@@ -130,12 +153,18 @@ def _heads(m: torch.Tensor, G: int, H: int, N: int) -> torch.Tensor:
     return g.expand(lead + (G, H // G, N)).reshape(lead + (H, N))
 
 
-def _gated_out(params, y: torch.Tensor, z: torch.Tensor, dtype) -> torch.Tensor:
+def _gated_out(params, y: torch.Tensor, z: torch.Tensor, dtype, group=None) -> torch.Tensor:
     """``y * silu(z)``, RMSNorm in float32 with ``norm_scale``, out
-    projection."""
+    projection.  With ``group`` the rank holds some heads' channels of
+    ``d_inner``: the mean square is the group's sum of squares over the
+    whole width, and the projection's partials are summed."""
     yf = (y * F.silu(z)).float()
-    yf = yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + 1e-6) * params["norm_scale"]
-    return yf.to(dtype) @ params["w_out"]
+    if group is None:
+        ms = (yf * yf).mean(-1, keepdim=True)
+    else:
+        ms = coll.all_reduce((yf * yf).sum(-1, keepdim=True), group) / (yf.shape[-1] * coll.group_size(group))
+    yf = yf * torch.rsqrt(ms + 1e-6) * params["norm_scale"]
+    return coll.row_parallel_sum(yf.to(dtype) @ params["w_out"], group)
 
 
 def ssd_chunk(T: int) -> int:
@@ -151,16 +180,18 @@ def mamba2_seq(
     x: torch.Tensor,  # (B, T, d_model)
     cfg: SSMConfig,
     state: Mamba2State | None = None,
+    group=None,
 ) -> Tuple[torch.Tensor, Mamba2State]:
     """Chunked SSD over a sequence; returns the output and the final state
-    (zeros when ``state`` is None)."""
+    (from zeros when ``state`` is None).  ``group``: the model group of a
+    tensor-parallel rank (module docstring)."""
     Bsz, T, d_model = x.shape
-    d_inner, H = mamba2_dims(d_model, cfg)
+    d_inner, H = _mamba2_local_dims(params, cfg)
     G, N, P = cfg.n_groups, cfg.d_state, cfg.head_dim
     if state is None:
-        state = mamba2_init_state(Bsz, d_model, cfg, x.dtype, x.device)
+        state = mamba2_init_state(Bsz, d_model, cfg, x.dtype, x.device, heads=H)
 
-    z, xBC, dt = _mamba2_preproject(params, x, cfg, d_model)
+    z, xBC, dt = _mamba2_preproject(params, x, cfg, d_inner)
     # causal depthwise conv with carried state
     pad = torch.cat([state.conv.to(xBC.dtype), xBC], dim=1)
     new_conv = pad[:, -(cfg.conv_width - 1):, :] if cfg.conv_width > 1 else state.conv
@@ -198,7 +229,7 @@ def mamba2_seq(
             "bjhp,bjhn,bjh->bhpn", xk, Bk, w_j)
         ys.append(y_intra + y_inter)
     y = torch.cat(ys, dim=1) + xh * params["D"][None, None, :, None]
-    out = _gated_out(params, y.reshape(Bsz, T, d_inner).to(x.dtype), z, x.dtype)
+    out = _gated_out(params, y.reshape(Bsz, T, d_inner).to(x.dtype), z, x.dtype, group)
     return out, Mamba2State(conv=new_conv.to(state.conv.dtype), ssm=h)
 
 
@@ -207,13 +238,14 @@ def mamba2_step(
     x: torch.Tensor,  # (B, 1, d_model)
     cfg: SSMConfig,
     state: Mamba2State,
+    group=None,
 ) -> Tuple[torch.Tensor, Mamba2State]:
     """One-token recurrent update (decode)."""
-    Bsz, _, d_model = x.shape
-    d_inner, H = mamba2_dims(d_model, cfg)
+    Bsz = x.shape[0]
+    d_inner, H = _mamba2_local_dims(params, cfg)
     G, N, P = cfg.n_groups, cfg.d_state, cfg.head_dim
 
-    z, xBC, dt = _mamba2_preproject(params, x, cfg, d_model)
+    z, xBC, dt = _mamba2_preproject(params, x, cfg, d_inner)
     z, xBC, dt = z[:, 0], xBC[:, 0], dt[:, 0]
     window = torch.cat([state.conv.to(xBC.dtype), xBC[:, None, :]], dim=1)  # (B, W, C)
     xBC = F.silu(torch.einsum("bwc,wc->bc", window, params["conv_w"]) + params["conv_b"])
@@ -226,7 +258,7 @@ def mamba2_step(
 
     h = state.ssm * a[:, :, None, None] + torch.einsum("bhp,bhn,bh->bhpn", xh, Bh, dt)
     y = torch.einsum("bhpn,bhn->bhp", h, Ch) + xh * params["D"][None, :, None]
-    out = _gated_out(params, y.reshape(Bsz, d_inner).to(x.dtype), z, x.dtype)[:, None, :]
+    out = _gated_out(params, y.reshape(Bsz, d_inner).to(x.dtype), z, x.dtype, group)[:, None, :]
     return out, Mamba2State(conv=window[:, 1:, :].to(state.conv.dtype), ssm=h)
 
 
@@ -262,9 +294,12 @@ class RWKV6State(NamedTuple):
 
 
 def rwkv6_init_state(batch: int, d_model: int, cfg: SSMConfig, dtype, device,
-                     stack: Tuple[int, ...] = ()) -> RWKV6State:
-    """Zero states; ``stack`` prepends layer axes."""
+                     stack: Tuple[int, ...] = (), heads: int | None = None) -> RWKV6State:
+    """Zero states; ``stack`` prepends layer axes.  ``heads``: a
+    tensor-parallel rank's heads (the WKV state's; the token-shift states
+    are whole)."""
     H, P = rwkv6_dims(d_model, cfg)
+    H = heads or H
     return RWKV6State(
         x_tm=torch.zeros(stack + (batch, d_model), dtype=dtype, device=device),
         x_cm=torch.zeros(stack + (batch, d_model), dtype=dtype, device=device),
@@ -306,9 +341,9 @@ def wkv_chunk(T: int, target: int) -> int:
     return Lc
 
 
-def rwkv6_time_mix_seq(params, x, cfg: SSMConfig, state: RWKV6State):
+def rwkv6_time_mix_seq(params, x, cfg: SSMConfig, state: RWKV6State, group=None):
     B, T, D = x.shape
-    H, P = rwkv6_dims(D, cfg)
+    H, P = params["u"].shape  # this rank's heads on a tensor-parallel mesh
     prev = _token_shift(x, state.x_tm.to(x.dtype))
 
     def mix(name):
@@ -322,42 +357,45 @@ def rwkv6_time_mix_seq(params, x, cfg: SSMConfig, state: RWKV6State):
     dd = params["w0"] + torch.tanh(mix("w").float() @ params["wA"]) @ params["wB"]
     w = torch.exp(-torch.exp(dd)).reshape(B, T, H, P)
 
-    # chunks of the reference's length: its scan keeps the state at their
-    # boundaries (for the backward pass); the sums are the same sequential
-    # recurrence
+    # chunks of the reference's length: under autograd only the state at
+    # their boundaries is kept, each chunk recomputed in the backward pass;
+    # the sums are the same sequential recurrence
     Lc = wkv_chunk(T, cfg.wkv_chunk)
+    remat = torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w, params["u"]))
     S, ys = state.wkv, []
     for c0 in range(0, T, Lc):
         span = slice(c0, c0 + Lc)
-        S, y = _wkv_scan(r[:, span], k[:, span], v[:, span], w[:, span], params["u"], S)
+        args = (r[:, span], k[:, span], v[:, span], w[:, span], params["u"], S)
+        S, y = checkpoint(_wkv_scan, *args, use_reentrant=False) if remat else _wkv_scan(*args)
         ys.append(y)
     # group norm over each head (ln_x), then the gate
     yf = torch.cat(ys, dim=1)  # (B, T, H, P)
     mu = yf.mean(-1, keepdim=True)
     var = yf.var(-1, correction=0, keepdim=True)
     yf = (yf - mu) * torch.rsqrt(var + 1e-5)
-    y = (yf.reshape(B, T, D) * params["ln_x_scale"]).to(x.dtype)
-    out = (y * F.silu(g)) @ params["w_o"]
+    y = (yf.reshape(B, T, H * P) * params["ln_x_scale"]).to(x.dtype)
+    out = coll.row_parallel_sum((y * F.silu(g)) @ params["w_o"], group)
     return out, RWKV6State(x_tm=x[:, -1, :], x_cm=state.x_cm, wkv=S)
 
 
-def rwkv6_channel_mix_seq(params, x, state: RWKV6State):
+def rwkv6_channel_mix_seq(params, x, state: RWKV6State, group=None):
     prev = _token_shift(x, state.x_cm.to(x.dtype))
     xk = _mix(x, prev, params["cmix_k"])
     xr = _mix(x, prev, params["cmix_r"])
-    kv = torch.square(F.relu(xk @ params["w_ck"])) @ params["w_cv"]
+    kv = coll.row_parallel_sum(torch.square(F.relu(xk @ params["w_ck"])) @ params["w_cv"], group)
     out = torch.sigmoid((xr @ params["w_cr"]).float()).to(x.dtype) * kv
     return out, RWKV6State(x_tm=state.x_tm, x_cm=x[:, -1, :], wkv=state.wkv)
 
 
-def rwkv6_block_seq(params, x, cfg: SSMConfig, state: RWKV6State, norm_params):
+def rwkv6_block_seq(params, x, cfg: SSMConfig, state: RWKV6State, norm_params, groups=(None, None)):
     """The whole RWKV6 block: time mix and channel mix, each after a
-    LayerNorm."""
+    LayerNorm.  ``groups``: the model groups of the time mix and the channel
+    mix on a tensor-parallel rank."""
     from .layers import apply_norm
 
-    h, state = rwkv6_time_mix_seq(params, apply_norm(norm_params[0], x, "layernorm"), cfg, state)
+    h, state = rwkv6_time_mix_seq(params, apply_norm(norm_params[0], x, "layernorm"), cfg, state, groups[0])
     x = x + h
-    h, state = rwkv6_channel_mix_seq(params, apply_norm(norm_params[1], x, "layernorm"), state)
+    h, state = rwkv6_channel_mix_seq(params, apply_norm(norm_params[1], x, "layernorm"), state, groups[1])
     return x + h, state
 
 

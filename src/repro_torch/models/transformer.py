@@ -5,6 +5,11 @@ Block kinds:
   * ``mamba``    — Mamba2 block                                 [zamba2]
   * ``rwkv``     — RWKV6 time mix + channel mix                 [rwkv6]
   * ``enc``/``dec`` — whisper encoder / decoder (with cross-attention)
+
+Every block takes the rank's ``MeshInfo`` (``mi``): on a mesh its weights
+are the rank's slices and its layers sum over the groups
+``sharding.tp_group`` gives them.  The sequence forms write no cache: they
+return it, and serve prefill and training alike.
 """
 
 from __future__ import annotations
@@ -141,14 +146,15 @@ def init_mamba_block(gen, arch: ArchConfig, dtype, device) -> dict:
     }
 
 
-def mamba_block(p, x, arch: ArchConfig, state, step: bool):
+def mamba_block(p, x, arch: ArchConfig, state, step: bool, mi: MeshInfo = LOCAL_MESH):
     """Returns (x, new state): the sequence form from ``state`` (zeros
     when None), or with ``step`` the one-token update."""
     h = apply_norm(p["norm"], x, arch.norm)
+    group = tp_group("mamba", arch, mi)
     if step:
-        y, new_state = ssm_lib.mamba2_step(p["mamba"], h, arch.ssm, state)
+        y, new_state = ssm_lib.mamba2_step(p["mamba"], h, arch.ssm, state, group)
     else:
-        y, new_state = ssm_lib.mamba2_seq(p["mamba"], h, arch.ssm, state)
+        y, new_state = ssm_lib.mamba2_seq(p["mamba"], h, arch.ssm, state, group)
     return x + y, new_state
 
 
@@ -160,8 +166,9 @@ def init_rwkv_block(gen, arch: ArchConfig, dtype, device) -> dict:
     }
 
 
-def rwkv_block(p, x, arch: ArchConfig, state):
-    return ssm_lib.rwkv6_block_seq(p["rwkv"], x, arch.ssm, state, (p["norm1"], p["norm2"]))
+def rwkv_block(p, x, arch: ArchConfig, state, mi: MeshInfo = LOCAL_MESH):
+    groups = (tp_group("rwkv", arch, mi), tp_group("cmix", arch, mi))
+    return ssm_lib.rwkv6_block_seq(p["rwkv"], x, arch.ssm, state, (p["norm1"], p["norm2"]), groups)
 
 
 # ---------------------------------------------------------------------------
@@ -179,14 +186,15 @@ def init_enc_block(gen, arch: ArchConfig, dtype, device) -> dict:
     }
 
 
-def enc_block(p, x, arch: ArchConfig, q_chunk: int = 1024, kv_chunk: int = 1024):
+def enc_block(p, x, arch: ArchConfig, q_chunk: int = 1024, kv_chunk: int = 1024,
+              mi: MeshInfo = LOCAL_MESH):
     """Non-causal self-attention (no rotation) and the MLP."""
     h = apply_norm(p["norm1"], x, arch.norm)
     a, _, _ = attn_lib.gqa_prefill(p["attn"], h, None, arch.attn, causal=False,
-                                   q_chunk=q_chunk, kv_chunk=kv_chunk)
+                                   q_chunk=q_chunk, kv_chunk=kv_chunk, mi=mi)
     x = x + a
     h = apply_norm(p["norm2"], x, arch.norm)
-    return x + apply_mlp(p["mlp"], h, arch.act)
+    return x + apply_mlp(p["mlp"], h, arch.act, tp_group("mlp", arch, mi))
 
 
 def init_dec_block(gen, arch: ArchConfig, dtype, device) -> dict:
@@ -201,26 +209,28 @@ def init_dec_block(gen, arch: ArchConfig, dtype, device) -> dict:
     }
 
 
-def _cross_and_mlp(p, x, enc_kv, arch: ArchConfig):
+def _cross_and_mlp(p, x, enc_kv, arch: ArchConfig, mi: MeshInfo):
     h = apply_norm(p["norm_x"], x, arch.norm)
-    x = x + attn_lib.cross_attention(p["xattn"], h, enc_kv[0], enc_kv[1], arch.attn)
+    x = x + attn_lib.cross_attention(p["xattn"], h, enc_kv[0], enc_kv[1], arch.attn,
+                                     tp_group("xattn", arch, mi))
     h = apply_norm(p["norm2"], x, arch.norm)
-    return x + apply_mlp(p["mlp"], h, arch.act)
+    return x + apply_mlp(p["mlp"], h, arch.act, tp_group("mlp", arch, mi))
 
 
-def dec_block_seq(p, x, enc_kv, arch: ArchConfig, q_chunk: int = 512, kv_chunk: int = 512):
+def dec_block_seq(p, x, enc_kv, arch: ArchConfig, q_chunk: int = 512, kv_chunk: int = 512,
+                  mi: MeshInfo = LOCAL_MESH):
     """Decoder prefill: causal self-attention (whisper's positions are
     learned and added to the input: no rotation), then cross-attention to
     the encoder's ``enc_kv`` and the MLP.  Returns (x, (k, v))."""
     h = apply_norm(p["norm1"], x, arch.norm)
     a, k, v = attn_lib.gqa_prefill(p["attn"], h, None, arch.attn, causal=True,
-                                   q_chunk=q_chunk, kv_chunk=kv_chunk)
-    return _cross_and_mlp(p, x + a, enc_kv, arch), (k, v)
+                                   q_chunk=q_chunk, kv_chunk=kv_chunk, mi=mi)
+    return _cross_and_mlp(p, x + a, enc_kv, arch, mi), (k, v)
 
 
-def dec_block_decode(p, x, position, cache, enc_kv, arch: ArchConfig):
+def dec_block_decode(p, x, position, cache, enc_kv, arch: ArchConfig, mi: MeshInfo = LOCAL_MESH):
     """One decoder token: the self-attention K/V row is written into
     ``cache`` in place and attended through the decode-attention kernel."""
     h = apply_norm(p["norm1"], x, arch.norm)
-    a = attn_lib.gqa_decode(p["attn"], h, position, cache[0], cache[1], arch.attn, use_rope=False)
-    return _cross_and_mlp(p, x + a, enc_kv, arch)
+    a = attn_lib.gqa_decode(p["attn"], h, position, cache[0], cache[1], arch.attn, use_rope=False, mi=mi)
+    return _cross_and_mlp(p, x + a, enc_kv, arch, mi)

@@ -44,8 +44,10 @@ def _loss_and_grads(lm: LM, params, batch):
 
 
 def _microbatch(batch: Dict[str, Any], i: int, mb: int, B: int) -> Dict[str, Any]:
-    """Rows [i * mb, (i + 1) * mb) of every batch entry: axis 0, or axis 1
-    of the (3, B, S) M-RoPE positions."""
+    """Rows [i * mb, (i + 1) * mb) of every batch entry: axis 0 (tokens,
+    labels, a stub's ``embeds``: the VLM's patches, whisper's encoder frames
+    beside its decoder tokens), or axis 1 of the (3, B, S) M-RoPE
+    positions."""
 
     def s(x):
         if x.ndim >= 1 and x.shape[0] == B:

@@ -1,5 +1,7 @@
-"""The JAX side of ``tests/test_torch_tp.py``, run as one subprocess:
-``python _torch_tp_jax.py INPUTS.npz OUT.npz``.  Four host devices stand
+"""The JAX side of ``tests/test_torch_tp.py`` and
+``tests/test_torch_tp_recurrent.py``, run as one subprocess: ``python
+_torch_tp_jax.py INPUTS.npz OUT.npz [CASE ...]`` (the cases of
+``_torch_tp_cases.CASES`` by default).  Four host devices stand
 in for the mesh (set before JAX is imported, as ``tests/test_moe.py:117``
 sets them).  For each proxy and mesh it places the parameters with
 ``to_shardings(mesh, param_pspecs(...))``, writes each leaf's index on
@@ -59,13 +61,14 @@ def _run(case: str, shape, inp: dict, out: dict) -> None:
     key = f"{case}/{shape[0]}x{shape[1]}"
     _layout(placed, full, mesh, key, out)
     lm = LM(arch, dtype=jnp.float32, mesh_info=mi)
-    toks = jnp.asarray(inp[f"{case}/tokens"])
+    batch = {k: jnp.asarray(v) for k, v in cases.prompt(inp, case).items()}
     S, T = cases.PROMPT, cases.MAX_SEQ
     with use_mesh(mesh):
-        logits, cache, aux = jax.jit(lambda p, t: lm.prefill(p, {"tokens": t}))(placed, toks)
-        # gathered to the host and padded to the decode length there
-        cache = jax.tree.map(lambda c: np.pad(np.asarray(c), [(0, 0), (0, 0), (0, T - S)] +
-                                              [(0, 0)] * (c.ndim - 3)), cache)
+        logits, cache, aux = jax.jit(lm.prefill)(placed, batch)
+        # gathered to the host and the K/V padded to the decode length there
+        cache = {k: jax.tree.map(lambda c: np.pad(np.asarray(c), [(0, 0), (0, 0), (0, T - S)] +
+                                                  [(0, 0)] * (c.ndim - 3)) if k in cases.kv_keys(arch)
+                                 else np.asarray(c), v) for k, v in cache.items()}
         out[f"{key}/prefill_logits"] = np.asarray(logits)
         out[f"{key}/prefill_counts"] = np.asarray(aux.counts)
         step = jax.jit(lambda p, b, c: lm.decode_step(p, b, c))
@@ -79,14 +82,14 @@ def _run(case: str, shape, inp: dict, out: dict) -> None:
             tok = jnp.argmax(logits[:, 0, : arch.vocab_size], axis=-1).astype(jnp.int32)
 
 
-def main(inputs_path: str, out_path: str) -> None:
+def main(inputs_path: str, out_path: str, *names: str) -> None:
     inp = dict(np.load(inputs_path))
     out = {}
-    for case in cases.CASES:
+    for case in names or cases.CASES:
         for shape in cases.MESHES:
             _run(case, shape, inp, out)
     np.savez(out_path, **out)
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], sys.argv[2])
+    main(*sys.argv[1:])

@@ -1,6 +1,7 @@
-"""The port's side of ``tests/test_torch_tp.py``: the function each of four
-gloo ranks runs (``repro_torch.launch.mesh.run_on_mesh``), and the card
-test's rank function.  It imports no JAX, so the ranks start quickly; the
+"""The port's side of ``tests/test_torch_tp.py`` and
+``tests/test_torch_tp_recurrent.py``: the function each of four gloo ranks
+runs (``repro_torch.launch.mesh.run_on_mesh``), and the card test's rank
+function.  It imports no JAX, so the ranks start quickly; the
 test holds what they return against the JAX subprocess's results and the
 one-process model."""
 
@@ -14,7 +15,7 @@ from _torch_ep_cases import unflatten
 from repro_torch.bridge import params_from_numpy, params_to_numpy
 from repro_torch.configs import get_arch
 from repro_torch.launch.mesh import make_mesh, mesh_info_for
-from repro_torch.models import LM, moe
+from repro_torch.models import LM, moe, ssm
 from repro_torch.models import collectives as coll
 from repro_torch.models.layers import apply_mlp, embed, lm_logits
 from repro_torch.models.sharding import rank_slice
@@ -52,10 +53,10 @@ def _lm(inp: dict, case: str, mesh) -> dict:
     routes: list = []
     restore = _record_routes(routes)
     try:
-        logits, cache, aux = lm.prefill(params, {"tokens": _t(inp[f"{case}/tokens"])},
-                                        max_seq=cases.MAX_SEQ)
+        batch = {k: _t(v) for k, v in cases.prompt(inp, case).items()}
+        logits, cache, aux = lm.prefill(params, batch, max_seq=cases.MAX_SEQ)
         out.update(prefill_logits=logits.numpy(), prefill_counts=aux.counts.numpy(),
-                   cache_shapes=[tuple(c.shape) for c in cache["blocks"]])
+                   cache_shapes={k: [tuple(c.shape) for c in v] for k, v in cache.items()})
         tok = torch.argmax(logits[:, 0, : arch.vocab_size], dim=-1).to(torch.int32)
         for i in range(cases.STEPS):
             pos = torch.full((cases.BATCH,), cases.PROMPT + i, dtype=torch.int32)
@@ -90,15 +91,27 @@ def _units(mesh) -> dict:
     }
 
 
-def rank_main(mesh22, inputs_path: str) -> dict:
-    """Everything the four ranks run; ``mesh22`` is the (2, 2) mesh of
-    ``run_on_mesh``, and the (1, 4) mesh is built on the same ranks."""
+def _gated_norm(mesh) -> dict:
+    """Mamba2's gated RMSNorm and out projection on this rank of the (1, 4)
+    mesh: its head's channels of ``y``, ``z`` and ``norm_scale`` and its
+    rows of ``w_out``, the mean square summed over the group."""
+    u = {k: _t(v) for k, v in cases.gated_norm_inputs().items()}
+    mi = mesh_info_for(mesh, 4)
+    mine = {"norm_scale": rank_slice(u["norm_scale"], -1, mi), "w_out": rank_slice(u["w_out"], -2, mi)}
+    return {"gated_norm": ssm._gated_out(mine, rank_slice(u["y"], -1, mi), rank_slice(u["z"], -1, mi),
+                                         torch.float32, mi.model_group).numpy()}
+
+
+def rank_main(mesh22, inputs_path: str, names=cases.CASES) -> dict:
+    """Everything the four ranks run for the cases ``names``; ``mesh22`` is
+    the (2, 2) mesh of ``run_on_mesh``, and the (1, 4) mesh is built on the
+    same ranks."""
     torch.set_num_threads(1)
     inp = dict(np.load(inputs_path))
     mesh14 = make_mesh((1, 4), ("data", "model"), backend=mesh22.backend, device=mesh22.device)
     meshes = {(1, 4): mesh14, (2, 2): mesh22}
-    out = {"rank": mesh22.rank, "units": _units(mesh14)}
-    for case in cases.CASES:
+    out = {"rank": mesh22.rank, "units": {**_units(mesh14), **_gated_norm(mesh14)}}
+    for case in names:
         for shape in cases.MESHES:
             out[f"{case}/{shape[0]}x{shape[1]}"] = _lm(inp, case, meshes[shape])
     return out

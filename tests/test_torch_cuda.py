@@ -1243,10 +1243,14 @@ class TestEngineChaos:
 
 # phase 10's decode-attention shapes (dh, Kv, G, T, lengths): zamba2-7b's
 # shared attention over 4 slots of 292 positions, whisper-base's decoder
-# over 4 slots of its 448 learned positions
+# over 4 slots of its 448 learned positions; and phase 9's rows 3g and 3h,
+# a tensor-parallel rank of the (2, 4) mesh over the families' 70
+# positions: zamba2's 8 heads on 8 kv heads, whisper's 2 on 2
 _RECURRENT_ATTENTION = {
     "zamba2_dh112_g1": (112, 32, 1, 292, [257, 270, 288, 292]),
     "whisper_dh64_g1": (64, 8, 1, 448, [0, 65, 96, 448]),
+    "zamba2_tp_dh112_g1": (112, 8, 1, 70, [0, 1, 67, 70]),
+    "whisper_tp_dh64_g1": (64, 2, 1, 70, [0, 1, 67, 70]),
 }
 
 

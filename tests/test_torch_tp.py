@@ -173,7 +173,7 @@ def test_lm_on_mesh_matches_jax_mesh_and_one_process(tp_runs, case, shape):
             want_shape = (B, cases.MAX_SEQ // m, a.n_kv_heads, a.d_head)
         else:
             want_shape = (B, cases.MAX_SEQ, a.n_kv_heads // m, a.d_head)
-        assert got["cache_shapes"][0][1:] == want_shape
+        assert got["cache_shapes"]["blocks"][0][1:] == want_shape
         stages = ["prefill_{}"] + [f"decode_{{}}{i}" for i in range(cases.STEPS)]
         for s, what in enumerate(stages):
             counts, logits = what.format("counts"), what.format("logits")

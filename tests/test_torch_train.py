@@ -305,15 +305,6 @@ def test_five_train_steps_track_jax(compression):
         _assert_trees_close(tstate.m, jstate.m)
 
 
-@pytest.mark.parametrize("name", ["zamba2-7b", "rwkv6-7b", "whisper-base"])
-def test_recurrent_families_forward_raises(name):
-    lm = TLM(tget(name).reduced(), dtype=torch.float32, device="cpu")
-    p = lm.init(seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.loss(p, {"tokens": torch.zeros((1, 4), dtype=torch.int32),
-                    "labels": torch.zeros((1, 4), dtype=torch.int32)})
-
-
 @pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "deepseek-v2-236b", "qwen2-vl-7b", "zamba2-7b",
                                   "rwkv6-7b", "whisper-base"])
 def test_params_to_numpy_round_trips_the_jax_tree(name):
