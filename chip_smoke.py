@@ -231,7 +231,19 @@ Phases, each fatal on failure:
    decode-attention launch per attention block and step (rows
    ``decode_attention_tp_dh112`` and ``decode_attention_tp_dh64``, held
    and timed as phase 3's rows before the runs), a rank's weights by
-   group.
+   group.  Then, the families freed, the same ranks train qwen3-moe at
+   full width on the (2, 4) mesh (``_tp_train``), cut to 1 layer for time
+   and for eight ranks' memory on one card: first one float32 layer's
+   gradients of a global batch of 4 x 512 tokens, on global rank 0 held
+   against the mean of one process's gradients over the two data rows'
+   halves (the reference's mesh semantics, aux loss included) by the
+   phase-4 rule, leaf by leaf; then ``MESH_TRAIN_STEPS`` steps of
+   ``make_train_step`` in bf16 with remat, int8 compression and AdamW on
+   that batch: the loss finite and falling, no kernel launched, the
+   replicated leaves bitwise equal across the model ranks and every leaf
+   across the data ranks (position-weighted digests of the bits), and the
+   step's host-clock split (loss and gradients, the data-parallel reduce,
+   clip with compression, AdamW, the collectives' share).
 
 It logs the elapsed seconds at the end of each group of phases and a
 sha256 of the tokens of every one-process run (``tokens <run>`` lines;
@@ -3786,6 +3798,10 @@ TP_FAM_SLOTS, TP_FAM_PROMPT = 4, 64
 # and whisper's decoder (2 on 2, dh 64)
 TP_FAM_ROWS = {"zamba2-7b": "tp_dh112", "whisper-base": "tp_dh64"}
 # a rank's weights by group, predicted from the shapes (PERF.md, section 6)
+# mesh training on the (2, 4) ranks after the families (``_tp_train``):
+# qwen3-moe at full width, 1 layer, 2 rows of 512 tokens a data row
+MESH_TRAIN_LAYERS, MESH_TRAIN_ROWS, MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 1, 2, 512, 3
+MESH_TRAIN_LR = 1e-3
 TP_FAM_PREDICTED = {
     "zamba2-7b": "attention 0.026, ssm 0.199, embedding/logits 0.115, rest 0.077, in all 0.416; 1.649 whole",
     "rwkv6-7b": "ssm 0.271, embedding/logits 0.268, in all 0.539; 1.95 whole",
@@ -4345,6 +4361,181 @@ def _tp_rank(mesh, n_layers: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out["families"] = {name: _tp_family(mesh, name, cut) for name, cut in TP_FAMILIES}
+    out["training"] = _tp_train(mesh)
+    return out
+
+
+def _digest(t) -> int:
+    """A position-weighted sum of a tensor's bits (int64, wrapping): equal
+    bits give equal digests."""
+    import torch
+
+    bits = t.detach().contiguous().view(torch.int32 if t.element_size() == 4 else torch.int16).reshape(-1)
+    weights = torch.arange(1, bits.numel() + 1, dtype=torch.int64, device=t.device)
+    return int((bits.to(torch.int64) * weights).sum())
+
+
+@contextlib.contextmanager
+def _timed_collectives(coll, seconds: list):
+    """Within the block every collective of ``coll`` (its all-reduce,
+    all-gather and all-to-all, host staging included) adds its host-clock
+    seconds to ``seconds[0]``, the device synchronised before and after."""
+    import torch
+
+    saved = {name: getattr(coll, name) for name in ("_reduce", "_gather", "_exchange")}
+
+    def timed(fn):
+        def run(t, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(t, *args)
+            torch.cuda.synchronize()
+            seconds[0] += time.perf_counter() - t0
+            return out
+
+        return run
+
+    for name, fn in saved.items():
+        setattr(coll, name, timed(fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(coll, name, fn)
+
+
+def _per_row_mean_check(arch, mi, batch: dict, rows: int, g_mesh: list) -> dict:
+    """One process on the card (float32, keyed weights from seed 1): the
+    mean of its gradients of each data row's ``rows`` rows of ``batch``,
+    this rank's part of each leaf held against ``g_mesh`` (the mesh's
+    ``(path, gradient)`` leaves) by the phase-4 rule.  Returns the worst
+    leaf; its weights are freed after."""
+    import torch
+
+    from repro_torch.models import LM
+    from repro_torch.models.sharding import rank_part
+    from repro_torch.train.train_loop import _loss_and_grads
+    from repro_torch.train.tree import leaves_with_paths, tree_map
+
+    one = LM(arch, torch.float32, batch["tokens"].device)
+    params = tree_map(lambda p: p.requires_grad_(True), one.init(seed=1, keyed=True))
+    acc = None
+    for d in range(mi.dp_size):
+        part = {k: v[d * rows:(d + 1) * rows] for k, v in batch.items()}
+        g = [x.float() for _, x in leaves_with_paths(_loss_and_grads(one, params, part)[2])]
+        acc = g if acc is None else [a.add_(x) for a, x in zip(acc, g)]
+    del params, g
+    worst = {"rel_err": 0.0, "cosine": 1.0, "leaves": len(acc)}
+    for (path, got), whole in zip(g_mesh, acc):
+        want = rank_part(whole / mi.dp_size, path, arch, mi)
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        cos = float(torch.nn.functional.cosine_similarity(got.flatten(), want.flatten(), dim=0))
+        name = "/".join(map(str, path))
+        if not torch.isfinite(got).all() or err > 5e-2 * scale or cos < 0.999:
+            raise RuntimeError(f"mesh training: gradient of {name} differs from the one process's per-row mean "
+                               f"by {err} (largest {scale}, cosine {cos})")
+        if scale and err / scale > worst["rel_err"]:
+            worst.update(leaf=name, max_abs_err=err, max=scale, rel_err=err / scale)
+        worst["cosine"] = min(worst["cosine"], cos)
+    return worst
+
+
+def _tp_train(mesh) -> dict:
+    """Mesh training on a rank of the (2, 4) mesh: qwen3-moe at full width,
+    ``MESH_TRAIN_LAYERS`` layer, ``expert_exec="dense"``, a global batch of
+    ``MESH_TRAIN_ROWS`` rows a data row.  (a) float32: the rank's gradients
+    after the data-parallel reduce; global rank 0 then runs one process on
+    the card and holds its part of the mean of the one-process gradients
+    of the two data rows' halves against them, leaf by leaf (max |err| at
+    most 5% of the largest, cosine at least 0.999), while the other ranks
+    wait.  (b) bf16, remat, int8 compression: ``MESH_TRAIN_STEPS`` steps of
+    ``make_train_step`` on the batch, the launch counts zeroed before, the
+    last with each phase the step marks timed on the host clock with the
+    device synchronised and the collectives' seconds counted
+    (``_timed_collectives``); then each leaf's digest for the checks
+    across ranks."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import mesh_info_for
+    from repro_torch.models import LM
+    from repro_torch.models import collectives as coll
+    from repro_torch.models.sharding import tp_axis
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import loss_and_grads
+    from repro_torch.train.tree import leaves_with_paths, tree_map
+
+    dev = mesh.device
+    base = ep_arch(MESH_TRAIN_LAYERS)
+    arch = dataclasses.replace(base, moe=dataclasses.replace(base.moe, expert_exec="dense"))
+    dp, R, S = TP_SHAPE[0], MESH_TRAIN_ROWS, MESH_TRAIN_SEQ
+    mi = mesh_info_for(mesh, dp * R)
+    rng = np.random.default_rng(11)
+    toks = torch.from_numpy(rng.integers(0, arch.vocab_size, (dp * R, S + 1)).astype(np.int64)).to(dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+
+    # (a) float32 gradients against one process's per-row mean
+    t0 = time.perf_counter()
+    lm32 = LM(arch, torch.float32, dev, mesh_info=mi)
+    p32 = tree_map(lambda p: p.requires_grad_(True), lm32.init(seed=1))
+    _, _, g_mesh = loss_and_grads(lm32, p32, batch)
+    del p32
+    g_mesh = leaves_with_paths(g_mesh) if mesh.rank == 0 else None
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mesh.rank == 0:
+        out["f32_check"] = _per_row_mean_check(arch, mi, batch, R, g_mesh)
+    del g_mesh, lm32
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    out["f32_s"] = time.perf_counter() - t0
+
+    # (b) bf16 training steps
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    # the loss's float32 logits 128 positions at a time: eight ranks share the card
+    lm = LM(arch, torch.bfloat16, dev, mesh_info=mi, remat=True, loss_chunk=128)
+    tc = TrainConfig(opt=AdamWConfig(lr=MESH_TRAIN_LR, warmup_steps=1, total_steps=MESH_TRAIN_STEPS + 1),
+                     grad_compression=True)
+    params, opt, res = init_train_state(lm, 0, tc)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    step = make_train_step(lm, tc)
+    losses = []
+    ops.reset_launches()
+    for _ in range(MESH_TRAIN_STEPS - 1):
+        params, opt, res, m = step(params, opt, batch, res)
+        losses.append(float(m["loss"]))
+    # the last step timed phase by phase as the step marks them, the device
+    # synchronised at each mark, the collectives' seconds counted
+    split, coll_s, t = {}, [0.0], [0.0]
+
+    def mark(phase: str) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        split[phase] = 1e3 * (now - t[0])
+        t[0] = now
+
+    timed = make_train_step(lm, tc, mark=mark)
+    with _timed_collectives(coll, coll_s):
+        torch.cuda.synchronize()
+        t[0] = time.perf_counter()
+        params, opt, res, m = timed(params, opt, batch, res)
+    losses.append(float(m["loss"]))
+    split["collectives"] = 1e3 * coll_s[0]
+    out.update(losses=losses, split_ms=split, launches={k: n for k, n in ops.LAUNCHES.items() if n},
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, grad_norm=float(m["grad_norm"]))
+    out["digests"] = [("/".join(map(str, path)), tp_axis(path, w.shape, arch, mi.ep_size) is not None, _digest(x))
+                      for (path, x), (_, w) in zip(leaves_with_paths(params), leaves_with_paths(lm.shapes()))]
+    out["model_index"], out["data_index"] = mi.model_index, mi.data_index
+    del lm, params, opt, res, step, timed, m
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4758,12 +4949,58 @@ def _tp_phase(card: str, arch, backend: str, devices, layout: str) -> dict:
             f"against one process over prefill and {TP_STEPS} steps the worst max |err| {worst['max_abs_err']:.4g} "
             f"(relative {worst['rel_err']:.4g}, {worst['stage']}), the lowest cosine "
             f"{min(e['cosine'] for e in r0['parity']):.6f} | {card}")
+    out["training"] = _check_mesh_training(ranks, card)
     run = out["runs"][TP_RUN]
     log(f"tp {TP_RUN}: decode step {run['decode_step_ms']['median']:.1f} ms, a rank's collectives "
         f"{run['decode_coll_ms']['median']:.1f} ms (host clock, gloo through host memory: not NVLink); rank "
         f"init {max(r['init_s'] for r in ranks):.1f} s, qwen3 parity {max(r['parity_s'] for r in ranks):.1f} s, "
         f"deepseek-v2 init {ds['init_s']:.1f} s and parity {ds['parity_s']:.1f} s; the ranks' wall "
         f"{out['wall_s']:.1f} s | {card}")
+    return out
+
+
+def _check_mesh_training(ranks: list, card: str) -> dict:
+    """The checks across the ranks of ``_tp_train``: the same finite,
+    falling losses on every rank, no kernel launched, a replicated leaf's
+    bits equal on every rank and a split leaf's on every rank of its model
+    index, global rank 0's float32 check; then the step's split, logged."""
+    import numpy as np
+
+    trains = [r["training"] for r in ranks]
+    t0 = trains[0]
+    losses = t0["losses"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"mesh training: the loss is not finite and falling: {losses}")
+    if any(t["losses"] != losses for t in trains):
+        fail(f"mesh training: the ranks report different losses: {[t['losses'] for t in trains]}")
+    if any(t["launches"] for t in trains):
+        fail(f"mesh training: the training path launched the port's kernels: {[t['launches'] for t in trains]}")
+    n_split = 0
+    for i, (name, split, _) in enumerate(t0["digests"]):
+        n_split += split
+        for t in trains:
+            if (not split or t["model_index"] == t0["model_index"]) and t["digests"][i][2] != t0["digests"][i][2]:
+                fail(f"mesh training: leaf {name} ({'split' if split else 'replicated'}) differs between global "
+                     f"rank 0 and the rank at (data {t['data_index']}, model {t['model_index']})")
+    f32 = t0["f32_check"]
+    keys = ("loss_and_grads", "data_parallel_reduce", "clip_and_compression", "adamw")
+    split_ms = {k: max(t["split_ms"][k] for t in trains) for k in keys + ("collectives",)}
+    step_ms = max(sum(t["split_ms"][k] for k in keys) for t in trains)
+    out = {"losses": losses, "f32_check": f32, "f32_s": max(t["f32_s"] for t in trains),
+           "init_s": max(t["init_s"] for t in trains), "peak_gb": [t["peak_gb"] for t in trains],
+           "split_ms_rank0": t0["split_ms"], "last_step_ms": step_ms, "last_step_split_ms": split_ms,
+           "collectives_share": split_ms["collectives"] / step_ms, "leaves": len(t0["digests"]), "split_leaves": n_split}
+    log(f"mesh training: qwen3-moe full width, {MESH_TRAIN_LAYERS} layer, on the {TP_SHAPE} mesh, "
+        f"{MESH_TRAIN_ROWS} x {MESH_TRAIN_SEQ} tokens a data row, bf16, remat, int8 compression, AdamW lr "
+        f"{MESH_TRAIN_LR}: loss by step " + ", ".join(f"{x:.4f}" for x in losses) + f"; {n_split} of "
+        f"{out['leaves']} leaves split, replicated leaves bitwise equal over the model ranks and every leaf over "
+        f"the data ranks; float32 gradients against one process's per-row mean on rank 0: worst relative max "
+        f"|err| {f32['rel_err']:.4g} ({f32.get('leaf', '-')}), lowest cosine {f32['cosine']:.6f} over "
+        f"{f32['leaves']} leaves ({out['f32_s']:.1f} s)")
+    log(f"mesh training: last step {step_ms:.1f} ms (the slowest rank, host clock, device synchronised at each "
+        "phase): " + ", ".join(f"{k} {split_ms[k]:.1f} ms" for k in keys) + f"; collectives {split_ms['collectives']:.1f}"
+        f" ms (share {out['collectives_share']:.3f}; gloo through host memory: not NVLink); peak allocated "
+        f"{max(out['peak_gb']):.2f} GB a rank, init {out['init_s']:.1f} s | {card}")
     return out
 
 

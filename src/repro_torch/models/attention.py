@@ -17,6 +17,9 @@ on a config of its ``n_heads / m`` (and ``n_kv_heads / m``) heads, and the
 partial outputs of ``wo`` are summed over the group in float32
 (:func:`_project_out`); its GQA cache holds its kv heads.  Whisper's
 cross-attention splits by heads the same way (its own ``xattn`` layer).
+The replicated input of a rank's heads (GQA's and the cross-attention's
+``x`` and encoder states, MLA's latents) enters them through
+``collectives.enter``, whose backward sums the heads' partial gradients.
 """
 
 from __future__ import annotations
@@ -184,6 +187,8 @@ def gqa_prefill(
     """Returns (y, k, v): the output and the prompt's K/V (this rank's kv
     heads where the heads are split over ``mi``'s model group)."""
     local = rank_attn(cfg, mi)
+    if local is not cfg:  # the rank's heads' columns of the projections
+        x = coll.enter(x, mi.model_group)
     q, k, v = gqa_project_qkv(params, x, positions, local, mrope_positions)
     o = flash_attention(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk)
     B, S = x.shape[:2]
@@ -399,11 +404,13 @@ def gqa_decode_seqpar(
 # ---------------------------------------------------------------------------
 
 
-def _mla_q(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig):
-    """The queries' no-RoPE and rotated parts, each (B, S, H, dim)."""
+def _mla_q(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: AttnConfig, group=None):
+    """The queries' no-RoPE and rotated parts, each (B, S, H, dim).  With
+    ``group`` (the heads split over it) the whole latent ``cq`` enters the
+    rank's heads' columns of ``w_uq``."""
     m = cfg.mla
     B, S, _ = x.shape
-    cq = _rms(x @ params["w_dq"], params["q_norm_scale"])
+    cq = coll.enter(_rms(x @ params["w_dq"], params["q_norm_scale"]), group)
     q = (cq @ params["w_uq"]).reshape(B, S, cfg.n_heads, m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = q[..., : m.qk_nope_dim], q[..., m.qk_nope_dim:]
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
@@ -432,12 +439,15 @@ def mla_prefill(
     split, cfg = local is not cfg, local
     m, H = cfg.mla, cfg.n_heads
     B, S, _ = x.shape
-    q_nope, q_rope = _mla_q(params, x, positions, cfg)
+    # the latents are whole on every rank: each enters the rank's heads
+    group = mi.model_group if split else None
+    q_nope, q_rope = _mla_q(params, x, positions, cfg, group)
     c_kv, k_rope = _mla_latent(params, x, positions, cfg)
-    k_nope = (c_kv @ params["w_uk"]).reshape(B, S, H, m.qk_nope_dim)
-    v = (c_kv @ params["w_uv"]).reshape(B, S, H, m.v_head_dim)
+    c_in, kr_in = coll.enter(c_kv, group), coll.enter(k_rope, group)
+    k_nope = (c_in @ params["w_uk"]).reshape(B, S, H, m.qk_nope_dim)
+    v = (c_in @ params["w_uv"]).reshape(B, S, H, m.v_head_dim)
     qq = torch.cat([q_nope, q_rope], -1)
-    kk = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, m.qk_rope_dim)], -1)
+    kk = torch.cat([k_nope, kr_in[:, :, None, :].expand(B, S, H, m.qk_rope_dim)], -1)
     o = flash_attention(qq, kk, v, causal=True, q_chunk=q_chunk, kv_chunk=kv_chunk)
     return _project_out(o.reshape(B, S, -1), params["wo"], split, mi), c_kv, k_rope
 
@@ -511,7 +521,7 @@ def cross_attention(
     ``group`` (the heads split over a model group) the weights and the K/V
     are this rank's heads' and the partials of ``wo`` are summed."""
     B, Sq, _ = x.shape
-    q = (x @ params["wq"]).reshape(B, Sq, -1, cfg.d_head)
+    q = (coll.enter(x, group) @ params["wq"]).reshape(B, Sq, -1, cfg.d_head)
     o = flash_attention(q, enc_k, enc_v, causal=False, q_chunk=_divisor_chunk(Sq, 1024),
                         kv_chunk=_divisor_chunk(enc_k.shape[1], 1024))
     return coll.row_parallel_sum(o.reshape(B, Sq, -1) @ params["wo"], group)
@@ -527,9 +537,11 @@ def init_cross_attention(gen, cfg: AttnConfig, d_model: int, dtype, device) -> d
     }
 
 
-def project_cross_kv(params: dict, enc_states: torch.Tensor, cfg: AttnConfig):
+def project_cross_kv(params: dict, enc_states: torch.Tensor, cfg: AttnConfig, group=None):
     """The encoder states' K and V, (B, Se, H, dh) each (a tensor-parallel
-    rank's heads from its columns of ``wk``/``wv``)."""
+    rank's heads from its columns of ``wk``/``wv``, ``group`` the model
+    group it splits them over)."""
+    enc_states = coll.enter(enc_states, group)
     B, Se, _ = enc_states.shape
     k = (enc_states @ params["wk"]).reshape(B, Se, -1, cfg.d_head)
     v = (enc_states @ params["wv"]).reshape(B, Se, -1, cfg.d_head)

@@ -62,6 +62,7 @@ def apply_mlp(params: dict, x: torch.Tensor, act: str, group=None) -> torch.Tens
     """The MLP; with ``group`` this rank holds columns of ``w_gate``/``w_up``
     and the same rows of ``w_down`` (column- then row-parallel), and the
     partial outputs are summed over the group."""
+    x = coll.enter(x, group)
     up = x @ params["w_up"]
     if act == "swiglu":
         h = F.silu(x @ params["w_gate"]) * up
@@ -94,6 +95,7 @@ def lm_logits(h: torch.Tensor, table: torch.Tensor,
     """Project to the vocabulary.  ``w_out`` is None for tied embeddings.
     Vocab-parallel with ``group``: this rank's columns of the logits, then
     gathered to the whole vocabulary in rank order."""
+    h = coll.enter(h, group)
     logits = h @ w_out if w_out is not None else h @ table.T
     return coll.gather_last(logits, group)
 

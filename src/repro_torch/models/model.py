@@ -34,7 +34,11 @@ sequence-parallel decode; its heads of the SSM states and of whisper's
 cross K/V), and returns the global logits and step counts.
 
 Training (:meth:`LM.forward`, :meth:`LM.loss`) runs every family under
-autograd on one process; ``remat=True`` recomputes each block in the
+autograd, on one process or on a mesh, where a rank computes the loss of
+its rows of the global batch and the collectives carry the gradient
+(:mod:`repro_torch.models.collectives`: each replicated leaf's gradient
+comes out whole on every rank of its model group, each split leaf's as
+the rank's slice); ``remat=True`` recomputes each block in the
 backward pass (``torch.utils.checkpoint``, where the reference wraps its
 scan bodies in ``jax.checkpoint``).  The hybrid, ssm and audio families
 share one walk of their blocks between prefill and training (its
@@ -60,7 +64,7 @@ from . import transformer as tf
 from . import ssm
 from .attention import project_cross_kv
 from .layers import apply_norm, embed, init_norm, lm_logits, sinusoidal_positions
-from .moe import LOCAL_MESH, MeshInfo
+from .moe import LOCAL_MESH, MeshInfo, expert_parallel
 from .sharding import (batch_rows, expert_rows, is_expert_leaf, leaf_seed, padded_vocab, rank_attn,
                        rank_heads, rank_part, seq_positions, ssm_heads, tp_group, tp_splits)
 from .ssm import Mamba2State, RWKV6State
@@ -249,7 +253,13 @@ class LM:
                 return [walk(v, path + (i,)) for i, v in enumerate(tree)]
             return leaf(path, tree)
 
-        return walk(self._draw(torch.Generator(), "meta"))
+        return walk(self.shapes())
+
+    def shapes(self) -> Dict[str, Any]:
+        """The one-process parameter tree on the ``"meta"`` device: every
+        leaf's whole shape and dtype, whatever the mesh (what
+        ``train_loop.split_leaves`` and a mesh checkpoint read)."""
+        return self._draw(torch.Generator(), "meta")
 
     def _caches(self, row_shapes, dtypes=None) -> Dict[str, Any]:
         """Zeroed cache leaves ``(n, *row_shape)`` for each shape of
@@ -391,12 +401,27 @@ class LM:
         if self.mi.dp_size == 1:
             return batch
         out = dict(batch)
-        for k in ("tokens", "embeds", "position"):
+        for k in ("tokens", "embeds", "position", "positions", "labels"):
             if k in out:
                 out[k] = out[k][rows]
         if "mrope_positions" in out:
             out["mrope_positions"] = out["mrope_positions"][:, rows]
         return out
+
+    def _train_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's rows of a global training batch.  Raises for a MoE
+        arch whose experts a mesh with more than one data rank does not
+        run expert-parallel: the reference then routes the global batch
+        as one (``moe_local`` under GSPMD: its capacity, drops and aux loss
+        are the whole batch's), where a rank here would route its own
+        rows."""
+        cfg = self.arch.moe
+        if cfg is not None and self.mi.dp_size > 1 and not expert_parallel(cfg, self.mi):
+            raise ValueError(
+                f"training {self.arch.name} on {self.mi.dp_size} data ranks needs its {cfg.n_experts} "
+                f"experts split over a model group that divides them, not one of {self.mi.ep_size}: the "
+                "reference routes the global batch as one otherwise, which a rank of its rows cannot")
+        return self._rank_batch(batch)
 
     def _all_rows(self, t: torch.Tensor) -> torch.Tensor:
         """The global batch of a per-row result, gathered over the data
@@ -556,13 +581,15 @@ class LM:
         optionally ``positions`` (B, S), ``mrope_positions`` (3, B, S) and
         ``sieve``; for the audio family the encoder's ``embeds`` (B,
         frames, d) and the decoder's ``tokens`` (B, Sd), ``h`` then the
-        decoder's.  On one process."""
+        decoder's.  On a mesh the batch is global and ``h`` holds this
+        rank's rows of it (``sharding.batch_rows``); the StepAux is
+        global.  With more than one data rank a MoE arch's experts must be
+        expert-parallel (:meth:`_train_batch` raises otherwise)."""
+        return self._forward(p, self._train_batch(batch))
+
+    def _forward(self, p, batch: Dict[str, Any]):
+        """:meth:`forward` on this rank's rows of the batch."""
         arch = self.arch
-        if self.mi != LOCAL_MESH:
-            raise NotImplementedError(
-                "training on a mesh is not ported (ROADMAP Queue 1, data- and tensor-parallel "
-                "training): the collectives of torch.distributed carry no gradient"
-            )
         if arch.family in RECURRENT_FAMILIES:
             x, _ = self._recurrent_seq(p, batch, collect_cache=False)
             return apply_norm(p["final_norm"], x, arch.norm), _empty_aux(x.device)
@@ -580,21 +607,28 @@ class LM:
         logits computed ``loss_chunk`` positions at a time in float32 with
         the padded vocabulary masked, plus ``router_aux_coef`` times the
         MoE aux loss (``repro.models.model.LM.loss``).  Returns ``(loss,
-        {"ce": ce, "aux": StepAux})``."""
-        h, aux = self.forward(p, batch)
+        {"ce": ce, "aux": StepAux})``.
+
+        On a mesh the batch is global and a rank's ``ce`` is the mean over
+        the labels of its rows; where the model group splits the
+        vocabulary each chunk's logits are the rank's columns, gathered to
+        the whole padded vocabulary before the mask.  The MoE aux loss
+        carries the gradient of this rank's rows' aux loss and the value
+        of the global one (``moe._aux_on_mesh``): the mean of the data
+        ranks' losses and gradients is then the reference's."""
+        batch = self._train_batch(batch)
+        h, aux = self._forward(p, batch)
         labels = batch["labels"]
         B, S = labels.shape
         chunk = min(self.loss_chunk, S)
         while S % chunk:
             chunk //= 2
-        w = p.get("w_out")
-        w = p["embed"].T if w is None else w
         live = None
         if self.vocab_padded != self.arch.vocab_size:
             live = torch.arange(self.vocab_padded, device=h.device) < self.arch.vocab_size
         total = 0.0
         for s0 in range(0, S, chunk):
-            logits = (h[:, s0:s0 + chunk] @ w).float()
+            logits = lm_logits(h[:, s0:s0 + chunk], p["embed"], p.get("w_out"), self._vocab_group()).float()
             if live is not None:
                 logits = torch.where(live, logits, -1e30)
             gold = torch.gather(logits, -1, labels[:, s0:s0 + chunk, None].long())[..., 0]
@@ -750,7 +784,7 @@ class LM:
         """One decoder block over the sequence, its cross K/V projected from
         the encoder's states: ``(x, self K/V, cross K/V)``."""
         S = x.shape[1]
-        enc_kv = project_cross_kv(blk["xattn"], enc, self.arch.attn)
+        enc_kv = project_cross_kv(blk["xattn"], enc, self.arch.attn, tp_group("xattn", self.arch, self.mi))
         x, kv = tf.dec_block_seq(blk, x, enc_kv, self.arch, q_chunk=min(self.q_chunk, S),
                                  kv_chunk=min(self.kv_chunk, S), mi=self.mi)
         return x, kv, enc_kv

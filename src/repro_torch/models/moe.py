@@ -21,6 +21,11 @@ executor and expert parallelism (counterpart of ``repro.models.moe``).
   (``REPRO_EP_MODE=a2a``) shards the tokens, exchanges capacity buffers
   with the expert owners and runs every (local expert, source rank)
   segment as a group of its own (:func:`experts_ffn_dual_segmented`).
+  Under autograd (training on a mesh) the bodies' collectives carry the
+  gradient (:mod:`.collectives`): the tokens and routing weights enter a
+  rank's experts through ``collectives.enter``, and each data rank
+  differentiates its own rows' aux loss, as the reference's ``pmean`` of
+  the aux loss over the data axes differentiates (:func:`_aux_on_mesh`).
 
 Every op is on fixed shapes and data-independent control flow, so a MoE
 layer on one device issues no host synchronisation (the collectives of
@@ -492,6 +497,16 @@ def moe_local(params: dict, x: torch.Tensor, arch: ArchConfig,
     return MoEOut(y, r.aux_loss, r.counts, disp.n_dropped + exec_dropped)
 
 
+def _aux_on_mesh(mean: torch.Tensor, own: torch.Tensor) -> torch.Tensor:
+    """The aux loss a mesh body returns: the value of ``mean`` (the
+    all-reduced mean of the shards' aux losses, the reported metric) with
+    the gradient of ``own`` (this data row's aux loss).  The reference's
+    ``pmean`` over the data axes differentiates so: each data row's
+    gradient is that of its own rows' aux loss, and the data-parallel mean
+    of the gradients averages them."""
+    return mean + (own - own.detach())
+
+
 def _ep_body(params: dict, x: torch.Tensor, arch: ArchConfig, mi: MeshInfo,
              sieve: Optional[SieveState] = None) -> MoEOut:
     """Replicated-dispatch expert parallelism (``repro.models.moe._ep_body``).
@@ -510,16 +525,18 @@ def _ep_body(params: dict, x: torch.Tensor, arch: ArchConfig, mi: MeshInfo,
     r = route(x, params["w_router"], cfg)
     cap = capacity(T, cfg, E)
     off = mi.model_index * E_loc
-    disp = dispatch(x, r, E, cap, expert_offset=off, n_local=E_loc)
+    # the replicated tokens and routing weights enter this rank's experts
+    disp = dispatch(coll.enter(x, mi.model_group), r, E, cap, expert_offset=off, n_local=E_loc)
     # the rows in this rank's buffer: its slice of the routed counts, clipped
     local_rows = torch.clamp(r.counts[off:off + E_loc], max=cap)
     y_buf, exec_dropped = experts_ffn_exec(params, disp.buf, local_rows, cfg, sieve)
-    y_partial = combine(y_buf, disp.slot_of, r.weights, T, sum_dtype=torch.float32)
+    y_partial = combine(y_buf, disp.slot_of, coll.enter(r.weights, mi.model_group), T,
+                        sum_dtype=torch.float32)
     y, dropped = coll.all_reduce_sum([y_partial, disp.n_dropped + exec_dropped], mi.model_group)
     # global counts per expert (the Sieve scheduler's input): the router
     # saw this data shard's tokens, so sum over the data group
-    counts, aux, dropped = coll.all_reduce_sum([r.counts, r.aux_loss, dropped], mi.data_group)
-    return MoEOut(y.to(x.dtype), aux / mi.dp_size, counts, dropped)
+    counts, aux, dropped = coll.all_reduce_sum([r.counts, r.aux_loss.detach(), dropped], mi.data_group)
+    return MoEOut(y.to(x.dtype), _aux_on_mesh(aux / mi.dp_size, r.aux_loss), counts, dropped)
 
 
 def _ep_a2a_body(params: dict, x: torch.Tensor, arch: ArchConfig, mi: MeshInfo,
@@ -539,7 +556,8 @@ def _ep_a2a_body(params: dict, x: torch.Tensor, arch: ArchConfig, mi: MeshInfo,
     E = cfg.n_experts
     E_loc = E // nm
     T, d = x.shape
-    r = route(x, params["w_router"], cfg)
+    # the router reads this rank's own tokens: the replicated router enters
+    r = route(x, coll.enter(params["w_router"], mi.model_group), cfg)
     cap = capacity(T, cfg, E)
     disp = dispatch(x, r, E, cap)
 
@@ -563,13 +581,24 @@ def _ep_a2a_body(params: dict, x: torch.Tensor, arch: ArchConfig, mi: MeshInfo,
     y_buf = y_buf.reshape(E_loc, nm, cap, d).permute(1, 0, 2, 3).contiguous()
     y_buf = coll.all_to_all(y_buf, mi.model_group).reshape(E, cap, d)
     y = combine(y_buf, disp.slot_of, r.weights, T)
-    counts, aux, dropped = coll.all_reduce_sum([r.counts, r.aux_loss, disp.n_dropped + exec_dropped],
+    counts, aux, dropped = coll.all_reduce_sum([r.counts, r.aux_loss.detach(), disp.n_dropped + exec_dropped],
                                                mi.token_group)
-    return MoEOut(y, aux / (mi.dp_size * nm), counts, dropped)
+    aux = aux / (mi.dp_size * nm)
+    if r.aux_loss.requires_grad:
+        # the data row's aux loss, the mean of its model ranks' token
+        # shards', differentiated by each data rank
+        aux = _aux_on_mesh(aux, coll.row_parallel_sum(r.aux_loss / nm, mi.model_group))
+    return MoEOut(y, aux, counts, dropped)
 
 
 def _routed_params(params: dict) -> dict:
     return {k: params[k] for k in ("w_router", "w_gate", "w_up", "w_down")}
+
+
+def expert_parallel(cfg: MoEConfig, mi: MeshInfo) -> bool:
+    """Whether the experts run expert-parallel on ``mi``: the model group
+    has more than one rank and divides them."""
+    return mi.ep_size > 1 and cfg.n_experts % mi.ep_size == 0
 
 
 def moe_block(params: dict, x: torch.Tensor, arch: ArchConfig,
@@ -591,13 +620,13 @@ def moe_block(params: dict, x: torch.Tensor, arch: ArchConfig,
     xt = x.reshape(B * S, d)
     sieve = resolve_sieve_state(cfg, d, sieve, x.device)
     routed_params = _routed_params(params)
-    if mi.ep_size > 1 and cfg.n_experts % mi.ep_size == 0:
+    if expert_parallel(cfg, mi):
         use_a2a = os.environ.get("REPRO_EP_MODE", "psum") == "a2a" and (B * S) % mi.ep_size == 0
         if use_a2a:
             # the tokens of this data row, split over its model ranks
             n = (B * S) // mi.ep_size
-            part = _ep_a2a_body(routed_params, xt[mi.model_index * n:(mi.model_index + 1) * n],
-                                arch, mi, sieve=sieve)
+            mine = coll.enter(xt, mi.model_group)[mi.model_index * n:(mi.model_index + 1) * n]
+            part = _ep_a2a_body(routed_params, mine, arch, mi, sieve=sieve)
             routed = part._replace(y=coll.all_gather(part.y, mi.model_group).reshape(B * S, d))
         else:
             routed = _ep_body(routed_params, xt, arch, mi, sieve=sieve)

@@ -321,6 +321,29 @@ def rank_part(a, path, arch: Optional[ArchConfig], mi: MeshInfo):
     return torch.cat(parts, dim=axis) if isinstance(a, torch.Tensor) else np.concatenate(parts, axis=axis)
 
 
+def rank_join(parts, path, shape, arch: Optional[ArchConfig], m: int):
+    """The whole leaf of shape ``shape`` at ``path`` from the parts
+    :func:`rank_part` gives the ``m`` ranks of a model group, in the
+    group's rank order (numpy or torch): the inverse of :func:`rank_part`.
+    A leaf held whole is the first rank's part; a fused leaf joins each
+    split part's slices and takes the unsplit parts from the first rank."""
+    axis = tp_axis(path, shape, arch, m)
+    if axis is None:
+        return parts[0]
+    cat = torch.cat if isinstance(parts[0], torch.Tensor) else np.concatenate
+    segments = tp_segments([k for k in path if isinstance(k, str)], arch)
+    if segments is None:
+        return cat(list(parts), axis)
+    pieces, at = [], 0
+    for n, split in segments:
+        width = n // m if split else n
+        idx = [slice(None)] * len(shape)
+        idx[axis] = slice(at, at + width)
+        pieces.extend([part[tuple(idx)] for part in parts] if split else [parts[0][tuple(idx)]])
+        at += width
+    return cat(pieces, axis)
+
+
 def rank_cut(tree: Any, mi: MeshInfo, arch: Optional[ArchConfig] = None, path=()) -> Any:
     """This rank's part of a parameter tree (nested dicts of arrays or
     tensors, scan-stacked or not): each leaf as :func:`rank_part` cuts it,

@@ -24,7 +24,13 @@ On a tensor-parallel rank (``sharding.tp_splits``' ``mamba``, ``rwkv`` and
 read their head counts from them (Mamba2's ``A_log``, RWKV6's ``u``) and
 take the model group (``group``) whose sums the block needs: Mamba2's
 gated RMSNorm over the whole ``d_inner`` and its ``w_out``, RWKV6's
-``w_o`` and ``w_cv`` (row-parallel sums in float32).
+``w_o`` and ``w_cv`` (row-parallel sums in float32).  What every rank
+computes whole and then feeds to its own heads or columns enters them
+through ``collectives.enter`` (its gradient summed over the group): the
+block's input where it meets the rank's columns, Mamba2's ``B``/``C`` and
+its norm's sum of squares, RWKV6's token-shift mixes and the decay LoRA's
+``tanh(mix_w @ wA)``.  Mamba2's whole ``B``/``C`` columns of ``w_in`` read
+the input itself, so their gradient to it is counted once.
 """
 
 from __future__ import annotations
@@ -132,9 +138,19 @@ def _mamba2_local_dims(params, cfg: SSMConfig):
     return H * cfg.head_dim, H
 
 
-def _mamba2_preproject(params, x, cfg: SSMConfig, d_inner: int):
+def _mamba2_preproject(params, x, cfg: SSMConfig, d_inner: int, group=None):
+    """``x @ w_in`` split into ``z``, ``xBC`` and ``dt``.  Under autograd
+    with ``group`` the rank's ``z``, ``x`` and ``dt`` columns read the
+    entered input and the whole ``B``/``C`` columns ``x`` itself (the same
+    values)."""
     GN = cfg.n_groups * cfg.d_state
-    proj = x @ params["w_in"]
+    w = params["w_in"]
+    xe = coll.enter(x, group)
+    if xe is x:
+        proj = x @ w
+    else:
+        bc = 2 * d_inner + 2 * GN
+        proj = torch.cat([xe @ w[:, :2 * d_inner], x @ w[:, 2 * d_inner:bc], xe @ w[:, bc:]], dim=-1)
     z = proj[..., :d_inner]
     xBC = proj[..., d_inner: 2 * d_inner + 2 * GN]
     dt = proj[..., 2 * d_inner + 2 * GN:].float()
@@ -162,7 +178,8 @@ def _gated_out(params, y: torch.Tensor, z: torch.Tensor, dtype, group=None) -> t
     if group is None:
         ms = (yf * yf).mean(-1, keepdim=True)
     else:
-        ms = coll.all_reduce((yf * yf).sum(-1, keepdim=True), group) / (yf.shape[-1] * coll.group_size(group))
+        ss = coll.row_parallel_sum((yf * yf).sum(-1, keepdim=True), group)
+        ms = coll.enter(ss, group) / (yf.shape[-1] * coll.group_size(group))
     yf = yf * torch.rsqrt(ms + 1e-6) * params["norm_scale"]
     return coll.row_parallel_sum(yf.to(dtype) @ params["w_out"], group)
 
@@ -191,7 +208,7 @@ def mamba2_seq(
     if state is None:
         state = mamba2_init_state(Bsz, d_model, cfg, x.dtype, x.device, heads=H)
 
-    z, xBC, dt = _mamba2_preproject(params, x, cfg, d_inner)
+    z, xBC, dt = _mamba2_preproject(params, x, cfg, d_inner, group)
     # causal depthwise conv with carried state
     pad = torch.cat([state.conv.to(xBC.dtype), xBC], dim=1)
     new_conv = pad[:, -(cfg.conv_width - 1):, :] if cfg.conv_width > 1 else state.conv
@@ -199,6 +216,7 @@ def mamba2_seq(
     conv = sum(pad[:, i: i + T, :] * w[i][None, None, :] for i in range(cfg.conv_width))
     xBC = F.silu(conv + params["conv_b"])
     x_ssm, Bm, Cm = _split_xbc(xBC, d_inner, G, N)
+    Bm, Cm = coll.enter(Bm, group), coll.enter(Cm, group)
 
     xh = x_ssm.reshape(Bsz, T, H, P).float()
     Bh, Ch = _heads(Bm, G, H, N), _heads(Cm, G, H, N)
@@ -245,7 +263,7 @@ def mamba2_step(
     d_inner, H = _mamba2_local_dims(params, cfg)
     G, N, P = cfg.n_groups, cfg.d_state, cfg.head_dim
 
-    z, xBC, dt = _mamba2_preproject(params, x, cfg, d_inner)
+    z, xBC, dt = _mamba2_preproject(params, x, cfg, d_inner, group)
     z, xBC, dt = z[:, 0], xBC[:, 0], dt[:, 0]
     window = torch.cat([state.conv.to(xBC.dtype), xBC[:, None, :]], dim=1)  # (B, W, C)
     xBC = F.silu(torch.einsum("bwc,wc->bc", window, params["conv_w"]) + params["conv_b"])
@@ -346,15 +364,16 @@ def rwkv6_time_mix_seq(params, x, cfg: SSMConfig, state: RWKV6State, group=None)
     H, P = params["u"].shape  # this rank's heads on a tensor-parallel mesh
     prev = _token_shift(x, state.x_tm.to(x.dtype))
 
-    def mix(name):
-        return _mix(x, prev, params[f"mix_{name}"])
+    def mix(name):  # entering the rank's heads' columns
+        return coll.enter(_mix(x, prev, params[f"mix_{name}"]), group)
 
     r = (mix("r") @ params["w_r"]).reshape(B, T, H, P).float()
     k = (mix("k") @ params["w_k"]).reshape(B, T, H, P).float()
     v = (mix("v") @ params["w_v"]).reshape(B, T, H, P).float()
     g = mix("g") @ params["w_g"]
     # data-dependent decay (LoRA): w in (0, 1)
-    dd = params["w0"] + torch.tanh(mix("w").float() @ params["wA"]) @ params["wB"]
+    lora = torch.tanh(_mix(x, prev, params["mix_w"]).float() @ params["wA"])  # wA whole
+    dd = params["w0"] + coll.enter(lora, group) @ params["wB"]
     w = torch.exp(-torch.exp(dd)).reshape(B, T, H, P)
 
     # chunks of the reference's length: under autograd only the state at
@@ -382,7 +401,8 @@ def rwkv6_channel_mix_seq(params, x, state: RWKV6State, group=None):
     prev = _token_shift(x, state.x_cm.to(x.dtype))
     xk = _mix(x, prev, params["cmix_k"])
     xr = _mix(x, prev, params["cmix_r"])
-    kv = coll.row_parallel_sum(torch.square(F.relu(xk @ params["w_ck"])) @ params["w_cv"], group)
+    kv = coll.row_parallel_sum(torch.square(F.relu(coll.enter(xk, group) @ params["w_ck"])) @ params["w_cv"],
+                               group)
     out = torch.sigmoid((xr @ params["w_cr"]).float()).to(x.dtype) * kv
     return out, RWKV6State(x_tm=state.x_tm, x_cm=x[:, -1, :], wkv=state.wkv)
 

@@ -47,6 +47,7 @@ replay's stream, never inside a capture.
 
 from __future__ import annotations
 
+import gc
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
@@ -316,9 +317,18 @@ class ServingEngine:
         launches: Dict[str, int] = {}
         # torch.cuda.graph captures on a side stream after synchronising
         # the device; the capture runs nothing, and replays launch on the
-        # current stream, in order with the eager prefill
-        with ops.recording_launches(launches), torch.cuda.graph(graph):
-            logits, _, aux = self.lm.decode_step(self.params, batch, self.cache)
+        # current stream, in order with the eager prefill.  No garbage
+        # collection inside it: a collected cycle holding CUDA objects (an
+        # earlier engine's graph, say) makes CUDA calls a capture does not
+        # allow, which invalidates it
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with ops.recording_launches(launches), torch.cuda.graph(graph):
+                logits, _, aux = self.lm.decode_step(self.params, batch, self.cache)
+        finally:
+            if collecting:
+                gc.enable()
         self._graph, self._graph_out, self._graph_launches = graph, (logits, aux), launches
         self.n_captures += 1
 

@@ -8,16 +8,23 @@ parameters and moments into the given tensors, where the reference's
 compiled step gets the same effect from XLA's buffer donation: a
 3B-parameter model at full width on one card has no room for a second
 copy of its moments.
+
+On a mesh each rank updates its own part of the tree (the slices
+``repro_torch.models.sharding`` gives it) from the data-parallel mean of
+the gradients; the global norm adds each split leaf's squares over the
+model group and counts each replicated leaf once, so every rank clips by
+the norm of the whole tree.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, NamedTuple, Union
+from typing import Any, NamedTuple, Optional, Sequence, Union
 
 import torch
 
+from repro_torch.models import collectives as coll
 from . import tree as tr
 
 
@@ -64,8 +71,17 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def global_norm(grads: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tr.leaves(grads)))
+def global_norm(grads: Any, split: Optional[Sequence[bool]] = None, group=None) -> torch.Tensor:
+    """The float32 norm of the whole gradient tree.  On a mesh ``split``
+    flags (in leaf order) the leaves a rank holds a slice of: their squares
+    are summed over the model ``group``, the replicated leaves' counted
+    once."""
+    squares = [torch.sum(torch.square(g.float())) for g in tr.leaves(grads)]
+    if split is None or coll.group_size(group) == 1:
+        return torch.sqrt(sum(squares))
+    mine = sum((s for s, f in zip(squares, split) if f), torch.zeros_like(squares[0]))
+    whole = sum((s for s, f in zip(squares, split) if not f), torch.zeros_like(squares[0]))
+    return torch.sqrt(coll.all_reduce(mine, group) + whole)
 
 
 def _clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -96,14 +112,17 @@ def decay_mask(path) -> bool:
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params: Any, grads: Any, state: OptState):
+def adamw_update(cfg: AdamWConfig, params: Any, grads: Any, state: OptState,
+                 grad_norm: Optional[torch.Tensor] = None):
     """One AdamW step on global-norm-clipped gradients.  Returns
     ``(params, state, {"grad_norm", "lr"})``: the tensors of ``params`` and
     of the state's moments are updated in place and returned, the step
     counter is a new tensor.  Each leaf's float32 temporaries live only
     while that leaf is updated (the clip is applied leaf by leaf, which is
-    the reference's clipped tree, one leaf at a time)."""
-    gn = global_norm(grads)
+    the reference's clipped tree, one leaf at a time).  ``grad_norm``: the
+    tree's norm, computed by the caller (on a mesh, :func:`global_norm`
+    over the model group); by default :func:`global_norm` of ``grads``."""
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     scale = _clip_scale(gn, cfg.grad_clip)
     step = state.step + 1
     lr = lr_schedule(cfg, step)

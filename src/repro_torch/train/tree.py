@@ -10,7 +10,7 @@ from typing import Any, Callable, List, Tuple
 Path = Tuple[Any, ...]
 
 
-def _children(tree) -> List[Tuple[Any, Any]]:
+def children(tree) -> List[Tuple[Any, Any]]:
     """(key, child) pairs of a node, or [] for a leaf."""
     if isinstance(tree, dict):
         return [(k, tree[k]) for k in sorted(tree)]
@@ -27,19 +27,20 @@ def leaves_with_paths(tree, path: Path = ()) -> List[Tuple[Path, Any]]:
     """Every leaf with its path of dict keys and sequence indices."""
     if not _is_node(tree):
         return [(path, tree)]
-    return [pl for k, child in _children(tree) for pl in leaves_with_paths(child, path + (k,))]
+    return [pl for k, child in children(tree) for pl in leaves_with_paths(child, path + (k,))]
 
 
 def leaves(tree) -> List[Any]:
     return [leaf for _, leaf in leaves_with_paths(tree)]
 
 
-def _rebuild(tree, children: list):
+def rebuild(tree, kids: list):
+    """A node of ``tree``'s type holding ``kids`` in its children's order."""
     if isinstance(tree, dict):
-        return dict(zip(sorted(tree), children))
+        return dict(zip(sorted(tree), kids))
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):  # NamedTuple
-        return type(tree)(*children)
-    return type(tree)(children)
+        return type(tree)(*kids)
+    return type(tree)(kids)
 
 
 def unflatten(like, new_leaves: List[Any]):
@@ -50,7 +51,7 @@ def unflatten(like, new_leaves: List[Any]):
     def build(t):
         if not _is_node(t):
             return next(it)
-        return _rebuild(t, [build(child) for _, child in _children(t)])
+        return rebuild(t, [build(child) for _, child in children(t)])
 
     out = build(like)
     if next(it, None) is not None:
@@ -72,5 +73,5 @@ def structure(tree) -> str:
     a checkpoint's manifest."""
     if not _is_node(tree):
         return "*"
-    inner = ",".join(f"{k}:{structure(child)}" for k, child in _children(tree))
+    inner = ",".join(f"{k}:{structure(child)}" for k, child in children(tree))
     return f"{type(tree).__name__}({inner})"

@@ -11,6 +11,8 @@ tests/test_fused_swiglu.py:50; the kernels sum in another order than the
 plain float32 einsums and round the output to bf16.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -1410,3 +1412,53 @@ class TestTraining:
         for a, b in zip(leaves(runs["cuda"]["grads"]), leaves(runs["cpu"]["grads"])):
             assert torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-5), float((a.cpu() - b).abs().max())
         assert not any(runs["cuda"]["launches"].values())
+
+
+@pytest.mark.cuda
+class TestMeshTraining:
+    def test_mesh_gradients_match_one_process_per_row_mean(self, cuda):
+        """Four ranks share the card on gloo as a (2, 2) mesh and train the
+        2-layer qwen3-moe proxy (attention split by heads, 32 experts a
+        rank, the vocabulary 2 ways).  In float32 each rank's gradient after
+        the data-parallel reduce is its part of the mean of one process's
+        gradients of the two data rows' halves on the card, leaf by leaf by
+        the phase-4 rule (max |err| at most 5% of the largest, cosine at
+        least 0.999): in bf16 this proxy's gradients on one process alone
+        differ from float32 ones by up to 60% of a leaf's largest element
+        (cosine 0.90), so no rule holds them there.  A leaf every rank
+        holds whole has the same gradient bits on every rank, and after two
+        bf16 train steps with int8 compression so have the parameters (a
+        split leaf's on every rank of its model index); the losses are
+        finite and the same on every rank."""
+        import _torch_train_mesh_ranks as mr
+        from repro_torch.launch.mesh import run_on_mesh
+        from repro_torch.models import LM
+        from repro_torch.models.moe import MeshInfo
+        from repro_torch.models.sharding import rank_part, tp_axis
+        from repro_torch.train.train_loop import _loss_and_grads
+        from repro_torch.train.tree import leaves_with_paths, tree_map
+
+        ranks = run_on_mesh(mr.cuda_rank_main, (2, 2), "gloo", "cuda:0", timeout_s=300)
+        arch, b = mr.card_case()
+        one = LM(arch, torch.float32, "cuda")
+        p1 = tree_map(lambda p: p.requires_grad_(True), one.init(seed=2, keyed=True))
+        acc = None
+        for rows in (slice(0, 2), slice(2, 4)):
+            _, _, g = _loss_and_grads(one, p1, {k: torch.from_numpy(v[rows]).cuda() for k, v in b.items()})
+            g = [x.float() for _, x in leaves_with_paths(g)]
+            acc = g if acc is None else [a + x for a, x in zip(acc, g)]
+        whole = [(p, w.shape) for p, w in leaves_with_paths(one.shapes())]
+        for r in ranks:
+            mi = MeshInfo(model_index=r["model_index"], data_index=r["data_index"], ep_size=2, dp_size=2)
+            assert all(map(math.isfinite, r["losses"])) and r["losses"] == ranks[0]["losses"]
+            for (path, got), want in zip(r["grads"], acc):
+                want = rank_part(want / 2, path, arch, mi).cpu()
+                err, scale = float((got - want).abs().max()), float(want.abs().max())
+                cos = float(torch.nn.functional.cosine_similarity(got.flatten(), want.flatten(), dim=0))
+                assert err <= 5e-2 * scale and cos >= 0.999, (path, err, scale, cos)
+            for key in ("grads", "params"):
+                for i, ((path, shape), (_, mine)) in enumerate(zip(whole, r[key])):
+                    split = tp_axis(path, shape, arch, 2) is not None
+                    for o in ranks:
+                        if not split or o["model_index"] == r["model_index"]:
+                            assert torch.equal(mine, o[key][i][1]), (key, path)

@@ -261,6 +261,36 @@ def test_compress_matches_jax_exactly():
     assert tcomp.compressed_bytes(tc) == jcomp.compressed_bytes(jc) == 64 * 32 + 7 + 3 + 3 * 4
 
 
+@pytest.mark.parametrize("case", ["qwen3-moe", "deepseek-v2", "zamba2", "rwkv6", "whisper"])
+def test_compress_takes_a_layer_stack_as_one_leaf(case):
+    """A gradient tree in the reference's layout (each layer scaled
+    differently, so a stack's largest element is one layer's) and the
+    same tree in the port's, its stacks split into a leaf a layer: the
+    port's ``compress`` with ``stack_ids`` gives every layer of a stack
+    the scale of the reference's stacked leaf, and the same int8 values
+    and residual."""
+    import _torch_train_mesh_cases as mcases
+    from _torch_ep_cases import flatten, unflatten
+
+    lm = TLM(mcases.run_arch(tget, case), dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(7)
+    g = {k: (rng.standard_normal(v.shape) * np.arange(1, v.shape[0] + 1).reshape((-1,) + (1,) * (v.ndim - 1))
+             ).astype(np.float32) for k, v in flatten(params_to_numpy(lm.init(0))).items()}
+    ported = params_from_numpy(unflatten(g, ""), "cpu", torch.float32)
+    jc, jres = jcomp.compress(jax.tree.map(jnp.asarray, g), jcomp.init_residual(jax.tree.map(jnp.asarray, g)))
+    tc, tres = tcomp.compress(ported, tcomp.init_residual(ported), tcomp.stack_ids(ported))
+    want_q, want_s = flatten(jax.tree.map(np.asarray, jc.q)), flatten(jax.tree.map(np.asarray, jc.scale))
+    got_q = flatten(params_to_numpy(tr.tree_map(lambda q: q.float(), tc.q)))
+    assert set(got_q) == set(want_q)
+    for (path, s), _ in zip(tr.leaves_with_paths(tc.scale), tr.leaves(ported)):
+        assert float(s) == float(want_s["/".join(str(k) for k in path if not isinstance(k, int))]), path
+    for name, q in got_q.items():
+        np.testing.assert_array_equal(q, want_q[name].astype(np.float32), err_msg=name)
+    want_r = flatten(jax.tree.map(np.asarray, jres))
+    for name, r in flatten(params_to_numpy(tres)).items():
+        assert_close(r, want_r[name])
+
+
 @pytest.mark.parametrize("compression", [False, True], ids=["plain", "int8"])
 def test_five_train_steps_track_jax(compression):
     """Five ``make_train_step`` steps on qwen1.5-0.5b reduced, on the

@@ -46,7 +46,6 @@ from repro_torch.configs import get_arch as tget  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.models import LM as TLM  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
-from repro_torch.models.moe import MeshInfo  # noqa: E402
 from repro_torch.train import optimizer as topt  # noqa: E402
 from repro_torch.train import train_loop as tloop  # noqa: E402
 from repro_torch.train import tree as tr  # noqa: E402
@@ -257,14 +256,3 @@ def test_launcher_refuses_whisper_naming_the_frames(tmp_path):
 
     with pytest.raises(ValueError, match="frames"):
         train.main(["--arch", "whisper-base", "--device", "cpu", "--steps", "1", "--ckpt-dir", str(tmp_path)])
-
-
-@pytest.mark.parametrize("name", NAMES)
-def test_forward_on_a_mesh_raises(name):
-    """Training on a mesh waits for the data- and tensor-parallel training
-    of ROADMAP Queue 1: ``LM.forward`` on a mesh raises for these families
-    too, while prefill takes the mesh."""
-    lm = TLM(tget(name).reduced(), dtype=torch.float32, device="cpu", mesh_info=MeshInfo(backend="gloo"))
-    batch = _tbatch(_batch(lm.arch))
-    with pytest.raises(NotImplementedError, match="training on a mesh"):
-        lm.loss(lm.init(seed=0), batch)

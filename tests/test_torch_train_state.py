@@ -286,11 +286,6 @@ def test_launch_train_on_the_cpu(tmp_path, capsys):
     assert launch_train.main(argv) == []
 
 
-def test_launch_train_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        launch_train.main(["--arch", "qwen1.5-0.5b", "--device", "cpu", "--mesh", "2x2"])
-
-
 def test_train_state_defaults_to_the_card():
     lm_cpu = LM(get_arch("qwen1.5-0.5b").reduced(), dtype=torch.float32, device="cpu")
     params, opt, res = init_train_state(lm_cpu, 0, TrainConfig())
